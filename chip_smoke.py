@@ -18,11 +18,21 @@ success):
    TF32 off, serves 3 greedy prompts through a ``ServingFleet``; every
    stream must equal the replica's ``generate_sequential`` and the port's
    plain path on the CPU, and the last-step logits must agree;
+   then a paged replica with the prefix cache, on the card and on the
+   CPU, must emit the card's ring streams for a shared page-aligned system
+   prompt, a full hit (copy-on-write), a capacity-length prompt and a
+   mid-stream join;
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
    counters must prove every kernel ran on that path, as often as the
-   engine's own step and chunk counters say.
+   engine's own step and chunk counters say;
+5. paged serve: the same fleet in paged mode with the prefix cache (pages
+   of 16, 512 pages per replica), 12 requests sharing a 512-token system
+   prompt, one equal to it: all ``ok``, prefix hits, fewer tokens
+   prefilled than the prompts hold, at least one copy-on-write, the paged
+   kernel launched 36 times per decode step, and no page held by a lane
+   once the fleet stops.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary, the card
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -144,12 +154,48 @@ def ring_positions(rng, b, n, lens, holes=0.0):
     return pos.astype(np.int32)
 
 
+def paged_layout(rng, lens, page, maxp, share=0, holes=0.0, stale=0.0,
+                 empty=()):
+    """Block tables (B, maxp) and a pool pos plane (P + 1, page), int32, for
+    lanes of lengths ``lens``: each lane's pages are distinct rows of a
+    shuffled pool, every row first holds a previous tenant's positions
+    (so slots past a lane's length are stale, not empty), lanes 0 and 1
+    share their first ``share`` pages, a share ``holes`` of table entries
+    is then made absent (-1), a share ``stale`` of live pages keeps
+    another slot's positions, and the lanes in ``empty`` have no page."""
+    import numpy as np
+    b = len(lens)
+    npool = b * maxp
+    perm = iter(rng.permutation(npool))
+    tables = np.full((b, maxp), -1, np.int64)
+    pos = np.full((npool + 1, page), -1, np.int64)
+    pos[:npool] = (rng.integers(0, maxp, size=(npool, 1)) * page
+                   + np.arange(page))
+    for i, ln in enumerate(lens):
+        if i in empty:
+            continue
+        for j in range(min(-(-int(ln) // page), maxp)):
+            if i == 1 and j < share:
+                tables[i, j] = tables[0, j]
+                continue
+            row = next(perm)
+            tables[i, j] = row
+            p = j * page + np.arange(page)
+            pos[row] = np.where(p < ln, p, pos[row])
+    live = np.argwhere(tables >= 0)
+    for i, j in live[rng.random(len(live)) < stale]:
+        pos[tables[i, j]] = ((j + 1) % maxp) * page + np.arange(page)
+    tables[(rng.random(tables.shape) < holes) & (tables >= 0)] = -1
+    return tables.astype(np.int32), pos.astype(np.int32)
+
+
 def check_kernels(dev):
     """Phase 2: every kernel against its plain version on the card."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode_attention as pk
     from repro_torch.kernels import rmsnorm as rk
 
     rng = np.random.default_rng(SEED)
@@ -162,7 +208,8 @@ def check_kernels(dev):
     # absolute; RMSNorm outputs reach several units, so there two bf16
     # roundings of the largest |reference| (2^-7 relative).
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-    results = {"decode_attention": [], "flash_attention": [], "rmsnorm": []}
+    results = {"decode_attention": [], "flash_attention": [], "rmsnorm": [],
+               "paged_decode_attention": []}
 
     def t(a, dtype):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
@@ -219,6 +266,34 @@ def check_kernels(dev):
                            f"{case} splits={splits or 'auto'}", got, exp,
                            dtype, lanes)
 
+    # paged decode: B=8 over a shuffled pool of pages 8 and 16; every case
+    # has absent entries, stale pos rows, two lanes sharing prefix pages, a
+    # length-1 lane and a lane with no page (all lanes compared: a lane with
+    # no visible slot must give what the oracle gives)
+    for page in (8, 16):
+        maxp = 2048 // page
+        plens = np.concatenate([[700, 900, 1, 2048],
+                                rng.integers(1, 2049, size=b - 4)])
+        tables, ppos = paged_layout(rng, plens, page, maxp, share=600 // page,
+                                    holes=0.05, stale=0.05, empty=(7,))
+        tab = torch.from_numpy(tables).to(dev)
+        pp = torch.from_numpy(ppos).to(dev)
+        cl = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+            kp = t(rng.standard_normal((b * maxp + 1, page, hkv, d)), dtype)
+            vp = t(rng.standard_normal((b * maxp + 1, page, hkv, d)), dtype)
+            for window in (0, 64):
+                kw = dict(cache_len=cl, window=window, scale=scale)
+                exp = pk.paged_decode_attention_plain(q, kp, vp, pp, tab, **kw)
+                for splits in (None, 1):
+                    record("paged_decode_attention",
+                           f"B8 page{page} shuffled+holes+stale+shared w{window} "
+                           f"splits={splits or 'auto'}",
+                           pk.paged_decode_attention(q, kp, vp, pp, tab,
+                                                     splits=splits, **kw),
+                           exp, dtype)
+
     # flash: whole prompt S=512, and a 32-token chunk over a 2048-slot ring
     s = 512
     c, start_full, start_part = 32, 2500, 700
@@ -270,6 +345,7 @@ def time_kernels(dev):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode_attention as pk
     from repro_torch.kernels import rmsnorm as rk
 
     rng = np.random.default_rng(SEED + 1)
@@ -325,6 +401,44 @@ def time_kernels(dev):
                   lambda: sdpa(q, kc, vc, attn_mask=mask, scale=scale)),
         single_pass_ms=device_ms(
             lambda: dk.decode_attention(q, kc, vc, splits=1, **kw), flush),
+        bound_ms=bms, bound_by=by)
+
+    # paged decode at the ring row's shape: the same lanes' lengths over a
+    # shuffled pool of 16-token pages.  No single PyTorch call computes
+    # paged attention: the library row is SDPA with a boolean mask over K/V
+    # gathered through the tables beforehand, the gather left out of the
+    # time.
+    page, maxp = 16, n // 16
+    tables, ppos = paged_layout(rng, lens, page, maxp)
+    tab = torch.from_numpy(tables).to(dev)
+    pp = torch.from_numpy(ppos).to(dev)
+    kp = rnd((b * maxp + 1, page, hkv, d))
+    vp = rnd((b * maxp + 1, page, hkv, d))
+    kw = dict(cache_len=cl, window=0, scale=scale)
+    safe = tab.clamp_min(0).long()
+    kg = kp[safe].reshape(b, maxp * page, hkv, d)
+    vg = vp[safe].reshape(b, maxp * page, hkv, d)
+    expected = torch.arange(maxp * page, device=dev)[None]
+    pvis = ((pp[safe].reshape(b, -1) == expected) & (expected < cl[:, None])
+            & (tab >= 0).repeat_interleave(page, 1))
+    live_pages = int(((tab >= 0) & (torch.arange(maxp, device=dev)[None] * page
+                                    < cl[:, None])).sum())
+    nbytes = (live_pages * page * (hkv * d * 2 * 2 + 4) + 2 * q.numel() * 2
+              + tab.numel() * 4 + b * 4)
+    bms, by = bound(nbytes, 4 * hq * d * int(pvis.sum()), PEAK_BF16_FLOPS)
+    rows["paged_decode_attention"] = dict(
+        shape=(f"B={b} pages of {page}, {maxp} per lane, Hq={hq} Hkv={hkv} "
+               f"D={d} bf16 ragged, shuffled pool, "
+               f"{pk.auto_splits(b, hkv, maxp, page, dev)} splits"),
+        **timings(lambda: pk.paged_decode_attention(q, kp, vp, pp, tab, **kw),
+                  lambda: pk.paged_decode_attention_plain(q, kp, vp, pp, tab,
+                                                          **kw),
+                  lambda: sdpa(q, kg, vg, attn_mask=pvis[:, None, None, :],
+                               scale=scale)),
+        library_note="SDPA over K/V gathered beforehand (gather not timed)",
+        single_pass_ms=device_ms(
+            lambda: pk.paged_decode_attention(q, kp, vp, pp, tab, splits=1,
+                                              **kw), flush),
         bound_ms=bms, bound_by=by)
 
     # flash: the chunk the engine runs most, 32 queries over a full ring
@@ -461,16 +575,99 @@ def identity_phase(dev):
         # magnitude while a masking or position fault moves them by O(1)
         if not err <= 1e-3:
             raise AssertionError(f"identity logits differ by {err}")
-    fleet.stop()
     DETAILS["identity"] = dict(prompts=[40, 200, 700], new_tokens=new,
                                last_logits_max_abs_diff=worst, tol=1e-3)
+    paged_identity(cfg, model, cpu_model, rep)
+    fleet.stop()
     del model, rep, fleet
     torch.cuda.empty_cache()
 
 
+def drained(rep) -> dict:
+    """A paged replica's pool after its lanes let go: the allocator's
+    invariants hold and the prefix cache's own holds are the only ones
+    left (no page held by a lane).  Raises otherwise."""
+    rep._alloc.check()
+    cached = rep._prefix.cached_pages() if rep._prefix is not None else []
+    held = [p for p in range(rep.num_pages)
+            if rep._alloc.refcount(p) > (1 if p in set(cached) else 0)]
+    if held or (rep._tables != -1).any():
+        raise AssertionError(f"{rep.name}: pages still held by lanes {held}")
+    return dict(free=rep._alloc.free_count, cached=len(cached))
+
+
+def serve_paged(rep, reqs, first_alone: bool):
+    """Greedy streams of ``reqs`` on ``rep``: the first alone until its
+    system prompt is registered in the prefix cache (it then emits its
+    first token), the others from threads joining while it decodes."""
+    import threading
+    out = [None] * len(reqs)
+
+    def go(i):
+        out[i] = rep.generate(reqs[i]).tolist()
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(reqs))]
+    threads[0].start()
+    if first_alone:
+        t0 = time.perf_counter()
+        while not len(rep._prefix) and time.perf_counter() - t0 < 300:
+            time.sleep(0.005)
+    for i, t in enumerate(threads[1:]):
+        t.start()
+        time.sleep(0.05)
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{rep.name}: a request did not finish")
+    return out
+
+
+def paged_identity(cfg, model, cpu_model, ring):
+    """Phase 3b: a paged replica with the prefix cache, on the card and on
+    the CPU, against the card's ring replica, greedy: a request with a
+    page-aligned 64-token system prompt, a request equal to the system
+    prompt (a full hit: copy-on-write), a capacity-length prompt and
+    another sharer joining mid-stream."""
+    import numpy as np
+    from repro_torch.serving.engine import Replica, Request
+
+    cap, page = 256, 16
+    rng = np.random.default_rng(SEED + 4)
+    sysp = rng.integers(2, cfg.vocab_size, size=4 * page)
+    prompts = [np.concatenate([sysp, rng.integers(2, cfg.vocab_size, 40)]),
+               sysp.copy(), rng.integers(2, cfg.vocab_size, cap),
+               np.concatenate([sysp, rng.integers(2, cfg.vocab_size, 20)])]
+    prompts = [p.astype(np.int32) for p in prompts]
+    new = [24, 8, 1, 8]        # a capacity-length lane has room for 1 token
+    want = [ring.generate(Request(200 + i, p, n, 1e9)).tolist()
+            for i, (p, n) in enumerate(zip(prompts, new))]
+    got, stats = {}, {}
+    for where, m in (("card", model), ("cpu", cpu_model)):
+        rep = Replica(f"paged-{where}", cfg, m, slots=4, capacity=cap,
+                      prefill_chunk_tokens=32, paged=True, page_size=page,
+                      prefix_cache=True)
+        got[where] = serve_paged(rep, [Request(300 + i, p, n, 1e9) for i, (p, n)
+                                       in enumerate(zip(prompts, new))], True)
+        rep.stop()
+        stats[where] = dict(cow_copies=rep.cow_copies,
+                            prefilled_tokens=rep.prefilled_tokens,
+                            hit_rate=rep._prefix.hit_rate(), **drained(rep))
+        if rep.cow_copies < 1:
+            raise AssertionError(f"paged identity on the {where}: no COW")
+    total = sum(len(p) for p in prompts)
+    log(f"  paged+prefix: card == ring {got['card'] == want}, cpu == ring "
+        f"{got['cpu'] == want}; {stats}; prompts {total} tokens")
+    if not (got["card"] == want == got["cpu"]):
+        raise AssertionError(f"paged identity: ring {want} card {got['card']} "
+                             f"cpu {got['cpu']}")
+    DETAILS["paged_identity"] = dict(prompts=[len(p) for p in prompts],
+                                     new_tokens=new, prompt_tokens=total,
+                                     **stats)
+
+
 # ---------------------------------------------------------------- phase 4
 def _kernel_class(name: str) -> str:
-    for key, cls in (("decode_kernel", "decode_attention"),
+    for key, cls in (("paged_decode_kernel", "paged_decode_attention"),
+                     ("decode_kernel", "decode_attention"),
                      ("flash_kernel", "flash_attention"),
                      ("rmsnorm_kernel", "rmsnorm")):
         if key in name:
@@ -485,26 +682,42 @@ def _kernel_class(name: str) -> str:
 
 def step_profile(rep, cfg, dev, at: int = 1024):
     """Host wall time and device-busy time of one batched decode step (all
-    lanes at position ``at``) and one widest-bucket prefill chunk, on
-    scratch caches, with device time by kernel class."""
+    lanes at position ``at``) and, for a ring replica, one widest-bucket
+    prefill chunk, on scratch caches, with device time by kernel class.  A
+    paged replica's scratch tables (``scratch_tables``) map each lane to its
+    own run of pages, holding positions 0 .. at-1."""
     import numpy as np
     import torch
     from repro_torch.models import model as M
+    from repro_torch.serving.engine import scratch_tables
 
-    cache = M.init_cache(cfg, rep.slots, rep.capacity, dev)
-    lane = M.init_cache(cfg, 1, rep.capacity, dev)
-    for layer in cache + lane:      # rings holding positions 0 .. at-1
-        n = layer["pos"].shape[1]
-        p = torch.arange(max(0, at - n), at, dtype=torch.int32, device=dev)
-        layer["pos"][:, (p % n).long()] = p
     tok = np.zeros((rep.slots, 1), np.int64)
     idx = np.full((rep.slots,), at, np.int32)
-    buf = rep._zeros_tokens(rep.prefill_chunk_tokens)
+    if rep.paged:
+        cache = rep._new_cache()
+        tables = scratch_tables(rep)
+        page = rep.page_size
+        full = -(-at // page)
+        rows = tables[:, :full].reshape(-1).long()
+        p = (torch.arange(full, device=dev)[:, None] * page
+             + torch.arange(page, device=dev)).repeat(rep.slots, 1)
+        for layer in cache:
+            layer["pos"][rows] = torch.where(p < at, p, -1).to(torch.int32)
+        fns = (("decode_step", lambda: rep._step(rep.params, cache, tok, idx,
+                                                 tables)),)
+    else:
+        cache = M.init_cache(cfg, rep.slots, rep.capacity, dev)
+        lane = M.init_cache(cfg, 1, rep.capacity, dev)
+        for layer in cache + lane:      # rings holding positions 0 .. at-1
+            n = layer["pos"].shape[1]
+            p = torch.arange(max(0, at - n), at, dtype=torch.int32, device=dev)
+            layer["pos"][:, (p % n).long()] = p
+        buf = rep._zeros_tokens(rep.prefill_chunk_tokens)
+        fns = (("decode_step", lambda: rep._step(rep.params, cache, tok, idx)),
+               ("prefill_chunk", lambda: rep._prefill_chunk(rep.params, lane,
+                                                            buf, at)))
     out = {}
-    for name, fn in (
-            ("decode_step", lambda: rep._step(rep.params, cache, tok, idx)),
-            ("prefill_chunk", lambda: rep._prefill_chunk(rep.params, lane,
-                                                         buf, at))):
+    for name, fn in fns:
         for _ in range(2):
             fn()
         walls = []
@@ -625,6 +838,127 @@ def serve_phase(dev):
     return launches
 
 
+def paged_serve_phase(dev):
+    """Phase 5: the paged path with the prefix cache at qwen3-4b's full
+    config: 2 replicas sharing weights, 8 lanes, capacity 2048, pages of
+    16, 512 pages each (half of what 8 full lanes need), DDS; 12 requests
+    opening with one 512-token system prompt, the first alone until its
+    first token, one equal to the system prompt (a full hit)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_fleet
+    from repro_torch.serving.engine import Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config("qwen3-4b")
+    t0 = time.perf_counter()
+    fleet = build_fleet(cfg, "DDS", replicas=2, slots=8, capacity=2048,
+                        prefill_chunk_tokens=32, paged=True, page_size=16,
+                        num_pages=512, prefix_cache=True, seed=SEED,
+                        device=dev, verbose=False)
+    build_s = time.perf_counter() - t0
+    reps = list(fleet.replicas.values())
+    for r in reps:
+        log(f"  {r.name}: warmup {r.warmup_s:.2f} s; paged step ms by "
+            "occupancy " + ", ".join(
+                f"{int(x)}:{y:.2f}" for x, y in
+                zip(r.profile.step_curve.xs, r.profile.step_curve.ys))
+            + f"; chunk({r.prefill_chunk_tokens}) "
+              f"{r.profile.prefill_chunk_ms:.2f} ms")
+    DETAILS["paged_serve_build_s"] = build_s
+    DETAILS["paged_step_curve_ms"] = {r.name: list(r.profile.step_curve.ys)
+                                      for r in reps}
+
+    rng = np.random.default_rng(SEED + 5)
+    sysp = rng.integers(2, cfg.vocab_size, size=512)
+    sufs = rng.integers(16, 513, size=11)
+    prompts = [np.concatenate([sysp, rng.integers(2, cfg.vocab_size, int(n))])
+               .astype(np.int32) for n in sufs] + [sysp.astype(np.int32)]
+    reqs = [Request(i, p, 32, 600_000.0) for i, p in enumerate(prompts)]
+    reqs[5].temperature, reqs[5].top_p, reqs[5].seed = 0.8, 0.95, 1234
+    total = sum(len(p) for p in prompts)
+
+    before = {r.name: (r.decode_steps, r.prefill_chunks, r.whole_prefills,
+                       r.prefilled_tokens, r.cow_copies) for r in reps}
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(reqs)) as ex:
+        first = ex.submit(fleet.submit, reqs[0])
+        # the others follow once the first has registered the system
+        # prompt, which it does just before emitting its first token
+        while (not first.done() and time.perf_counter() - t0 < 300
+               and not any(len(r._prefix) for r in reps)):
+            time.sleep(0.005)
+        rest = [ex.submit(fleet.submit, r) for r in reqs[1:]]
+        res = [first.result()] + [f.result() for f in rest]
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    delta = {k: sum(getattr(r, k) - before[r.name][i] for r in reps)
+             for i, k in enumerate(("decode_steps", "prefill_chunks",
+                                    "whole_prefills", "prefilled_tokens",
+                                    "cow_copies"))}
+    for i, r in enumerate(res):
+        if r.outcome != "ok":
+            raise AssertionError(f"paged request {i}: {r.outcome} {r.error}")
+        toks = np.asarray(r.tokens)
+        if len(toks) != 32 or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"paged request {i}: bad tokens {toks}")
+    steps, chunks = delta["decode_steps"], delta["prefill_chunks"]
+    layers = cfg.num_layers
+    expect = {"paged_decode_attention": layers * steps,
+              "decode_attention": 0,
+              "flash_attention": layers * (chunks + delta["whole_prefills"]),
+              "rmsnorm": (4 * layers + 1) * (steps + chunks
+                                             + delta["whole_prefills"])}
+    log(f"  launches {launches}; expected {expect} from {steps} decode "
+        f"steps, {chunks} chunks")
+    for k, v in expect.items():
+        if not (launches[k] == v and (v > 0 or k == "decode_attention")):
+            raise AssertionError(f"{k}: {launches[k]} launches, expected {v}")
+    hit = {r.name: r._prefix.hit_rate() for r in reps}
+    # LRU evictions: distinct full prompt blocks a replica served, less the
+    # blocks its prefix cache still holds
+    blocks = {r.name: set() for r in reps}
+    for q, r in zip(reqs, res):
+        n = len(q.prompt) - len(q.prompt) % 16
+        blocks[r.replica].update(tuple(q.prompt[:e]) for e in range(16, n + 1,
+                                                                     16))
+    evicted = {r.name: len(blocks[r.name]) - len(r._prefix) for r in reps}
+    log(f"  prefix hit rate {hit}; prefilled {delta['prefilled_tokens']} of "
+        f"{total} prompt tokens; {delta['cow_copies']} COW copies; LRU "
+        f"evictions {evicted}")
+    if not (max(hit.values()) > 0 and delta["prefilled_tokens"] < total
+            and delta["cow_copies"] >= 1):
+        raise AssertionError("the prefix cache was not exercised")
+
+    DETAILS["paged_step_profile"] = step_profile(reps[0], cfg, dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    gen = sum(len(r.tokens) for r in res)
+    ttft = sorted(r.ttft_ms for r in res)
+    stats = dict(requests=len(res), ok=sum(r.ok for r in res),
+                 placements=dict(fleet.stats), wall_s=wall,
+                 tokens_per_s=gen / wall, generated_tokens=gen,
+                 prompt_tokens=total, prefix_hit_rate=hit,
+                 lru_evictions=evicted,
+                 ttft_p50_ms=ttft[len(ttft) // 2],
+                 ttft_p99_ms=ttft[min(int(len(ttft) * 0.99), len(ttft) - 1)],
+                 launches=launches, warmup_s={r.name: r.warmup_s for r in reps},
+                 peak_mem_gb=peak, **delta)
+    log(f"  {stats['ok']}/{len(res)} ok, placements {stats['placements']}, "
+        f"{gen} tokens in {wall:.2f} s = {stats['tokens_per_s']:.1f} tok/s, "
+        f"TTFT p50 {stats['ttft_p50_ms']:.0f} ms p99 "
+        f"{stats['ttft_p99_ms']:.0f} ms, peak memory {peak:.1f} GB")
+    fleet.stop()
+    stats["pools_after_stop"] = {r.name: drained(r) for r in reps}
+    DETAILS["paged_serve"] = stats
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -656,7 +990,11 @@ def main(argv=None) -> int:
     identity_phase(dev)
 
     log("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
-    launches = serve_phase(dev)
+    ring_launches = serve_phase(dev)
+
+    log("phase 5: paged serve with prefix cache (qwen3-4b full config, "
+        "bf16, 2 replicas, DDS)")
+    paged_launches = paged_serve_phase(dev)
 
     meta = {
         "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -665,19 +1003,25 @@ def main(argv=None) -> int:
                             "src/repro/kernels/flash_attention.py:75"),
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:31"),
+        "paged_decode_attention": (
+            "cuda", "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:193"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = rows[name]
+        by_path = {"ring": ring_launches[name], "paged": paged_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[name], "ms": r["ms"], "host_ms": r["host_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
-        if "single_pass_ms" in r:
-            kernels[-1]["single_pass_ms"] = r["single_pass_ms"]
+        for extra in ("single_pass_ms", "library_note"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     DETAILS["kernels"] = kernels
     DETAILS["card"] = card
     if args.details:

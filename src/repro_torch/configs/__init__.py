@@ -15,13 +15,13 @@ ARCHS: List[str] = ["granite_8b", "qwen3_4b", "gemma3_27b"]
 
 # archs of the JAX package not ported yet -> the ROADMAP item that ports them
 _LATER = {
-    "mamba2_780m": "section 2 item 3 (recurrent stacks)",
-    "recurrentgemma_9b": "section 2 item 3 (recurrent stacks)",
-    "mixtral_8x22b": "section 2 item 4 (MoE)",
-    "arctic_480b": "section 2 item 4 (MoE)",
-    "llama32_vision_90b": "section 2 item 5 (cross-attention)",
-    "musicgen_medium": "section 2 item 5 (cross-attention)",
-    "minicpm_2b": "section 2 item 8 (the rest)",
+    "mamba2_780m": "section 2 item 1 (recurrent stacks)",
+    "recurrentgemma_9b": "section 2 item 1 (recurrent stacks)",
+    "mixtral_8x22b": "section 2 item 3 (MoE)",
+    "arctic_480b": "section 2 item 3 (MoE)",
+    "llama32_vision_90b": "section 2 item 4 (cross-attention)",
+    "musicgen_medium": "section 2 item 4 (cross-attention)",
+    "minicpm_2b": "section 2 item 7 (the rest)",
 }
 
 

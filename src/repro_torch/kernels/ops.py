@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import rmsnorm as _norm
 
 
@@ -45,13 +46,26 @@ def decode_attention(q, k_cache, v_cache, *, cache_len, pos=None, window=0,
               window=window, scale=scale, softcap=softcap)
 
 
+def paged_decode_attention(q, k_pages, v_pages, pos_pages, tables, *,
+                           cache_len, window=0, scale, softcap=0.0):
+    """(B,1,Hq,D) over (P,page,Hkv,D) pools through (B,maxp) block tables
+    with per-lane lengths."""
+    fn = (_paged.paged_decode_attention if _route(q)
+          else _paged.paged_decode_attention_plain)
+    return fn(q, k_pages, v_pages, pos_pages, tables, cache_len=cache_len,
+              window=window, scale=scale, softcap=softcap)
+
+
+_COUNTED = {"decode_attention": _decode, "flash_attention": _flash,
+            "rmsnorm": _norm, "paged_decode_attention": _paged}
+
+
 def kernel_launches() -> dict:
-    """Launch counts of the three kernels (plain-version calls excluded)."""
-    return {"decode_attention": _decode.launches,
-            "flash_attention": _flash.launches, "rmsnorm": _norm.launches}
+    """Launch counts of the four kernels (plain-version calls excluded)."""
+    return {name: mod.launches for name, mod in _COUNTED.items()}
 
 
 def reset_kernel_launches() -> None:
-    for mod in (_decode, _flash, _norm):
+    for mod in _COUNTED.values():
         with mod._count_lock:
             mod.launches = 0

@@ -1,0 +1,129 @@
+"""Paged decode attention: one query token per lane over a block-table page
+pool.
+
+Kernel: ``csrc/paged_decode_attention.cu`` (CUDA C++ for ``sm_90a``),
+replacing the TPU kernel
+``repro/kernels/decode_attention.py::paged_decode_attention``
+(``_paged_decode_kernel``).  It is bound by the bytes of the live pages'
+K and V; the source's header says how its design meets that (each lane's
+table slots are split over several blocks, whose partial softmax states
+``rt::combine_splits`` merges; absent pages are never loaded).
+``paged_decode_attention`` launches it on CUDA tensors;
+``paged_decode_attention_plain`` is the oracle
+``ref.paged_decode_mha_reference``, which the CPU path runs and the kernel
+is held against.
+
+Lane b's position r lives in pool row ``tables[b, r // page]``, slot
+``r % page``; it is visible when that entry is >= 0, ``pos`` there equals
+r, ``r < cache_len[b]`` and r is inside the window.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+launches = 0                 # kernel launches (plain-version calls excluded)
+_count_lock = threading.Lock()
+
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _counted() -> None:
+    global launches
+    with _count_lock:
+        launches += 1
+
+
+def auto_splits(b: int, hkv: int, maxp: int, page: int, device) -> int:
+    """Page ranges per (lane, KV head): enough blocks for about two waves
+    on the card's SMs, at least 256 positions' worth of pages per range,
+    at most 32."""
+    sms = build.sm_count(torch.device(device).index or 0)
+    want = -(-2 * sms // (b * hkv))
+    min_pages = -(-256 // page)
+    return max(1, min(want, -(-maxp // min_pages), 32))
+
+
+def _check(q, k_pages, v_pages, pos_pages, tables, cache_len):
+    b, one, hq, d = q.shape
+    if one != 1 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")
+    npool, page, hkv, kd = k_pages.shape
+    if kd != d or hq % hkv or (hq // hkv) not in (1, 2, 4, 8) \
+            or d not in (64, 128):
+        raise ValueError(f"paged_decode_attention: unsupported shapes q "
+                         f"{tuple(q.shape)}, pool {tuple(k_pages.shape)}")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_decode_attention: dtypes {q.dtype}, "
+                        f"{k_pages.dtype}, {v_pages.dtype}")
+    if pos_pages.shape != (npool, page) or pos_pages.dtype != torch.int32:
+        raise ValueError("paged_decode_attention: pos must be (P, page) int32")
+    if tables.dim() != 2 or tables.shape[0] != b \
+            or tables.dtype != torch.int32:
+        raise ValueError("paged_decode_attention: tables must be (B, maxp) "
+                         "int32")
+    if cache_len.shape != (b,) or cache_len.dtype != torch.int32:
+        raise ValueError("paged_decode_attention: cache_len must be (B,) "
+                         "int32")
+    for t in (q, k_pages, v_pages, pos_pages, tables, cache_len):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("paged_decode_attention: tensors must be "
+                             "contiguous and on one device")
+    for t in (q, k_pages, v_pages):
+        if t.data_ptr() % 16:
+            raise ValueError("paged_decode_attention: q and the pools must "
+                             "be 16-byte aligned (rows are vector loads)")
+
+
+def paged_decode_attention(q, k_pages, v_pages, pos_pages, tables, *,
+                           cache_len, window=0, scale, softcap=0.0,
+                           splits=None):
+    """Launch the Hopper kernel.  q: (B, 1, Hq, D); pools (P, page, Hkv, D);
+    ``pos_pages`` (P, page), ``tables`` (B, maxp) and ``cache_len`` (B,)
+    int32.  Returns (B, 1, Hq, D) in q's dtype.  CUDA tensors only.
+    ``splits`` is the number of page ranges per (lane, KV head),
+    ``auto_splits`` by default; 1 runs a single pass with no combine."""
+    if q.device.type != "cuda":
+        raise RuntimeError("paged_decode_attention kernel needs CUDA "
+                           "tensors; use paged_decode_attention_plain on "
+                           "the CPU")
+    _check(q, k_pages, v_pages, pos_pages, tables, cache_len)
+    b, _, hq, d = q.shape
+    page, hkv = k_pages.shape[1], k_pages.shape[2]
+    maxp = tables.shape[1]
+    if splits is None:
+        splits = auto_splits(b, hkv, maxp, page, q.device)
+    out = torch.empty_like(q)
+    # per (lane, query head, split): (max, sum) and a D-wide accumulator
+    work = (torch.empty(b * hq * splits * (d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    fn = build.library("paged_decode_attention",
+                       _ARGTYPES).paged_decode_attention_launch
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 pos_pages.data_ptr(), tables.data_ptr(), cache_len.data_ptr(),
+                 out.data_ptr(), None if work is None else work.data_ptr(),
+                 b, maxp, page, hq, hkv, d, _DTYPES[q.dtype], int(splits),
+                 int(window), float(scale), float(softcap),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"paged_decode_attention launch failed: CUDA error {err}")
+    _counted()
+    return out
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, pos_pages, tables, *,
+                                 cache_len, window=0, scale, softcap=0.0):
+    """The same function in plain PyTorch (the CPU path and the oracle)."""
+    return ref.paged_decode_mha_reference(
+        q, k_pages, v_pages, pos_pages, tables, cache_len=cache_len,
+        window=window, scale=scale, softcap=softcap)

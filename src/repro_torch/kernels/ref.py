@@ -7,7 +7,9 @@ Each function keeps the numerics of its JAX twin:
 * ``decode_mha_reference`` does the same for one query per lane;
 * ``decode_mha_masked`` keeps the cache in its storage dtype, accumulates
   the logits in float32, and casts the probabilities to ``v.dtype`` before
-  P·V (float32 accumulation again).
+  P·V (float32 accumulation again);
+* ``paged_decode_mha_reference`` gathers each lane's pages through its
+  block table and defers to ``decode_mha_masked``.
 
 These are the CPU path of the port and the oracles its Hopper kernels are
 held against.
@@ -100,6 +102,36 @@ def decode_mha_masked(q, k_cache, v_cache, *, valid_mask, scale=None,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
     return out.to(q.dtype)
+
+
+def paged_decode_mha_reference(q, k_pages, v_pages, pos_pages, tables, *,
+                               cache_len, window=0, scale=None, softcap=0.0):
+    """Block-table decode oracle: gather each lane's pages, then attend.
+
+    q: (B, 1, Hq, D); k/v_pages: (P, page, Hkv, D) pools (P includes the
+    dump row); pos_pages: (P, page) int32 position written at each slot
+    (-1 empty); tables: (B, maxp) int32, entry j the page backing positions
+    [j*page, (j+1)*page) or -1; cache_len: int or (B,).  A gathered slot is
+    visible when its table entry exists, its written position equals the
+    slot's expected absolute position, that position is below cache_len,
+    and it is inside the window; the math is ``decode_mha_masked``'s."""
+    b = q.shape[0]
+    page = k_pages.shape[1]
+    maxp = tables.shape[1]
+    safe = tables.clamp_min(0).long()                           # (B, maxp)
+    k = k_pages[safe].reshape(b, maxp * page, *k_pages.shape[2:])
+    v = v_pages[safe].reshape(b, maxp * page, *v_pages.shape[2:])
+    pos = pos_pages[safe].reshape(b, maxp * page)               # (B, T)
+    expected = torch.arange(maxp * page, dtype=torch.int32,
+                            device=q.device)[None]              # (1, T)
+    cl = torch.as_tensor(cache_len, dtype=torch.int32,
+                         device=q.device).reshape(-1).expand(b).reshape(b, 1)
+    valid = (pos == expected) & (expected < cl)
+    valid &= (tables >= 0).repeat_interleave(page, dim=1)
+    if window > 0:
+        valid &= expected > cl - 1 - window
+    return decode_mha_masked(q, k, v, valid_mask=valid, scale=scale,
+                             softcap=softcap)
 
 
 def mha_cache_masked(q, k_cache, v_cache, *, mask, scale=None, softcap=0.0):

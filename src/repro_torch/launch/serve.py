@@ -2,13 +2,19 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --policy DDS
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # plain path
+  PYTHONPATH=src python -m repro_torch.launch.serve --paged --prefix-cache
 
 The path is the JAX CLI's: warm replicas -> profile pre-evaluation ->
 two-level DDS routing -> SLO accounting.  Flags are those of
-``repro.launch.serve`` without the paged-KV and chaos flags (not ported
-yet), plus ``--device`` (default ``cuda``: the Hopper kernels) and
-``--full`` (the arch's published widths; the smoke config otherwise).
-Replicas share one set of weight tensors, drawn from seed 0.
+``repro.launch.serve`` without the chaos flags (not ported yet), plus
+``--device`` (default ``cuda``: the Hopper kernels) and ``--full`` (the
+arch's published widths; on the CPU the smoke config otherwise).  On the
+card the published widths are always served: the kernels take head_dim 64
+or 128, and the smoke configs' head_dim is 16.  ``--paged`` swaps
+the per-lane rings for block tables over a shared page pool
+(``--page-size``/``--num-pages``), and ``--prefix-cache`` (which implies
+``--paged``) adds cross-request prefix reuse.  Replicas share one set of
+weight tensors, drawn from seed 0.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.policies import make_policy
@@ -31,8 +38,11 @@ def build_fleet(cfg, policy_name: str, replicas: int = 2,
                 prefill_chunk_tokens: int = 32,
                 step_slo_ms: float = 0.0,
                 admission_margin: float = 0.0,
-                brownout: bool = False, seed: int = 0,
-                device="cuda", verbose: bool = True) -> ServingFleet:
+                brownout: bool = False,
+                paged: bool = False, page_size: int = 16,
+                num_pages: int = 0, prefix_cache: bool = False,
+                seed: int = 0, device="cuda",
+                verbose: bool = True) -> ServingFleet:
     """A ``ServingFleet`` of ``replicas`` replicas that share one model
     drawn from ``seed`` on ``device``."""
     params = model_lib.init_model(cfg, seed, device)
@@ -44,14 +54,20 @@ def build_fleet(cfg, policy_name: str, replicas: int = 2,
                       capacity=capacity,
                       prefill_chunk_tokens=prefill_chunk_tokens,
                       step_slo_ms=step_slo_ms,
-                      brownout=BrownoutConfig() if brownout else None)
+                      brownout=BrownoutConfig() if brownout else None,
+                      paged=paged, page_size=page_size,
+                      num_pages=num_pages if num_pages > 0 else None,
+                      prefix_cache=prefix_cache)
         fleet.add_replica(rep)
         if verbose:
+            paging = (f"paged KV ({rep.num_pages} pages x {rep.page_size} tok"
+                      f"{', prefix cache' if prefix_cache else ''})"
+                      if paged else "ring KV")
             print(f"replica{i}: warmup {rep.warmup_s:.2f}s on {rep.device}; "
                   f"chunked prefill "
                   f"{'on' if rep.prefill_caps['supported'] else 'off'} "
                   f"(budget ceiling {rep.prefill_chunk_tokens} tokens); "
-                  f"ring KV")
+                  f"{paging}")
     return fleet
 
 
@@ -59,8 +75,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--full", action="store_true",
-                    help="the arch's published widths (default: its smoke "
-                         "config)")
+                    help="the arch's published widths (always on the card; "
+                         "on the CPU the smoke config otherwise)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (Hopper kernels) or cpu (plain PyTorch)")
     ap.add_argument("--requests", type=int, default=16)
@@ -96,14 +112,32 @@ def main(argv=None):
                          "the best-case completion floor (0 = admit all)")
     ap.add_argument("--brownout", action="store_true",
                     help="arm queue-pressure brownout on each replica")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: block-table lanes over a shared "
+                         "page pool instead of per-lane rings")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged mode)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="page-pool size (0 = slots x pages-per-lane, the "
+                         "ring-equivalent footprint)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prefix reuse: prompts sharing "
+                         "full cached blocks skip their prefill "
+                         "(global-attention stacks only; implies --paged)")
     args = ap.parse_args(argv)
+    if args.prefix_cache:
+        args.paged = True
 
-    cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    # the Hopper kernels take head_dim 64 or 128, which no smoke config has
+    full = args.full or torch.device(args.device).type == "cuda"
+    cfg = get_config(args.arch) if full else get_smoke_config(args.arch)
     fleet = build_fleet(cfg, args.policy, replicas=args.replicas,
                         prefill_chunk_tokens=args.prefill_chunk_tokens,
                         step_slo_ms=args.step_slo_ms,
                         admission_margin=args.admission_margin,
-                        brownout=args.brownout, device=args.device)
+                        brownout=args.brownout, paged=args.paged,
+                        page_size=args.page_size, num_pages=args.num_pages,
+                        prefix_cache=args.prefix_cache, device=args.device)
 
     rng = np.random.default_rng(0)
     results: List = []

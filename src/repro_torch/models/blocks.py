@@ -10,7 +10,9 @@ package's ``models/blocks.py``:
   init_block_cache(...)          -> cache dict
 
 A layer's cache is a dict ``{"k", "v": (B, n, Hkv, D), "pos": (B, n) int32}``
-(-1 = empty slot), the JAX per-layer layout.  Where JAX returns new cache
+(-1 = empty slot), the JAX per-layer layout; in paged mode it is a page
+pool ``{"k", "v": (P, page, Hkv, D), "pos": (P, page)}`` read through
+per-lane block tables.  Where JAX returns new cache
 arrays, these functions update the cache **in place** (``index_put_``) and
 return the same dict: a decode step then writes one row per lane instead of
 copying every layer's KV.
@@ -32,9 +34,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import mlp, rmsnorm
 
 _LATER = {
-    SSM: "ROADMAP.md section 2 item 3 (recurrent stacks)",
-    RGLRU: "ROADMAP.md section 2 item 3 (recurrent stacks)",
-    CROSS: "ROADMAP.md section 2 item 5 (cross-attention)",
+    SSM: "ROADMAP.md section 2 item 1 (recurrent stacks)",
+    RGLRU: "ROADMAP.md section 2 item 1 (recurrent stacks)",
+    CROSS: "ROADMAP.md section 2 item 4 (cross-attention)",
 }
 
 
@@ -60,7 +62,7 @@ class Block(nn.Module):
             raise _not_ported(kind)
         if cfg.num_experts:
             raise NotImplementedError(
-                "MoE layers are not ported yet: ROADMAP.md section 2 item 4")
+                "MoE layers are not ported yet: ROADMAP.md section 2 item 3")
         self.kind, self.attn_kind = kind, attn_kind
         d, h, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)
@@ -135,34 +137,58 @@ def apply_block_decode(p: Block, x, cache, cfg: ModelConfig, kind: str,
     ``cache_index[b] % n`` (in place) and attends over its own ring through
     the decode kernel with the ``pos`` plane.  Every lane is written,
     free lanes included; ``Replica._insert`` overwrites a joining lane's
-    whole ring, ``pos`` too, so those writes never leak."""
+    whole ring, ``pos`` too, so those writes never leak.
+
+    With ``block_tables`` ((B, maxp) int32 page ids, -1 = absent) the cache
+    is a paged pool ``{"k"/"v": (P, page, Hkv, D), "pos": (P, page)}``
+    shared by all lanes: lane b writes into the pool row its table names
+    for position ``cache_index[b]`` (the last, dump row when that entry is
+    -1: free and mid-prefill lanes) and attends through the table with the
+    paged decode kernel.  Duplicate dump-row writes are harmless: no table
+    names the dump row."""
     if kind != ATTN:
         raise _not_ported(kind)
-    if block_tables is not None:
-        raise NotImplementedError(
-            "paged KV decode is not ported yet: ROADMAP.md section 2 item 1")
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     b = x.shape[0]
     idx = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)
     idx = idx.expand(b).contiguous() if idx.dim() == 0 else idx
     q, k, v = attn_lib._project_qkv(p.attn, h, cfg, idx[:, None], attn_kind,
                                     memo)
-    n = cache["k"].shape[1]
     lanes = attn_lib.shared(memo, "lanes",
                             lambda: torch.arange(b, device=x.device))
-    slots = attn_lib.shared(memo, ("slots", n), lambda: (idx % n).long())
-    cache["k"][lanes, slots] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][lanes, slots] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][lanes, slots] = idx
-    out = ops.decode_attention(
-        q, cache["k"], cache["v"],
-        cache_len=attn_lib.shared(memo, "cache_len", lambda: idx + 1),
-        pos=cache["pos"],
-        window=attn_lib._window_for(cfg, attn_kind),
-        scale=attn_lib._scale(cfg), softcap=cfg.logit_softcap)
+    if block_tables is None:
+        n = cache["k"].shape[1]
+        rows = lanes
+        within = attn_lib.shared(memo, ("slots", n), lambda: (idx % n).long())
+    else:
+        npool, page = cache["k"].shape[0], cache["k"].shape[1]
+        rows, within = attn_lib.shared(
+            memo, ("paged_slots", npool, page),
+            lambda: _paged_slots(block_tables, idx, lanes, npool, page))
+    cache["k"][rows, within] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, within] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][rows, within] = idx
+    kw = dict(cache_len=attn_lib.shared(memo, "cache_len", lambda: idx + 1),
+              window=attn_lib._window_for(cfg, attn_kind),
+              scale=attn_lib._scale(cfg), softcap=cfg.logit_softcap)
+    if block_tables is None:
+        out = ops.decode_attention(q, cache["k"], cache["v"],
+                                   pos=cache["pos"], **kw)
+    else:
+        out = ops.paged_decode_attention(q, cache["k"], cache["v"],
+                                         cache["pos"], block_tables, **kw)
     x = x + attn_lib._out_proj(out, p.attn["wo"])
     x, aux = _channel_mix(p, x, cfg)
     return x, cache, aux
+
+
+def _paged_slots(tables, idx, lanes, npool: int, page: int):
+    """Pool row and in-page slot of each lane's write at position ``idx``:
+    ``tables[b, min(idx // page, maxp - 1)]``, or the dump row ``npool - 1``
+    where that entry is -1."""
+    entry = tables[lanes, (idx // page).clamp_max(tables.shape[1] - 1).long()]
+    rows = torch.where(entry >= 0, entry, npool - 1).long()
+    return rows, (idx % page).long()
 
 
 # -------------------------------------------------------------------- prefill

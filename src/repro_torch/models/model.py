@@ -4,9 +4,10 @@
 (no scan over pattern periods); caches are a list of per-layer dicts with
 the JAX per-layer layout (``k``/``v`` (B, n, Hkv, D), ``pos`` (B, n) int32,
 -1 = empty).  The functions keep the JAX package's names and signatures:
-``forward``, ``init_cache``, ``prefill``, ``prefill_chunk``,
-``decode_step`` and ``chunked_prefill_caps``.  ``prefill_chunk`` and
-``decode_step`` update the cache they are given **in place** and return it.
+``forward``, ``init_cache``, ``init_paged_cache``, ``prefill``,
+``prefill_chunk``, ``decode_step``, ``paged_commit``, ``paged_restore``,
+``paged_copy_page`` and ``chunked_prefill_caps``.  The functions that take a
+cache update it **in place** and return it.
 """
 from __future__ import annotations
 
@@ -109,23 +110,124 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
             for kind, akind in zip(cfg.layer_kinds(), cfg.attn_kinds())]
 
 
+def init_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
+                     num_pages: int, page_size: int, device="cuda") -> Cache:
+    """Like ``init_cache`` but every attention layer's KV lives in a shared
+    page pool indexed through per-lane block tables: ``{"k"/"v":
+    (num_pages + 1, page_size, Hkv, D), "pos": (num_pages + 1, page_size)}``
+    (pos -1 = empty).  The extra last row is the write dump for lanes with
+    no page mapped.  ``batch`` and ``capacity`` only size the other layer
+    kinds, none of which is ported yet."""
+    dev = resolve_device(device)
+    hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    cache: Cache = []
+    for kind, akind in zip(cfg.layer_kinds(), cfg.attn_kinds()):
+        if kind != ATTN:
+            cache.append(blk.init_block_cache(cfg, kind, akind, batch,
+                                              capacity, dev))
+            continue
+        shape = (num_pages + 1, page_size, hkv, hd)
+        cache.append({
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "pos": torch.full(shape[:2], -1, dtype=torch.int32, device=dev),
+        })
+    return cache
+
+
 # ---------------------------------------------------------------------- decode
 def decode_step(params: Model, cache: Cache, tokens, cache_index,
                 cfg: ModelConfig, *, block_tables=None
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B, 1) int.  One decode step: every lane writes its KV at its
     own ``cache_index`` (an int or a (B,) tensor) and gets the next token's
-    logits (B, 1, V).  ``cache`` is updated in place and returned."""
+    logits (B, 1, V).  ``cache`` is updated in place and returned.
+
+    ``block_tables`` ((B, max_pages) int, -1 = absent) switches attention
+    layers to the paged pools of ``init_paged_cache``; the same table
+    indexes every layer's pool."""
     x = _embed(params, tokens, cfg)
     idx = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)
     if idx.dim() == 0:
         idx = idx.expand(x.shape[0]).contiguous()
+    if block_tables is not None:
+        block_tables = torch.as_tensor(block_tables, dtype=torch.int32,
+                                       device=x.device).contiguous()
     memo = {}
     for layer, c in zip(params.layers, cache):
         x, _, _ = blk.apply_block_decode(layer, x, c, cfg, layer.kind,
                                          layer.attn_kind, cache_index=idx,
                                          block_tables=block_tables, memo=memo)
     return _logits(params, x, cfg), cache
+
+
+# ----------------------------------------------------------- paged lane moves
+def paged_commit(cache: Cache, lane_cache: Cache, lane: int, table_row,
+                 from_pos: int, cfg: ModelConfig, page_size: int) -> Cache:
+    """Install a finished lane prefill into the paged cache, in place.
+
+    ``lane_cache`` is the private B=1 ring cache chunked prefill filled
+    (``init_cache(cfg, 1, capacity)``): its entry at absolute position
+    ``p`` lands in pool row ``table_row[p // page_size]``, slot
+    ``p % page_size``.  Entries with ``p < from_pos``, and entries whose
+    table entry is -1, go to the dump row instead: positions below
+    ``from_pos`` live in shared prefix pages other lanes (or the prefix
+    cache) may be reading, and a commit never writes a page the lane does
+    not own.  ``lane`` would name the batch row of the other layer kinds,
+    none of which is ported yet."""
+    maxp = table_row.shape[0]
+    for layer, ring in zip(cache, lane_cache):
+        dump = layer["k"].shape[0] - 1
+        p = ring["pos"][0]                                 # (n,) positions
+        valid = (p >= 0) & (p >= int(from_pos))
+        pp = p.clamp_min(0)
+        slot = (pp // page_size).clamp_max(maxp - 1).long()
+        rows = torch.where(valid, table_row[slot], dump)
+        rows = torch.where(rows >= 0, rows, dump).long()
+        within = (pp % page_size).long()
+        layer["k"][rows, within] = ring["k"][0].to(layer["k"].dtype)
+        layer["v"][rows, within] = ring["v"][0].to(layer["v"].dtype)
+        layer["pos"][rows, within] = p
+    return cache
+
+
+def paged_restore(cache: Cache, lane_cache: Cache, table_row, matched: int,
+                  cfg: ModelConfig, page_size: int) -> Cache:
+    """Fill a fresh B=1 prefill ring from cached prefix pages, in place.
+
+    The inverse of ``paged_commit``: ring slot ``s`` receives the pool entry
+    for the absolute position the ring would hold after prefilling
+    ``matched`` tokens, ``p = s + ((matched - 1 - s) // n) * n``, while
+    ``0 <= p < matched``; other slots keep their K/V and get pos -1.  Chunk
+    prefill then continues from ``start = matched``."""
+    maxp = table_row.shape[0]
+    for layer, ring in zip(cache, lane_cache):
+        n = ring["k"].shape[1]
+        s = torch.arange(n, dtype=torch.int64, device=ring["k"].device)
+        p = s + ((int(matched) - 1 - s) // n) * n
+        valid = (p >= 0) & (p < int(matched))
+        sp = torch.where(valid, p, 0)
+        rows = table_row[(sp // page_size).clamp_max(maxp - 1)]
+        rows = torch.where(valid & (rows >= 0), rows,
+                           layer["k"].shape[0] - 1).long()
+        within = sp % page_size
+        keep = valid[:, None, None]
+        ring["k"][0] = torch.where(keep, layer["k"][rows, within]
+                                   .to(ring["k"].dtype), ring["k"][0])
+        ring["v"][0] = torch.where(keep, layer["v"][rows, within]
+                                   .to(ring["v"].dtype), ring["v"][0])
+        ring["pos"][0] = torch.where(valid, p, -1).to(torch.int32)
+    return lane_cache
+
+
+def paged_copy_page(cache: Cache, src: int, dst: int,
+                    cfg: ModelConfig) -> Cache:
+    """Copy pool row ``src`` to ``dst`` (K, V and pos) in every attention
+    layer, in place: the device half of copy-on-write."""
+    for layer in cache:
+        for t in layer.values():
+            t[int(dst)].copy_(t[int(src)])
+    return cache
 
 
 # ------------------------------------------------------------ chunked prefill

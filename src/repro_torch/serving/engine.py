@@ -26,12 +26,17 @@ JAX package's:
     the ``Request``), greedy and sampled lanes mixing in one step
     (``repro_torch.serving.sampling``).
 
+With ``paged=True`` the per-lane rings become block tables over a shared,
+ref-counted page pool (``repro_torch.serving.paging``), and with
+``prefix_cache=True`` prompts that share page-aligned prefixes are
+prefilled once; attention then reads through the paged decode kernel.
+
 What differs from the JAX engine: the ``jax.jit`` executables are plain
 eager calls (kernels are built at first use, during warmup); every timing
 sample synchronises the device first (``torch.cuda.synchronize``) so it
 measures the work and not its launch; the caches are updated in place.
-Paged KV (``paged=True``) and sharded replicas (``serving_mesh``) are not
-ported yet and raise ``NotImplementedError``.
+Sharded replicas (``serving_mesh``) are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import ATTN, LOCAL, ModelConfig
 from repro_torch.core.admission import admit
 from repro_torch.core.latency import (NodeState, Task, predict_process_ms,
                                       predict_queue_ms, predict_total_ms)
@@ -61,6 +66,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving.overload import (BrownoutConfig, BrownoutController,
                                           CircuitBreaker, priority_rank)
+from repro_torch.serving.paging import PageAllocator, PrefixCache
 
 log = logging.getLogger(__name__)
 
@@ -193,7 +199,7 @@ class _Job:
 
     __slots__ = ("req", "lane", "lane_cache", "consumed", "out", "remaining",
                  "done", "key", "stops", "error", "order", "first_ms",
-                 "degraded")
+                 "degraded", "pages", "matched", "cow")
 
     def __init__(self, req: Request):
         self.req = req
@@ -208,6 +214,13 @@ class _Job:
         self.order: Tuple[int, float, int] = (0, 0.0, 0)
         self.first_ms = 0.0             # wall-clock of the first token (TTFT)
         self.degraded = False           # admitted under brownout clamping
+        # paged mode: position-ordered KV pages this job holds a ref on
+        # (matched prefix pages first, then fresh allocations), the number
+        # of prompt tokens restored from the prefix cache, and a pending
+        # (src, dst) copy-on-write the prefill path must apply on-device
+        self.pages: List[int] = []
+        self.matched = 0
+        self.cow: Optional[Tuple[int, int]] = None
         # per-lane key (seed, token count): derived only from the request,
         # advanced once per token
         self.key = (sampling_lib.make_lane_key(
@@ -252,9 +265,18 @@ class Replica:
     Knobs as in the JAX engine: ``slots``, ``capacity``,
     ``prefill_chunk_tokens`` (the budget ceiling, rounded down to a power
     of two and clamped to ``chunked_prefill_caps``), ``step_slo_ms``,
-    ``max_queue`` and ``brownout``.  Counters for the launch accounting:
-    ``decode_steps``, ``prefill_chunks``, ``whole_prefills`` and
-    ``prefilled_tokens``.
+    ``max_queue`` and ``brownout``.  ``paged`` (with ``page_size``,
+    ``num_pages``, default ``slots`` lanes' worth, and ``prefix_cache``)
+    replaces the rings with block tables over a shared page pool:
+    admission reserves a request's pages all-or-nothing (reclaiming LRU
+    unreferenced prefix pages on shortage; the queue head waits while live
+    lanes hold pages and is shed when nothing reclaimable can cover it),
+    and with ``prefix_cache`` (attention-only, full-ring stacks) prompts
+    sharing page-aligned prefixes ref-count the cached pages, restore
+    their prefill ring from them, and copy-on-write the one page they must
+    recompute into.  Counters for the launch accounting: ``decode_steps``,
+    ``prefill_chunks``, ``whole_prefills``, ``prefilled_tokens`` and
+    ``cow_copies``.
     """
 
     def __init__(self, name: str, cfg: ModelConfig, params, *,
@@ -262,14 +284,13 @@ class Replica:
                  prefill_chunk_tokens: int = 32, step_slo_ms: float = 0.0,
                  max_queue: Optional[int] = None,
                  brownout: Optional[BrownoutConfig] = None,
-                 paged: bool = False, serving_mesh=None):
-        if paged:
-            raise NotImplementedError(
-                "paged KV is not ported yet: ROADMAP.md section 2 item 1")
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 prefix_cache: bool = False, serving_mesh=None):
         if serving_mesh is not None:
             raise NotImplementedError(
                 "sharded replicas are not ported yet: ROADMAP.md section 2 "
-                "item 6")
+                "item 5")
         self.name = name
         self.cfg = cfg
         self.params = params
@@ -296,6 +317,40 @@ class Replica:
         self.prefill_chunks = 0         # chunk launches
         self.whole_prefills = 0         # whole-prompt prefills on the lanes
         self.prefilled_tokens = 0       # prompt tokens actually computed
+        self.cow_copies = 0             # COW page copies performed
+        # ---- paged KV mode: block tables over a shared page pool ----
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        if self.paged:
+            if not self.prefill_caps["supported"]:
+                raise ValueError(
+                    f"replica {name}: paged KV requires chunked prefill "
+                    "(cross-attention stacks keep the ring engine)")
+            if self.page_size < 1:
+                raise ValueError(f"page_size={page_size} < 1")
+            self._max_pages_per_lane = -(-capacity // self.page_size)
+            self.num_pages = (int(num_pages) if num_pages is not None
+                              else slots * self._max_pages_per_lane)
+            if self.num_pages < self._max_pages_per_lane:
+                raise ValueError(
+                    f"replica {name}: num_pages={self.num_pages} cannot "
+                    f"hold even one full lane "
+                    f"({self._max_pages_per_lane} pages)")
+            self._alloc = PageAllocator(self.num_pages)
+            self._prefix: Optional[PrefixCache] = None
+            if prefix_cache:
+                if not self._prefix_reuse_ok():
+                    raise ValueError(
+                        f"replica {name}: prefix_cache requires an "
+                        "attention-only stack whose every ring holds the "
+                        "full capacity (recurrent state and windowed rings "
+                        "cannot be restored from prefix pages)")
+                self._prefix = PrefixCache(self._alloc, self.page_size)
+        else:
+            self._max_pages_per_lane = 0
+            self.num_pages = 0
+            self._alloc = None
+            self._prefix = None
         self.profile: Optional[AppProfile] = None
         self.device_profile: Optional[DeviceProfile] = None
 
@@ -310,6 +365,10 @@ class Replica:
         self._last_progress_ms = time.monotonic() * 1e3
 
         # host mirrors: next token, KV index, key and sampling knobs per lane
+        # (paged mode adds the block-table mirror: row j is lane j's
+        # position-ordered page list, -1 = absent)
+        self._tables = (np.full((slots, self._max_pages_per_lane), -1,
+                                np.int32) if self.paged else None)
         self._tok = np.zeros((slots, 1), np.int64)
         self._idx = np.zeros((slots,), np.int32)
         self._keys = np.zeros((slots, 2), np.int64)
@@ -328,18 +387,30 @@ class Replica:
                 self._prefill_chunk(params, lane0, self._zeros_tokens(w),
                                     start)
                 start += w
-        self._cache = model_lib.init_cache(cfg, slots, capacity, self.device)
-        self._insert(self._cache, lane_cache, 0)
-        self._step(params, self._cache, self._tok, self._idx).cpu()
+        if self.paged:
+            # COW copy, prefix restore, ring->pool commit and both decode
+            # steps, against an all-dump table (no page mapped) so nothing
+            # real is written
+            self._cache = self._new_cache()
+            warm_row = torch.full((self._max_pages_per_lane,), -1,
+                                  dtype=torch.int32, device=self.device)
+            self._copy_page(self._cache, 0, 0)
+            self._restore(self._cache, lane0, warm_row, 0)
+            self._commit(self._cache, lane0, 0, warm_row, 0)
+        else:
+            self._cache = self._new_cache()
+            self._insert(self._cache, lane_cache, 0)
+        self._step(params, self._cache, self._tok, self._idx,
+                   self._tables).cpu()
         self._step_sampled(params, self._cache, self._tok, self._idx,
                            self._keys, self._temp, self._topk,
-                           self._topp)[0].cpu()
+                           self._topp, self._tables)[0].cpu()
         self._sample_first(
             np.zeros((1, 2), np.int64),
             torch.zeros((1, cfg.vocab_size), device=self.device),
             np.ones((1,), np.float32), np.zeros((1,), np.int32),
             np.ones((1,), np.float32))[1].cpu()
-        self._cache = model_lib.init_cache(cfg, slots, capacity, self.device)
+        self._cache = self._new_cache()
         self._sync()
         self.warmup_s = time.perf_counter() - t0
 
@@ -348,6 +419,15 @@ class Replica:
         self._thread.start()
 
     # ------------------------------------------------------------ executables
+    def _new_cache(self):
+        """A fresh batched cache: per-lane rings, or the paged pools."""
+        if self.paged:
+            return model_lib.init_paged_cache(
+                self.cfg, self.slots, self.capacity, self.num_pages,
+                self.page_size, self.device)
+        return model_lib.init_cache(self.cfg, self.slots, self.capacity,
+                                    self.device)
+
     def _sync(self) -> None:
         """Wait for the device, so a host clock reads the work itself."""
         if self.device.type == "cuda":
@@ -369,22 +449,30 @@ class Replica:
         return (torch.from_numpy(tok).to(self.device),
                 torch.from_numpy(idx).to(self.device))
 
-    def _step(self, params, cache, tok, idx):
+    def _device_tables(self, tables):
+        """A device copy of host block tables (None in ring mode): the host
+        mirror keeps changing under the lock while a step runs."""
+        if tables is None or isinstance(tables, torch.Tensor):
+            return tables
+        return torch.tensor(tables, dtype=torch.int32, device=self.device)
+
+    def _step(self, params, cache, tok, idx, tables=None):
         """One batched greedy decode step over all lanes (host tok/idx
         mirrors in, device (slots,) tokens out); the cache is updated in
-        place."""
-        logits, _ = model_lib.decode_step(params, cache,
-                                          *self._lane_inputs(tok, idx),
-                                          self.cfg)
+        place.  ``tables`` (paged mode) are the lanes' block tables."""
+        logits, _ = model_lib.decode_step(
+            params, cache, *self._lane_inputs(tok, idx), self.cfg,
+            block_tables=self._device_tables(tables))
         return torch.argmax(logits[:, -1], dim=-1)
 
-    def _step_sampled(self, params, cache, tok, idx, keys, temp, topk, topp):
+    def _step_sampled(self, params, cache, tok, idx, keys, temp, topk, topp,
+                      tables=None):
         """One batched decode step with per-lane sampling: greedy lanes
         still take the argmax, sampled lanes draw with their own key.
         Returns (tokens (slots,) on the device, next keys on the host)."""
-        logits, _ = model_lib.decode_step(params, cache,
-                                          *self._lane_inputs(tok, idx),
-                                          self.cfg)
+        logits, _ = model_lib.decode_step(
+            params, cache, *self._lane_inputs(tok, idx), self.cfg,
+            block_tables=self._device_tables(tables))
         keys, nxt = sampling_lib.sample_lane_tokens(keys, logits[:, -1],
                                                     temp, topk, topp)
         return nxt, keys
@@ -401,6 +489,128 @@ class Replica:
             for name, t in dst.items():
                 t[lane].copy_(src[name][0])
         return cache
+
+    def _commit(self, cache, lane_cache, lane: int, row, from_pos: int):
+        return model_lib.paged_commit(cache, lane_cache, lane, row, from_pos,
+                                      self.cfg, self.page_size)
+
+    def _restore(self, cache, lane_cache, row, matched: int):
+        return model_lib.paged_restore(cache, lane_cache, row, matched,
+                                       self.cfg, self.page_size)
+
+    def _copy_page(self, cache, src: int, dst: int):
+        return model_lib.paged_copy_page(cache, src, dst, self.cfg)
+
+    # ------------------------------------------------------------ paged KV
+    def _prefix_reuse_ok(self) -> bool:
+        """Prefix-page reuse restores a lane's prefill ring from pool
+        pages, which is only faithful when every layer's decode state IS
+        its KV ring over the full history: attention-only stacks whose
+        rings hold the full capacity.  A recurrent layer's state cannot be
+        rebuilt from KV pages, and a windowed ring commits only its last
+        ``window`` positions — older pool entries would be unwritten."""
+        kinds = list(self.cfg.period_kinds()) + list(self.cfg.tail_kinds())
+        for kind, akind in kinds:
+            if kind != ATTN:
+                return False
+            if (akind == LOCAL and self.cfg.sliding_window
+                    and self.cfg.sliding_window < self.capacity):
+                return False
+        return True
+
+    def _pages_for(self, n: int, remaining: int) -> int:
+        """Pages covering every KV position this request can write:
+        prompt 0..n-1 plus one per decode step after the prefill-emitted
+        first token (positions n .. n+remaining-2)."""
+        total = min(n + max(remaining, 1) - 1, self.capacity)
+        return -(-total // self.page_size)
+
+    def _reserve_pages_locked(self, job: _Job) -> bool:
+        """All-or-nothing page reservation for ``job`` (caller holds the
+        lock).  The prefix cache is consulted first — matched full blocks
+        arrive as shared ref-counted pages — then the remainder is
+        allocated from the free list, reclaiming LRU unreferenced prefix
+        pages on shortage.  On failure every matched ref is dropped again
+        (defer, not leak).  A full-prompt hit swaps the last matched page
+        for a private copy NOW (allocator side; the device copy runs on
+        the prefill path) because the final prompt position must be
+        recomputed into a page this lane owns — the cached original stays
+        shared."""
+        prompt = job.req.prompt
+        n = len(prompt)
+        matched, pages = (self._prefix.match(prompt)
+                          if self._prefix is not None else (0, []))
+        need = self._pages_for(n, job.remaining) - len(pages)
+        if matched >= n:
+            need += 1               # COW page for the recomputed last token
+        fresh = [] if need <= 0 else self._alloc.alloc(need)
+        if fresh is None and self._prefix is not None:
+            self._prefix.reclaim(need - self._alloc.free_count)
+            fresh = self._alloc.alloc(need)
+        if fresh is None:
+            for p in pages:
+                self._alloc.decref(p)
+            return False
+        job.cow = None
+        if matched >= n:
+            # full hit: position n-1 lives in the last matched page, which
+            # is shared by definition (the cache holds its own ref) —
+            # install the budgeted private copy in its place
+            dst = fresh.pop(0)
+            src = pages[-1]
+            self._alloc.decref(src)     # drop our shared ref; cache keeps its
+            pages[-1] = dst             # own — the entry stays reusable
+            job.cow = (src, dst)
+            self.cow_copies += 1
+        job.matched = min(matched, n - 1)
+        job.consumed = job.matched
+        job.pages = pages + fresh
+        return True
+
+    def _reserve_could_succeed_locked(self) -> bool:
+        """True while some live lane or mid-prefill job still holds pages
+        that will return to the pool — the head-of-line wait is then
+        productive.  When nothing live holds pages, a failed reservation
+        can never succeed (everything reclaimable was already reclaimed)
+        and admission must shed instead of spinning."""
+        if any(j is not None and j.pages for j in self._lanes):
+            return True
+        return any(j.pages for j in self._prefilling)
+
+    def _release_pages_locked(self, job: _Job) -> None:
+        """Drop ``job``'s page references and clear its block-table row
+        (caller holds the lock).  Shared prefix pages lose only this
+        lane's ref — the prefix cache's own ref keeps them resident until
+        it evicts them under pressure."""
+        if not self.paged:
+            return
+        for p in job.pages:
+            self._alloc.decref(p)
+        job.pages = []
+        if 0 <= job.lane < self.slots:
+            self._tables[job.lane, :] = -1
+
+    def _job_row(self, job: _Job) -> torch.Tensor:
+        """Block-table row for a mid-prefill job, built from ``job.pages``
+        rather than read from ``self._tables`` — the shared table only
+        carries rows for *installed* lanes (see ``_admit_locked``)."""
+        row = np.full((self._max_pages_per_lane,), -1, np.int32)
+        row[:len(job.pages)] = job.pages
+        return torch.tensor(row, dtype=torch.int32, device=self.device)
+
+    def _update_paged_telemetry_locked(self) -> None:
+        """Refresh the Update-Profile paged fields the heartbeat snapshots:
+        the prefix hit rate (discounts T_que's interleave charge for
+        shared prompts) and free + reclaimable pages (admission
+        headroom)."""
+        prof = self.profile
+        if prof is None or not self.paged:
+            return
+        free = float(self._alloc.free_count)
+        if self._prefix is not None:
+            free += float(self._prefix.reclaimable())
+            prof.prefix_hit_rate = self._prefix.hit_rate()
+        prof.free_pages = free
 
     # -------------------------------------------------------------- serving
     @property
@@ -441,6 +651,18 @@ class Replica:
             # reject in the CALLER's thread: an empty prompt reaching the
             # decode thread would kill it and strand every other lane
             raise ValueError(f"request {req.request_id}: empty prompt")
+        if self.paged:
+            # paged lanes never wrap: every KV position needs a page, so a
+            # prompt past the capacity (or the chunked-prefill bound) can
+            # never be admitted here — refuse retryable, route elsewhere
+            bound = self.prefill_caps["max_prompt_tokens"]
+            limit = self.capacity if bound is None \
+                else min(self.capacity, bound)
+            if len(req.prompt) > limit:
+                raise ReplicaRefused(
+                    self.name,
+                    f"replica {self.name}: prompt of {len(req.prompt)} "
+                    f"tokens exceeds paged KV capacity {limit}")
         job = _Job(req)
         now = time.monotonic() * 1e3
         born = req.created_ms or now
@@ -455,6 +677,19 @@ class Replica:
                     and job.remaining > self.brownout.cfg.max_new_tokens_cap):
                 job.remaining = self.brownout.cfg.max_new_tokens_cap
                 job.degraded = True
+            if self.paged:
+                # no wrap past the last page: the decode budget is clamped
+                # so positions stay within the paged capacity, and a
+                # request whose page footprint exceeds the whole pool is
+                # refused — even an empty replica could never admit it
+                job.remaining = min(job.remaining,
+                                    self.capacity - len(req.prompt) + 1)
+                need_max = self._pages_for(len(req.prompt), job.remaining)
+                if need_max > self.num_pages:
+                    raise ReplicaRefused(
+                        self.name,
+                        f"replica {self.name}: request needs {need_max} KV "
+                        f"pages; the pool holds {self.num_pages}")
             self._seq += 1
             job.order = (priority_rank(req.priority),
                          born + req.deadline_ms, self._seq)
@@ -576,6 +811,8 @@ class Replica:
             self._pending.clear()
             self._prefilling.clear()
             self._lanes = [None] * self.slots
+            for j in jobs:
+                self._release_pages_locked(j)
         for j in jobs:
             j.error = ReplicaDead(
                 self.name, f"replica {self.name}: {reason}", list(j.out))
@@ -615,6 +852,7 @@ class Replica:
                                 + [j for j in self._lanes if j is not None])
                     self._lanes = [None] * self.slots
                     for j in stranded:
+                        self._release_pages_locked(j)
                         j.done.set()    # callers get whatever decoded so far
                     return
                 # shed queued jobs whose predicted wait exceeds their slack,
@@ -680,16 +918,44 @@ class Replica:
 
     def _admit_locked(self) -> List[_Job]:
         """Claim free lanes for waiting requests in queue order (caller
-        holds the lock).  Returns the jobs shed on the way (none in ring
-        mode; the caller sets their done events outside the lock)."""
+        holds the lock).  In paged mode a lane claim must also reserve the
+        request's KV pages all-or-nothing: on shortage the EDF head
+        *waits* head-of-line while any live lane still holds pages that
+        will free (admitting a later, smaller request over the head would
+        invert the deadline order), and is shed — accounted, retryable-
+        after — when nothing reclaimable could ever cover it.  Returns the
+        shed jobs; the caller sets their done events outside the lock."""
+        shed: List[_Job] = []
         reserved = {j.lane for j in self._prefilling}
         free = [l for l in range(self.slots)
                 if self._lanes[l] is None and l not in reserved]
         while free and self._pending:
-            job = self._pending.pop(0)
+            job = self._pending[0]
+            if self.paged and not self._reserve_pages_locked(job):
+                if self._reserve_could_succeed_locked():
+                    break           # head-of-line wait: pages will free
+                self._pending.pop(0)
+                job.error = ReplicaSaturated(
+                    self.name,
+                    f"replica {self.name}: request {job.req.request_id} "
+                    f"needs more KV pages than are reclaimable",
+                    list(job.out),
+                    retry_after_ms=self._retry_after_hint())
+                shed.append(job)
+                continue
+            self._pending.pop(0)
             job.lane = free.pop(0)
+            # The lane's block-table row is NOT published here.  The
+            # batched decode step writes every lane slot (ghost lanes'
+            # tokens are discarded on the host), so a mid-prefill lane
+            # whose row were already visible would be ghost-written at its
+            # stale index *through the table*, and when the row's early
+            # entries are shared prefix pages that write lands in the
+            # cached system prompt.  The row becomes device-visible only at
+            # install, in ``_advance_prefill``; until then commits and
+            # restores build the row from ``job.pages``.
             self._prefilling.append(job)
-        return []
+        return shed
 
     def budget_tokens(self, occupancy: int) -> int:
         """SLO-adaptive prefill budget for one interleave slot: how many
@@ -738,6 +1004,18 @@ class Replica:
                 job.lane_cache = model_lib.init_cache(self.cfg, 1,
                                                       self.capacity,
                                                       self.device)
+                if self.paged and job.cow is not None:
+                    # device half of the full-hit COW: materialize the
+                    # private copy before anything reads through the table
+                    src, dst = job.cow
+                    self._copy_page(self._cache, src, dst)
+                    job.cow = None
+                if self.paged and job.matched > 0:
+                    # cached-prefix join: rebuild the prefill ring from the
+                    # matched pages; chunking resumes at start = matched as
+                    # if those tokens had just been computed
+                    self._restore(self._cache, job.lane_cache,
+                                  self._job_row(job), job.matched)
             c = min(self.budget_tokens(occupancy), n - job.consumed)
             # largest bucket that fits the budget and the remaining prompt
             w = 1
@@ -776,7 +1054,14 @@ class Replica:
             job.key = keys[0]
         else:
             first = int(torch.argmax(logits[0, -1]))
-        self._insert(self._cache, job.lane_cache, job.lane)
+        if self.paged:
+            # scatter the finished ring into this lane's pages; positions
+            # below ``matched`` belong to shared prefix pages and go to the
+            # dump row (a commit never writes a page the lane does not own)
+            self._commit(self._cache, job.lane_cache, job.lane,
+                         self._job_row(job), job.matched)
+        else:
+            self._insert(self._cache, job.lane_cache, job.lane)
         job.lane_cache = None
         lane = job.lane
         self._tok[lane, 0] = first
@@ -798,7 +1083,17 @@ class Replica:
                 self._prefilling.popleft()
             self._work.notify_all()         # wake drain() waiters
             if job.error is not None:
+                self._release_pages_locked(job)
                 return                      # failed/evicted mid-prefill
+            if self._prefix is not None:
+                # publish this prompt's full blocks for later sharers; the
+                # cache adopts (increfs) pages it has not seen — existing
+                # hashes keep their cached page, so a full-hit COW copy
+                # stays private to this lane
+                full = n // self.page_size
+                if full > 0:
+                    self._prefix.register(prompt, job.pages[:full])
+            self._update_paged_telemetry_locked()
             if job.remaining > 0:
                 job.out.append(first)
                 job.first_ms = time.monotonic() * 1e3   # TTFT stamp
@@ -808,12 +1103,21 @@ class Replica:
             if job.remaining == 0:
                 finished = True
             else:
+                if self.paged:
+                    # publish the block-table row only now that the lane is
+                    # live: its device index is current and every page the
+                    # row exposes below it is committed
+                    self._tables[lane, :] = -1
+                    self._tables[lane, :len(job.pages)] = job.pages
                 self._lanes[lane] = job
         if finished:
             # the job never joins the batch: leave the lane greedy
             self._temp[lane] = 0.0
             self._topk[lane] = 0
             self._topp[lane] = 1.0
+            if self.paged:
+                with self._work:
+                    self._release_pages_locked(job)
             job.done.set()
 
     def _decode_step(self, active: List[int]) -> None:
@@ -823,14 +1127,15 @@ class Replica:
         if any(self._temp[lane] > 0.0 for lane in active):
             nxt, keys = self._step_sampled(
                 self.params, self._cache, self._tok, self._idx, self._keys,
-                self._temp, self._topk, self._topp)
+                self._temp, self._topk, self._topp, self._tables)
             # keep the keys of ACTIVE lanes only: a lane that joined after
             # `active` was taken had this step's token discarded, so its
             # count must not advance
             for lane in active:
                 self._keys[lane] = keys[lane]
         else:
-            nxt = self._step(self.params, self._cache, self._tok, self._idx)
+            nxt = self._step(self.params, self._cache, self._tok, self._idx,
+                             self._tables)
         nxt_np = nxt.cpu().numpy()      # the one (slots,) transfer per step
         self.decode_steps += 1
         self._last_progress_ms = time.monotonic() * 1e3
@@ -859,8 +1164,10 @@ class Replica:
                     self._temp[lane] = 0.0
                     self._topk[lane] = 0
                     self._topp[lane] = 1.0
+                    self._release_pages_locked(job)
                     finished.append(job)
             if finished:
+                self._update_paged_telemetry_locked()
                 self._work.notify_all()     # wake drain() waiters
         for job in finished:
             job.done.set()
@@ -895,6 +1202,16 @@ class Replica:
 
 
 
+def scratch_tables(rep: Replica) -> torch.Tensor:
+    """Block tables for timing a paged replica's step on scratch pools:
+    lane b maps table slot j to page ``(b * max_pages + j) % num_pages``,
+    its own run of pages modulo the pool."""
+    maxp = rep._max_pages_per_lane
+    return torch.tensor(
+        (np.arange(rep.slots * maxp) % rep.num_pages).reshape(rep.slots, maxp),
+        dtype=torch.int32, device=rep.device)
+
+
 def measure_step_curve(rep: Replica, steps_per_point: int = 6,
                        warmup_steps: int = 2) -> Tuple[List[float], List[float], float]:
     """Time the batched ``decode_step`` at every lane occupancy 1..slots.
@@ -902,13 +1219,17 @@ def measure_step_curve(rep: Replica, steps_per_point: int = 6,
     Runs the replica's own ``_step`` over a *scratch* cache (never the live
     one), with the first ``n`` lanes at a non-zero position, and takes the
     best of ``steps_per_point`` wall-clock samples per occupancy, each
-    ending in a device synchronise.  Also times one ``prefill_chunk`` of the
-    widest bucket: the cost a joining prompt interleaves between decode
-    steps.  Call before serving traffic.
+    ending in a device synchronise.  A paged replica steps scratch pools
+    through scratch block tables that map each lane to its own run of
+    pages (modulo the pool), so the timed step pays the real scatter and
+    paged attention.  Also times one ``prefill_chunk`` of the widest
+    bucket: the cost a joining prompt interleaves between decode steps.
+    Call before serving traffic.
 
     Returns ``(occupancies, step_ms, prefill_chunk_ms)``.
     """
-    cache = model_lib.init_cache(rep.cfg, rep.slots, rep.capacity, rep.device)
+    cache = rep._new_cache()
+    tables = scratch_tables(rep) if rep.paged else None
     tok = np.zeros((rep.slots, 1), np.int64)
     pos = min(16, rep.capacity - 1)
     occs, step_ms = [], []
@@ -917,7 +1238,7 @@ def measure_step_curve(rep: Replica, steps_per_point: int = 6,
         best = float("inf")
         for i in range(warmup_steps + steps_per_point):
             t0 = time.perf_counter()
-            rep._step(rep.params, cache, tok, idx)
+            rep._step(rep.params, cache, tok, idx, tables)
             rep._sync()
             dt = (time.perf_counter() - t0) * 1e3
             if i >= warmup_steps:

@@ -12,8 +12,11 @@ success):
    builds the CUDA kernels from the checkout's sources (one nvcc per
    source, all at once);
 2. kernels against their plain versions, on the card, at main-path shapes
-   in bf16 and f32, then timings (kernel, plain version, one PyTorch
-   library call as a yardstick) beside each kernel's bound;
+   in bf16 and f32 (the attention kernels also at recurrentgemma's D 256,
+   16 query heads over 1 KV head, window 2048; ``ssd`` at mamba2's widths
+   with chunks of 32, 128, 100 and 2; ``rglru`` at width 4096), then
+   timings (kernel, plain version, one PyTorch library call as a
+   yardstick where one exists) beside each kernel's bound;
 3. identity: qwen3-4b at full width, depth cut to 4 layers, in f32 with
    TF32 off, serves 3 greedy prompts through a ``ServingFleet``; every
    stream must equal the replica's ``generate_sequential`` and the port's
@@ -22,6 +25,13 @@ success):
    CPU, must emit the card's ring streams for a shared page-aligned system
    prompt, a full hit (copy-on-write), a capacity-length prompt and a
    mid-stream join;
+   then mamba2-780m (4 layers) and recurrentgemma-9b (5 layers: one
+   rglru/rglru/attn period and two rglru) at full width in f32: fleet
+   streams equal ``generate_sequential`` (whole-prompt against chunked
+   prefill) and the CPU plain path on short prompts, recurrentgemma also on
+   a 2300-token prompt across its 2048-token window (capacity 4096); a
+   paged replica emits the ring streams with mid-stream joins, and the
+   prefix cache is refused;
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
@@ -32,7 +42,13 @@ success):
    prompt, one equal to it: all ``ok``, prefix hits, fewer tokens
    prefilled than the prompts hold, at least one copy-on-write, the paged
    kernel launched 36 times per decode step, and no page held by a lane
-   once the fleet stops.
+   once the fleet stops;
+6. serve mamba2-780m at full config (48 layers, bf16, capacity 2048) as
+   in phase 4: 48 ``ssd`` launches per prefill chunk, no attention launch;
+7. serve recurrentgemma-9b at full config (38 layers, bf16, capacity
+   4096, one prompt of 2300 tokens) as in phase 4: 26 ``rglru`` and 12
+   ``flash_attention`` launches per chunk, 12 ``decode_attention`` per
+   decode step.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary, the card
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -196,7 +212,9 @@ def check_kernels(dev):
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_decode_attention as pk
+    from repro_torch.kernels import rglru_scan as gk
     from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
 
     rng = np.random.default_rng(SEED)
     hq, hkv, d = 32, 8, 128
@@ -207,9 +225,14 @@ def check_kernels(dev):
     # path also rounds its probabilities to bf16 before P.V, so 2e-2
     # absolute; RMSNorm outputs reach several units, so there two bf16
     # roundings of the largest |reference| (2^-7 relative).
+    # The scans (ssd, rglru) are held relative to their largest |reference|
+    # (outputs reach several units): f32 2e-5 (the cumulative log-decay
+    # |cum|, up to ~10^2 in a 128-token chunk, is summed in another order
+    # and enters exp), bf16 two roundings (2^-7).
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    scan_tol = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
     results = {"decode_attention": [], "flash_attention": [], "rmsnorm": [],
-               "paged_decode_attention": []}
+               "paged_decode_attention": [], "ssd": [], "rglru": []}
 
     def t(a, dtype):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
@@ -224,6 +247,8 @@ def check_kernels(dev):
         lim = tol[dtype]
         if name == "rmsnorm" and dtype == torch.bfloat16:
             lim = 2.0 ** -7 * max(1.0, exp.float().abs().max().item())
+        if name in ("ssd", "rglru"):
+            lim = scan_tol[dtype] * max(1.0, exp.float().abs().max().item())
         log(f"  {name:16s} {case:56s} {str(dtype)[6:]:8s} "
             f"max|err| {err:.3e}  tol {lim:.1e}")
         if not err <= lim:
@@ -334,7 +359,155 @@ def check_kernels(dev):
             record("rmsnorm", "x" + "x".join(map(str, shape)),
                    rk.rmsnorm(x, sc, 1e-6), rk.rmsnorm_plain(x, sc, 1e-6),
                    dtype)
+        # mamba2's gated norm over d_inner
+        x = t(rng.standard_normal((8, 3072)), dtype)
+        sc = t(0.5 * rng.standard_normal(3072), torch.float32)
+        record("rmsnorm", "x8x3072", rk.rmsnorm(x, sc, 1e-6),
+               rk.rmsnorm_plain(x, sc, 1e-6), dtype)
+
+    # ssd at mamba2's widths (48 heads of 64, state 128): the 32-token
+    # serving chunk, a 1024-token prompt in chunks of 128, odd chunks (100
+    # tokens in one chunk of 100, 130 in chunks of 2), and 8 rows
+    for dtype in (torch.bfloat16, torch.float32):
+        for (b_, s_, chunk), skip in (((1, 32, 32), True), ((1, 32, 32), False),
+                                      ((1, 1024, 128), True),
+                                      ((1, 100, 100), False),
+                                      ((1, 130, 2), True), ((8, 64, 32), True)):
+            args = ssd_inputs(rng, b_, s_, 48, 64, 128, dtype, dev, skip)
+            record("ssd", f"B{b_} S{s_} chunk{chunk} H48 P64 N128 "
+                   f"{'d_skip' if skip else 'no d_skip'}",
+                   sk.ssd(*args, chunk=chunk), sk.ssd_plain(*args, chunk=chunk),
+                   dtype)
+
+    # rglru at recurrentgemma's width (4096): a serving chunk, a 1024-token
+    # prompt and 8 rows of 33
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((1, 32, 4096), (1, 1024, 4096), (8, 33, 4096)):
+            args = rglru_inputs(rng, shape, dtype, dev)
+            record("rglru", "x".join(map(str, shape)), gk.rglru(*args),
+                   gk.rglru_plain(*args), dtype)
+
+    check_attention_d256(dev, rng, t, record)
     return {k: max(v) for k, v in results.items()}
+
+
+def ssd_inputs(rng, b, s, h, p, n, dtype, dev, skip=True):
+    """SSD scan inputs as the mamba2 mixer makes them: silu'd x, B and C,
+    dt the softplus of a normal around the reference's dt_bias init
+    (log-uniform dt in [0.001, 0.1]), a_log = log U(1, 16), unit skip."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    def dev_t(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), h))
+    bias = dt0 + np.log(-np.expm1(-dt0))
+    x = F.silu(dev_t(rng.standard_normal((b, s, h, p)), torch.float32))
+    bm = F.silu(dev_t(rng.standard_normal((b, s, n)), torch.float32))
+    cm = F.silu(dev_t(rng.standard_normal((b, s, n)), torch.float32))
+    dt = F.softplus(dev_t(0.5 * rng.standard_normal((b, s, h)) + bias,
+                          torch.float32))
+    a_log = dev_t(np.log(rng.uniform(1.0, 16.0, h)), torch.float32)
+    d_skip = torch.ones(h, device=dev) if skip else None
+    return (x.to(dtype), dt.to(dtype), a_log, bm.to(dtype), cm.to(dtype),
+            d_skip)
+
+
+def rglru_inputs(rng, shape, dtype, dev):
+    """RG-LRU scan inputs as the Griffin block makes them: x normal,
+    log_a = -8 softplus(Lambda) sigmoid(r) with the reference's Lambda
+    (a^8 spanning 0.9 .. 0.999 over the channels), a sigmoid gate."""
+    import numpy as np
+    import torch
+    w = shape[-1]
+    lam = np.log(np.expm1(-np.log(np.linspace(0.9, 0.999, w)) / 8.0))
+    r = 1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))
+    log_a = -8.0 * np.log1p(np.exp(lam)) * r
+    gate = 1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+                 for a in (rng.standard_normal(shape), log_a, gate))
+
+
+def check_attention_d256(dev, rng, t, record):
+    """The three attention kernels at recurrentgemma's local-attention
+    shapes: D 256, 16 query heads over 1 KV head, window 2048: ring decode
+    over wrapped rings with holes, paged decode over shuffled tables of a
+    4096-token lane, a 32-token chunk over a full 2048-slot ring, and whole
+    prompts shorter and longer than the window."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode_attention as pk
+
+    hq, hkv, d, n, win = 16, 1, 256, 2048, 2048
+    scale = d ** -0.5
+    b = 8
+    wrapped = np.concatenate([[1, n, 2 * n], rng.integers(1, 2 * n, b - 3)])
+    for dtype in (torch.bfloat16, torch.float32):
+        q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+        kc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+        vc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+        cl = torch.as_tensor(wrapped, dtype=torch.int32, device=dev)
+        pos = torch.from_numpy(ring_positions(rng, b, n, wrapped, 0.1)).to(dev)
+        kw = dict(cache_len=cl, pos=pos, window=win, scale=scale)
+        exp = dk.decode_attention_plain(q, kc, vc, **kw)
+        vis = (pos >= 0) & (pos < cl[:, None]) & (pos > cl[:, None] - 1 - win)
+        for splits in (None, 1):
+            record("decode_attention",
+                   f"D256 Hq16 Hkv1 B8 n2048 w2048 wrapped+holes "
+                   f"splits={splits or 'auto'}",
+                   dk.decode_attention(q, kc, vc, splits=splits, **kw), exp,
+                   dtype, vis.any(1))
+
+    page, maxp = 16, 4096 // 16
+    plens = np.concatenate([[3000, 4096, 1, 2100],
+                            rng.integers(1, 4097, size=b - 4)])
+    tables, ppos = paged_layout(rng, plens, page, maxp, share=1000 // page,
+                                holes=0.05, stale=0.05, empty=(7,))
+    tab = torch.from_numpy(tables).to(dev)
+    pp = torch.from_numpy(ppos).to(dev)
+    cl = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+        kp = t(rng.standard_normal((b * maxp + 1, page, hkv, d)), dtype)
+        vp = t(rng.standard_normal((b * maxp + 1, page, hkv, d)), dtype)
+        kw = dict(cache_len=cl, window=win, scale=scale)
+        exp = pk.paged_decode_attention_plain(q, kp, vp, pp, tab, **kw)
+        for splits in (None, 1):
+            record("paged_decode_attention",
+                   f"D256 Hq16 Hkv1 B8 page16 maxp256 w2048 shuffled "
+                   f"splits={splits or 'auto'}",
+                   pk.paged_decode_attention(q, kp, vp, pp, tab, splits=splits,
+                                             **kw), exp, dtype)
+
+    c = 32
+    for dtype in (torch.bfloat16, torch.float32):
+        qc = t(rng.standard_normal((1, c, hq, d)), dtype)
+        kc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
+        vc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
+        for start in (2500, 5000):
+            ring = ring_positions(rng, 1, n, [start])
+            qp = torch.arange(start, start + c, dtype=torch.int32, device=dev)
+            kp = torch.cat([torch.from_numpy(ring).to(dev), qp[None]], 1)
+            kw = dict(q_pos=qp, k_pos=kp, causal=True, window=win, scale=scale)
+            exp = fk.flash_attention_plain(qc, kc, vc, **kw)
+            for splits in (None, 1):
+                record("flash_attention",
+                       f"D256 Hq16 Hkv1 chunk C32 ring2048 start{start} w2048 "
+                       f"splits={splits or 'auto'}",
+                       fk.flash_attention(qc, kc, vc, splits=splits, **kw),
+                       exp, dtype)
+        for s in (512, 2304):
+            qs = t(rng.standard_normal((1, s, hq, d)), dtype)
+            ks = t(rng.standard_normal((1, s, hkv, d)), dtype)
+            vs = t(rng.standard_normal((1, s, hkv, d)), dtype)
+            ar = torch.arange(s, dtype=torch.int32, device=dev)
+            kw = dict(q_pos=ar, k_pos=ar, causal=True, window=win, scale=scale)
+            record("flash_attention", f"D256 Hq16 Hkv1 prompt S{s} w2048",
+                   fk.flash_attention(qs, ks, vs, **kw),
+                   fk.flash_attention_plain(qs, ks, vs, **kw), dtype)
 
 
 def time_kernels(dev):
@@ -496,16 +669,170 @@ def time_kernels(dev):
         **timings(lambda: rk.rmsnorm(xh, sh, 1e-6),
                   lambda: rk.rmsnorm_plain(xh, sh, 1e-6), None),
         bound_ms=bound(2 * xh.numel() * 2 + 512, 0, PEAK_F32_FLOPS)[0])
+
+    # ssd: the 32-token chunk of mamba2's serving path (48 heads of 64,
+    # state 128) and a 1024-token prompt in chunks of 128.  No PyTorch call
+    # computes the SSD scan: no library time.
+    from repro_torch.kernels import ssd_scan as sk
+    for (s_, chunk), key in (((32, 32), None), ((1024, 128), "ssd_prompt1024")):
+        args = ssd_inputs(rng, 1, s_, 48, 64, 128, bf, dev)
+        bms, by = bound(ssd_bytes(args), ssd_flops(args, chunk),
+                        PEAK_BF16_FLOPS)
+        row = dict(shape=f"B=1 S={s_} chunk={chunk} H=48 P=64 N=128 bf16",
+                   **timings(lambda: sk.ssd(*args, chunk=chunk),
+                             lambda: sk.ssd_plain(*args, chunk=chunk), None),
+                   bound_ms=bms, bound_by=by)
+        if key is None:
+            rows["ssd"] = row
+        else:
+            DETAILS[key] = row
+
+    # rglru: recurrentgemma's width, a 32-token chunk and a 1024-token
+    # prompt.  No PyTorch call computes the scan: no library time.
+    from repro_torch.kernels import rglru_scan as gk
+    for shape, key in (((1, 32, 4096), None), ((1, 1024, 4096),
+                                               "rglru_prompt1024")):
+        args = rglru_inputs(rng, shape, bf, dev)
+        elems = args[0].numel()
+        # per element: exp, exp(2l), 1 - e, sqrt, two products, one FMA
+        bms, by = bound(4 * elems * 2, 8 * elems, PEAK_F32_FLOPS)
+        row = dict(shape="x".join(map(str, shape)) + " bf16",
+                   **timings(lambda: gk.rglru(*args),
+                             lambda: gk.rglru_plain(*args), None),
+                   bound_ms=bms, bound_by=by)
+        if key is None:
+            rows["rglru"] = row
+        else:
+            DETAILS[key] = row
+
+    for name, row in time_attention_d256(dev, rng, flush, timings,
+                                         sdpa).items():
+        rows[name]["d256"] = row
     return rows
 
 
+def ssd_bytes(args) -> int:
+    """Bytes the SSD scan must move: each input read once, y written."""
+    x = args[0]
+    return (2 * x.numel() * x.element_size()
+            + sum(a.numel() * a.element_size() for a in args[1:]
+                  if a is not None))
+
+
+def ssd_flops(args, chunk: int) -> int:
+    """Operations of the chunked SSD scan on these inputs: per batch row
+    and chunk the lower-triangle score C.B^T, once, since every head shares
+    the one B/C group; per head and chunk its product with xb, and for
+    every chunk but the first the carried-state term C.h and for every
+    chunk but the last the state update, each 2 N P per position."""
+    x, b_mat = args[0], args[3]
+    b, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    per_head = nc * pairs * 2 * p + 2 * (nc - 1) * 2 * chunk * n * p
+    return b * nc * pairs * 2 * n + b * h * per_head
+
+
+def time_attention_d256(dev, rng, flush, timings, sdpa):
+    """The three attention kernels at recurrentgemma's local-attention
+    shapes (D 256, Hq 16 over Hkv 1, window 2048), bf16: ring decode at 8
+    lanes over a full 2048-slot ring, paged decode at 8 lanes of up to 4096
+    positions in pages of 16, a 32-token chunk over a full ring."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode_attention as pk
+
+    bf = torch.bfloat16
+    hq, hkv, d, n, win, b = 16, 1, 256, 2048, 2048, 8
+    scale = d ** -0.5
+    out = {}
+
+    def rnd(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dev, bf)
+
+    lens = rng.integers(n, 2 * n + 1, size=b)       # every ring full
+    q, kc, vc = rnd((b, 1, hq, d)), rnd((b, n, hkv, d)), rnd((b, n, hkv, d))
+    cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    pos = torch.from_numpy(ring_positions(rng, b, n, lens)).to(dev)
+    kw = dict(cache_len=cl, pos=pos, window=win, scale=scale)
+    valid = (pos >= 0) & (pos < cl[:, None]) & (pos > cl[:, None] - 1 - win)
+    rows_read = int(valid.sum())
+    nbytes = rows_read * hkv * d * 2 * 2 + b * n * 4 + 2 * q.numel() * 2 + b * 4
+    bms, by = bound(nbytes, 4 * hq * d * rows_read, PEAK_BF16_FLOPS)
+    out["decode_attention"] = dict(
+        shape=f"B={b} n={n} Hq={hq} Hkv={hkv} D={d} w={win} bf16 full rings",
+        **timings(lambda: dk.decode_attention(q, kc, vc, **kw),
+                  lambda: dk.decode_attention_plain(q, kc, vc, **kw),
+                  lambda: sdpa(q, kc, vc, attn_mask=valid[:, None, None, :],
+                               scale=scale)),
+        bound_ms=bms, bound_by=by)
+
+    page, maxp = 16, 4096 // 16
+    plens = rng.integers(2048, 4097, size=b)
+    tables, ppos = paged_layout(rng, plens, page, maxp)
+    tab = torch.from_numpy(tables).to(dev)
+    pp = torch.from_numpy(ppos).to(dev)
+    kp = rnd((b * maxp + 1, page, hkv, d))
+    vp = rnd((b * maxp + 1, page, hkv, d))
+    cl = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+    kw = dict(cache_len=cl, window=win, scale=scale)
+    safe = tab.clamp_min(0).long()
+    kg = kp[safe].reshape(b, maxp * page, hkv, d)
+    vg = vp[safe].reshape(b, maxp * page, hkv, d)
+    expected = torch.arange(maxp * page, device=dev)[None]
+    pvis = ((pp[safe].reshape(b, -1) == expected) & (expected < cl[:, None])
+            & (expected > cl[:, None] - 1 - win)
+            & (tab >= 0).repeat_interleave(page, 1))
+    seen = int(pvis.sum())
+    nbytes = (seen * (hkv * d * 2 * 2 + 4) + 2 * q.numel() * 2
+              + tab.numel() * 4 + b * 4)
+    bms, by = bound(nbytes, 4 * hq * d * seen, PEAK_BF16_FLOPS)
+    out["paged_decode_attention"] = dict(
+        shape=(f"B={b} pages of {page}, {maxp} per lane, Hq={hq} Hkv={hkv} "
+               f"D={d} w={win} bf16, shuffled pool"),
+        **timings(lambda: pk.paged_decode_attention(q, kp, vp, pp, tab, **kw),
+                  lambda: pk.paged_decode_attention_plain(q, kp, vp, pp, tab,
+                                                          **kw),
+                  lambda: sdpa(q, kg, vg, attn_mask=pvis[:, None, None, :],
+                               scale=scale)),
+        library_note="SDPA over K/V gathered beforehand (gather not timed)",
+        bound_ms=bms, bound_by=by)
+
+    c, start = 32, 5000
+    qc, kc2, vc2 = rnd((1, c, hq, d)), rnd((1, n + c, hkv, d)), rnd((1, n + c, hkv, d))
+    qp = torch.arange(start, start + c, dtype=torch.int32, device=dev)
+    kp2 = torch.cat([torch.from_numpy(ring_positions(rng, 1, n, [start])).to(dev),
+                     qp[None]], 1)
+    kw = dict(q_pos=qp, k_pos=kp2, causal=True, window=win, scale=scale)
+    vis = ((kp2[:, None, :] >= 0) & (kp2[:, None, :] <= qp[None, :, None])
+           & (kp2[:, None, :] > qp[None, :, None] - win))
+    pairs = int(vis.sum())
+    keys_read = int(vis.any(1).sum())
+    nbytes = keys_read * hkv * d * 2 * 2 + 2 * qc.numel() * 2 + 4 * (n + 2 * c)
+    bms, by = bound(nbytes, 4 * hq * d * pairs, PEAK_BF16_FLOPS)
+    out["flash_attention"] = dict(
+        shape=f"chunk C={c} over n+C={n + c} keys Hq={hq} Hkv={hkv} D={d} "
+              f"w={win} bf16",
+        **timings(lambda: fk.flash_attention(qc, kc2, vc2, **kw),
+                  lambda: fk.flash_attention_plain(qc, kc2, vc2, **kw),
+                  lambda: sdpa(qc, kc2, vc2, attn_mask=vis[:, None],
+                               scale=scale)),
+        bound_ms=bms, bound_by=by)
+    return out
+
+
 # ---------------------------------------------------------------- phase 3
-def cpu_plain_stream(model, cfg, prompt, new_tokens, ceiling):
-    """The port's plain path on the CPU: chunked prefill in the replica's
-    bucket widths, then greedy decode steps.  Returns (tokens, last logits)."""
+def cpu_plain_stream(model, cfg, prompt, new_tokens, ceiling, capacity=1024):
+    """The port's path on ``model``'s device without the engine: chunked
+    prefill in the replica's bucket widths, then greedy decode steps.
+    Returns (tokens, last logits)."""
     import torch
     from repro_torch.models import model as M
-    cache = M.init_cache(cfg, 1, 1024, model.device)
+    cache = M.init_cache(cfg, 1, capacity, model.device)
     done = 0
     while done < len(prompt):
         w = 1
@@ -664,12 +991,114 @@ def paged_identity(cfg, model, cpu_model, ring):
                                      **stats)
 
 
+def recurrent_identity(dev, arch: str, layers: int, capacity: int,
+                       cpu_lens, card_lens):
+    """Phase 3c: a recurrent arch at full width with its depth cut to
+    ``layers``, in f32 with TF32 off.  Greedy streams through a
+    ``ServingFleet`` (chunked prefill, 32-token ceiling) must equal the
+    replica's ``generate_sequential`` (whole-prompt prefill) and, for the
+    prompts of ``cpu_lens``, the port's plain path on the CPU; a paged
+    replica (no prefix cache) must emit the ring replica's streams, a
+    mid-stream join included; ``prefix_cache=True`` must be refused."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policies import make_policy
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Replica, Request, ServingFleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).replace(num_layers=layers, dtype=torch.float32)
+    model = M.init_model(cfg, SEED, dev)
+    cpu_model = M.Model(cfg, "cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    name = f"{arch}-ring"
+    rep = Replica(name, cfg, model, slots=4, capacity=capacity,
+                  prefill_chunk_tokens=32)
+    fleet = ServingFleet(make_policy("DDS"), source=name, coordinator=name,
+                         admission_margin=0.0)
+    fleet.add_replica(rep)
+    rng = np.random.default_rng(SEED + 6)
+    lens = list(cpu_lens) + list(card_lens)
+    prompts = [rng.integers(2, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in lens]
+    new = 16
+    with ThreadPoolExecutor(len(prompts)) as ex:
+        res = list(ex.map(fleet.submit, [Request(i, p, new, 1e9)
+                                         for i, p in enumerate(prompts)]))
+    worst, streams = 0.0, []
+    for i, (p, r) in enumerate(zip(prompts, res)):
+        if r.outcome != "ok":
+            raise AssertionError(f"{arch} identity request {i}: {r.outcome} "
+                                 f"{r.error}")
+        got = r.tokens.tolist()
+        streams.append(got)
+        seq = rep.generate_sequential(Request(100 + i, p, new, 1e9)).tolist()
+        line = f"  {arch} prompt {len(p):4d}: fleet == sequential {got == seq}"
+        if got != seq:
+            raise AssertionError(f"{arch} prompt {len(p)}: fleet {got} "
+                                 f"sequential {seq}")
+        if len(p) in cpu_lens:
+            cpu_toks, cpu_last = cpu_plain_stream(cpu_model, cfg, p, new, 32,
+                                                  capacity)
+            gpu_toks, gpu_last = cpu_plain_stream(model, cfg, p, new, 32,
+                                                  capacity)
+            err = (gpu_last - cpu_last).abs().max().item()
+            worst = max(worst, err)
+            line += (f", fleet == cpu plain {got == cpu_toks}, card plain == "
+                     f"cpu plain {gpu_toks == cpu_toks}, last logits "
+                     f"max|diff| {err:.3e}")
+            if not (got == cpu_toks == gpu_toks):
+                raise AssertionError(f"{arch} prompt {len(p)}: fleet {got} "
+                                     f"cpu {cpu_toks} card {gpu_toks}")
+            # as for qwen3-4b: f32 with TF32 off, the devices differ only
+            # in the order of their sums
+            if not err <= 1e-3:
+                raise AssertionError(f"{arch} identity logits differ by {err}")
+        log(line)
+
+    # paged replica (no prefix cache) against the ring replica: the first
+    # request alone, the others joining it mid-stream
+    paged = Replica(f"{arch}-paged", cfg, model, slots=4, capacity=capacity,
+                    prefill_chunk_tokens=32, paged=True, page_size=16)
+    short = [p for p in prompts if len(p) <= 700][:3]
+    want = [rep.generate(Request(200 + i, p, new, 1e9)).tolist()
+            for i, p in enumerate(short)]
+    got = serve_paged(paged, [Request(300 + i, p, new, 1e9)
+                              for i, p in enumerate(short)], False)
+    paged.stop()
+    drained(paged)
+    log(f"  {arch} paged == ring {got == want} "
+        f"(prompts {[len(p) for p in short]}, joins mid-stream)")
+    if got != want:
+        raise AssertionError(f"{arch} paged {got} ring {want}")
+    try:
+        Replica(f"{arch}-prefix", cfg, model, slots=4, capacity=capacity,
+                paged=True, page_size=16, prefix_cache=True)
+    except ValueError as e:
+        log(f"  {arch} prefix_cache refused: {e}")
+    else:
+        raise AssertionError(f"{arch}: prefix_cache was not refused")
+    DETAILS[f"identity_{arch}"] = dict(
+        layers=layers, capacity=capacity, prompts=lens, new_tokens=new,
+        cpu_prompts=list(cpu_lens), last_logits_max_abs_diff=worst, tol=1e-3,
+        paged_prompts=[len(p) for p in short])
+    fleet.stop()
+    rep.stop()
+    del model, cpu_model, rep, paged, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 4
 def _kernel_class(name: str) -> str:
     for key, cls in (("paged_decode_kernel", "paged_decode_attention"),
                      ("decode_kernel", "decode_attention"),
                      ("flash_kernel", "flash_attention"),
-                     ("rmsnorm_kernel", "rmsnorm")):
+                     ("rmsnorm_kernel", "rmsnorm"), ("ssd_kernel", "ssd"),
+                     ("rglru_kernel", "rglru")):
         if key in name:
             return cls
     low = name.lower()
@@ -702,13 +1131,16 @@ def step_profile(rep, cfg, dev, at: int = 1024):
         p = (torch.arange(full, device=dev)[:, None] * page
              + torch.arange(page, device=dev)).repeat(rep.slots, 1)
         for layer in cache:
-            layer["pos"][rows] = torch.where(p < at, p, -1).to(torch.int32)
+            if "pos" in layer:
+                layer["pos"][rows] = torch.where(p < at, p, -1).to(torch.int32)
         fns = (("decode_step", lambda: rep._step(rep.params, cache, tok, idx,
                                                  tables)),)
     else:
         cache = M.init_cache(cfg, rep.slots, rep.capacity, dev)
         lane = M.init_cache(cfg, 1, rep.capacity, dev)
         for layer in cache + lane:      # rings holding positions 0 .. at-1
+            if "pos" not in layer:
+                continue                # a recurrent layer: its state
             n = layer["pos"].shape[1]
             p = torch.arange(max(0, at - n), at, dtype=torch.int32, device=dev)
             layer["pos"][:, (p % n).long()] = p
@@ -743,10 +1175,55 @@ def step_profile(rep, cfg, dev, at: int = 1024):
             f"{busy:.2f} ms (idle {100 * (1 - busy / wall):.0f}%), "
             f"{len(evs)} device events; by class "
             + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_class.items())))
+    if not rep.paged:
+        # wall time of one chunk at each bucket width: the fixed and
+        # per-token parts the profile's chunk-cost fit separates
+        by_width = {}
+        for w in rep._chunk_buckets:
+            toks = rep._zeros_tokens(w)
+            walls = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rep._prefill_chunk(rep.params, lane, toks, at)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            by_width[w] = sorted(walls)[len(walls) // 2]
+        out["prefill_chunk_wall_ms_by_width"] = by_width
+        log("  prefill_chunk wall ms by width "
+            + ", ".join(f"{w}:{v:.2f}" for w, v in by_width.items()))
     return out
 
 
-def serve_phase(dev):
+def expected_launches(cfg, steps: int, chunks: int, wholes: int,
+                      paged: bool = False) -> dict:
+    """Launches of every kernel that a run of ``steps`` decode steps,
+    ``chunks`` prefill chunks and ``wholes`` whole-prompt prefills must
+    make, from the layer kinds: an attention layer launches the (paged)
+    decode kernel once per step and flash once per prefill, an SSD layer
+    ``ssd`` and an RG-LRU layer ``rglru`` once per prefill, and every norm
+    (pre-norms, MLP norms, qk-norms, Mamba2's gated norm, the final norm)
+    ``rmsnorm`` once per call."""
+    kinds = cfg.layer_kinds()
+    attn = kinds.count("attn")
+    prefills = chunks + wholes
+    norms = 1 + len(kinds) * (1 + (cfg.d_ff > 0))
+    norms += attn * 2 * cfg.use_qk_norm + kinds.count("ssm")
+    return {"decode_attention": 0 if paged else attn * steps,
+            "paged_decode_attention": attn * steps if paged else 0,
+            "flash_attention": attn * prefills,
+            "ssd": kinds.count("ssm") * prefills,
+            "rglru": kinds.count("rglru") * prefills,
+            "rmsnorm": norms * (steps + prefills)}
+
+
+def serve_phase(dev, arch="qwen3-4b", capacity=2048, long_prompts=(),
+                key="serve"):
+    """Phase 4: ``arch`` at its full config in bf16 through a DDS fleet of
+    2 replicas sharing weights, 8 slots, a 32-token chunk ceiling; 12
+    requests of 64-1024 prompt tokens (the last ones replaced by
+    ``long_prompts``), 32 new tokens each, one sampled."""
+    import gc
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -755,9 +1232,13 @@ def serve_phase(dev):
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Request
 
-    cfg = get_config("qwen3-4b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9    # left by earlier phases
+    cfg = get_config(arch)
     t0 = time.perf_counter()
-    fleet = build_fleet(cfg, "DDS", replicas=2, slots=8, capacity=2048,
+    fleet = build_fleet(cfg, "DDS", replicas=2, slots=8, capacity=capacity,
                         prefill_chunk_tokens=32, seed=SEED, device=dev,
                         verbose=False)
     build_s = time.perf_counter() - t0
@@ -768,12 +1249,14 @@ def serve_phase(dev):
                         zip(r.profile.step_curve.xs, r.profile.step_curve.ys))
             + f"; chunk({r.prefill_chunk_tokens}) "
               f"{r.profile.prefill_chunk_ms:.2f} ms")
-    DETAILS["serve_build_s"] = build_s
-    DETAILS["step_curve_ms"] = {r.name: list(r.profile.step_curve.ys)
-                                for r in reps}
+    DETAILS[f"{key}_build_s"] = build_s
+    DETAILS[f"{key}_step_curve_ms"] = {r.name: list(r.profile.step_curve.ys)
+                                       for r in reps}
 
     rng = np.random.default_rng(SEED + 3)
     lens = rng.integers(64, 1025, size=12)
+    if long_prompts:
+        lens[-len(long_prompts):] = long_prompts
     reqs = [Request(i, rng.integers(2, cfg.vocab_size, size=(int(n),))
                     .astype(np.int32), 32, 600_000.0)
             for i, n in enumerate(lens)]
@@ -797,25 +1280,21 @@ def serve_phase(dev):
         toks = np.asarray(r.tokens)
         if len(toks) != 32 or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"request {i}: bad tokens {toks}")
-    layers = cfg.num_layers
-    expect = {"decode_attention": layers * steps,
-              "flash_attention": layers * (chunks + wholes),
-              "rmsnorm": (4 * layers + 1) * (steps + chunks + wholes)}
+    expect = expected_launches(cfg, steps, chunks, wholes)
     log(f"  launches {launches}; expected {expect} from {steps} decode "
         f"steps, {chunks} chunks, {wholes} whole prefills")
-    for k, v in expect.items():
-        if not (launches[k] > 0 and launches[k] == v):
-            raise AssertionError(f"{k}: {launches[k]} launches, expected {v}")
+    if launches != expect or steps == 0 or chunks == 0:
+        raise AssertionError(f"{arch}: launches {launches}, expected {expect}")
 
     # finite logits of the served model on a served prompt
-    cache = M.init_cache(cfg, 1, 2048, dev)
+    cache = M.init_cache(cfg, 1, capacity, dev)
     lg, _ = M.prefill_chunk(reps[0].params, cache,
                             torch.as_tensor(reqs[0].prompt[:32], device=dev,
                                             dtype=torch.int64)[None], 0, cfg)
     if not torch.isfinite(lg).all():
         raise AssertionError("non-finite logits")
 
-    DETAILS["step_profile"] = step_profile(reps[0], cfg, dev)
+    DETAILS[f"{key}_step_profile"] = step_profile(reps[0], cfg, dev)
 
     gen = sum(len(r.tokens) for r in res)
     ttft = sorted(r.ttft_ms for r in res)
@@ -828,13 +1307,19 @@ def serve_phase(dev):
                  decode_steps=steps, prefill_chunks=chunks,
                  whole_prefills=wholes, launches=launches,
                  warmup_s={r.name: r.warmup_s for r in reps},
+                 held_at_start_gb=held_gb,
+                 # the Update-Profile chunk cost (its fit at the full
+                 # chunk width) after the phase; the warmup line shows its
+                 # start
+                 profile_prefill_chunk_ms={r.name: r.profile.prefill_chunk_ms
+                                           for r in reps},
                  peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     log(f"  {stats['ok']}/{len(res)} ok, placements {stats['placements']}, "
         f"{gen} tokens in {wall:.2f} s = {stats['tokens_per_s']:.1f} tok/s, "
         f"TTFT p50 {stats['ttft_p50_ms']:.0f} ms p99 "
         f"{stats['ttft_p99_ms']:.0f} ms")
     fleet.stop()
-    DETAILS["serve"] = stats
+    DETAILS[key] = stats
     return launches
 
 
@@ -909,17 +1394,12 @@ def paged_serve_phase(dev):
         if len(toks) != 32 or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"paged request {i}: bad tokens {toks}")
     steps, chunks = delta["decode_steps"], delta["prefill_chunks"]
-    layers = cfg.num_layers
-    expect = {"paged_decode_attention": layers * steps,
-              "decode_attention": 0,
-              "flash_attention": layers * (chunks + delta["whole_prefills"]),
-              "rmsnorm": (4 * layers + 1) * (steps + chunks
-                                             + delta["whole_prefills"])}
+    expect = expected_launches(cfg, steps, chunks, delta["whole_prefills"],
+                               paged=True)
     log(f"  launches {launches}; expected {expect} from {steps} decode "
         f"steps, {chunks} chunks")
-    for k, v in expect.items():
-        if not (launches[k] == v and (v > 0 or k == "decode_attention")):
-            raise AssertionError(f"{k}: {launches[k]} launches, expected {v}")
+    if launches != expect or steps == 0 or chunks == 0:
+        raise AssertionError(f"paged: launches {launches}, expected {expect}")
     hit = {r.name: r._prefix.hit_rate() for r in reps}
     # LRU evictions: distinct full prompt blocks a replica served, less the
     # blocks its prefix cache still holds
@@ -988,13 +1468,28 @@ def main(argv=None) -> int:
 
     log("phase 3: identity (qwen3-4b width, 4 layers, f32, TF32 off)")
     identity_phase(dev)
+    log("phase 3c: identity of the recurrent stacks (full width, f32, TF32 "
+        "off): mamba2-780m at 4 layers, recurrentgemma-9b at 5")
+    recurrent_identity(dev, "mamba2-780m", 4, 1024, (40, 200, 700), ())
+    recurrent_identity(dev, "recurrentgemma-9b", 5, 4096, (40, 200),
+                       (700, 2300))
 
     log("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
-    ring_launches = serve_phase(dev)
+    launches = {"ring": serve_phase(dev)}
 
     log("phase 5: paged serve with prefix cache (qwen3-4b full config, "
         "bf16, 2 replicas, DDS)")
-    paged_launches = paged_serve_phase(dev)
+    launches["paged"] = paged_serve_phase(dev)
+
+    log("phase 6: serve mamba2-780m (full config: 48 layers, bf16, 2 "
+        "replicas, DDS, capacity 2048)")
+    launches["mamba2"] = serve_phase(dev, "mamba2-780m", 2048,
+                                     key="serve_mamba2")
+    log("phase 7: serve recurrentgemma-9b (full config: 38 layers, bf16, 2 "
+        "replicas, DDS, capacity 4096, one prompt past the 2048 window)")
+    launches["recurrentgemma"] = serve_phase(
+        dev, "recurrentgemma-9b", 4096, long_prompts=(2300,),
+        key="serve_recurrentgemma")
 
     meta = {
         "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1006,11 +1501,17 @@ def main(argv=None) -> int:
         "paged_decode_attention": (
             "cuda", "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "src/repro/kernels/decode_attention.py:193"),
+        "ssd": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                "src/repro/kernels/ssd_scan.py:73"),
+        "rglru": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                  "src/repro/kernels/rglru_scan.py:53"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = rows[name]
-        by_path = {"ring": ring_launches[name], "paged": paged_launches[name]}
+        by_path = {path: n[name] for path, n in launches.items()}
+        if not sum(by_path.values()):
+            raise AssertionError(f"{name}: no launch on the main paths")
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -1019,7 +1520,7 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
-        for extra in ("single_pass_ms", "library_note"):
+        for extra in ("single_pass_ms", "library_note", "d256"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     DETAILS["kernels"] = kernels

@@ -51,11 +51,19 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> Model:
         for i, layer in enumerate(model.layers):
             lt = _layer_tree(tree, cfg, i)
             _set(layer.norm1, lt["norm1"]["scale"])
-            for name in ("wq", "wk", "wv", "wo"):
-                _set(layer.attn[name], lt["attn"][name])
-            if cfg.use_qk_norm:
-                _set(layer.attn["q_norm"], lt["attn"]["q_norm"]["scale"])
-                _set(layer.attn["k_norm"], lt["attn"]["k_norm"]["scale"])
+            if layer.ssm is not None:
+                for name, param in layer.ssm.items():
+                    _set(param, lt["ssm"]["norm"]["scale"] if name == "norm"
+                         else lt["ssm"][name])
+            elif layer.rec is not None:
+                for name, param in layer.rec.items():
+                    _set(param, lt["rec"][name])
+            else:
+                for name in ("wq", "wk", "wv", "wo"):
+                    _set(layer.attn[name], lt["attn"][name])
+                if cfg.use_qk_norm:
+                    _set(layer.attn["q_norm"], lt["attn"]["q_norm"]["scale"])
+                    _set(layer.attn["k_norm"], lt["attn"]["k_norm"]["scale"])
             if layer.mlp is not None:
                 _set(layer.norm2, lt["norm2"]["scale"])
                 for name in layer.mlp:

@@ -11,23 +11,26 @@ from typing import Dict, List
 
 from repro_torch.common.config import ModelConfig
 
-ARCHS: List[str] = ["granite_8b", "qwen3_4b", "gemma3_27b"]
+ARCHS: List[str] = ["granite_8b", "qwen3_4b", "gemma3_27b", "mamba2_780m",
+                    "recurrentgemma_9b"]
 
 # archs of the JAX package not ported yet -> the ROADMAP item that ports them
 _LATER = {
-    "mamba2_780m": "section 2 item 1 (recurrent stacks)",
-    "recurrentgemma_9b": "section 2 item 1 (recurrent stacks)",
-    "mixtral_8x22b": "section 2 item 3 (MoE)",
-    "arctic_480b": "section 2 item 3 (MoE)",
-    "llama32_vision_90b": "section 2 item 4 (cross-attention)",
-    "musicgen_medium": "section 2 item 4 (cross-attention)",
-    "minicpm_2b": "section 2 item 7 (the rest)",
+    "mixtral_8x22b": "section 2 item 2 (MoE)",
+    "arctic_480b": "section 2 item 2 (MoE)",
+    "llama32_vision_90b": "section 2 item 3 (cross-attention)",
+    "musicgen_medium": "section 2 item 3 (cross-attention)",
+    "minicpm_2b": "section 2 item 6 (the rest)",
 }
+
+
+# public ids whose module name is not the id with dashes as underscores
+_ALIASES = {"llama-3.2-vision-90b": "llama32_vision_90b"}
 
 
 def canon(name: str) -> str:
     """Public id (dashes, dots) -> module name (underscores)."""
-    return name.replace("-", "_").replace(".", "")
+    return _ALIASES.get(name, name.replace("-", "_").replace(".", ""))
 
 
 def _module(name: str):

@@ -135,11 +135,15 @@ class AppProfile:
     # immediately reclaimable KV pages; -1.0 = replica is not paged).
     prefix_hit_rate: float = 0.0         # fraction of lookups hitting >= 1 block
     free_pages: float = -1.0             # free + reclaimable KV pages (-1 = unpaged)
-    # guards the prefill_chunk_ms EWMA read-modify-write (same UP-writer vs
-    # heartbeat-copier pattern the Curve lock covers); bare reads of the
+    # guards the prefill_chunk_ms fit's read-modify-write (same UP-writer
+    # vs heartbeat-copier pattern the Curve lock covers); bare reads of the
     # float stay lock-free
     _pc_lock: threading.Lock = field(default_factory=threading.Lock,
                                      repr=False, compare=False)
+    # exponentially weighted sums (weight, Σw, Σw², Σms, Σw·ms) over the
+    # chunk samples (width w, time ms) that ``observe_prefill_chunk`` fits
+    _pc_sums: List[float] = field(default_factory=lambda: [0.0] * 5,
+                                  repr=False, compare=False)
 
     @property
     def lane_mode(self) -> bool:
@@ -201,23 +205,46 @@ class AppProfile:
         if self.step_curve is not None:
             self.step_curve.observe(float(max(occupancy, 1)), step_ms)
 
+    # shrinks the fitted per-token slope toward 0 (a chunk cost that does
+    # not grow with the width) while the samples' widths barely vary (token²)
+    PREFILL_FIT_RIDGE = 1.0
+
     def observe_prefill_chunk(self, ms: float, ewma: float = 0.25,
                               tokens: Optional[int] = None) -> None:
-        """Lane-mode UP loop: EWMA the chunked-prefill interleave cost.
+        """Lane-mode UP loop: fold one chunk's time into the chunk cost.
 
-        ``tokens`` is the width of the chunk that took ``ms``; under the
-        SLO budget chunks vary in width, so the sample is normalized to
-        the profile's reference width (``prefill_chunk_tokens``) before
-        folding — ``prefill_chunk_ms`` stays "ms per reference chunk"
-        and the per-token rate stays comparable across widths."""
-        if tokens and self.prefill_chunk_tokens > 0:
-            ms = ms * (self.prefill_chunk_tokens / float(tokens))
+        A chunk of ``tokens`` prompt tokens costs a fixed part (launches,
+        streaming the weights) plus a part per token; on the card the
+        fixed part dominates, on the CPU the per-token one.  So every
+        sample, whatever its width, feeds a least-squares fit of
+        ``ms = fixed + per_token * tokens`` in which each sample weighs
+        ``ewma`` against the earlier ones' ``1 - ewma``.
+        ``prefill_chunk_ms`` becomes the fit at the reference width
+        (``prefill_chunk_tokens``): it stays "ms per reference chunk", and
+        a narrow chunk is never scaled up to that width.  While the widths
+        seen barely vary, the ridge holds the slope near 0, so the fit
+        does not extrapolate from one width: a cost it underestimates so
+        widens the SLO budget's chunks until their widths tell the two
+        parts apart.  The cost measured before the first sample (the
+        warmup's) stands until that sample."""
+        ref = self.prefill_chunk_tokens
+        w = float(tokens) if tokens and ref > 0 else ref
         with self._pc_lock:
-            if self.prefill_chunk_ms > 0.0:
-                self.prefill_chunk_ms = ((1 - ewma) * self.prefill_chunk_ms
-                                         + ewma * ms)
-            else:
-                self.prefill_chunk_ms = ms
+            sums = self._pc_sums
+            k = ewma if sums[0] > 0.0 else 1.0
+            sums[:] = [(1 - k) * v for v in sums]
+            for i, v in enumerate((1.0, w, w * w, ms, w * ms)):
+                sums[i] += k * v
+            n, sw, sww, sy, swy = sums
+            mw, my = sw / n, sy / n
+            var = max(sww / n - mw * mw, 0.0)
+            slope = max((swy / n - mw * my) / (var + self.PREFILL_FIT_RIDGE),
+                        0.0)
+            fixed = my - slope * mw
+            if fixed < 0.0:
+                # a cost through the origin: all per-token
+                fixed, slope = 0.0, swy / sww
+            self.prefill_chunk_ms = fixed + slope * ref
 
     def prefill_ms_per_token(self) -> float:
         """Measured chunked-prefill cost per prompt token (0.0 when the

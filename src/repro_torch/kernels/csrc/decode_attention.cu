@@ -8,7 +8,11 @@
 // once (2 * len * D elements) for rep = Hq / Hkv queries, about one FMA per
 // byte, far below the ~295 operations per byte where the tensor cores would
 // be the limit.  Design against that:
-//   * blocks per (KV head, lane, split): the lane's slots are cut into
+//   * D is 64, 128 or 256 and rep 1 to 16; a block takes at most 8 query
+//     heads of a group (4 at D = 256), so that a lane's accumulators stay in
+//     registers, and a larger group runs as several blocks reading the same
+//     K/V rows (from L2 after the first);
+//   * blocks per (KV head, head group, lane, split): the lane's slots are cut into
 //     `splits` contiguous ranges (flash-decoding), so 8 lanes x 8 KV heads
 //     still put several blocks on every one of the 132 SMs; the launcher
 //     picks `splits` to fill about two waves;
@@ -33,20 +37,25 @@ constexpr int kGroup = 4;  // rows of K and V each warp loads before using them
 // One split of one (lane, KV head).  With splits == 1 it writes the output;
 // otherwise it writes, per query head, (max, sum) into `ml` and the
 // max-relative accumulator into `part`, for rt::combine_splits.
+// REP query heads per block: a GQA group of `rep` heads runs as rep / REP
+// blocks, each with its own REP heads, so the per-lane accumulators
+// (REP x D/32 f32) stay in registers at D = 256 and rep = 16.
 template <typename T, int D, int REP>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ cache_len,
               const int* __restrict__ pos, T* __restrict__ out,
               float* __restrict__ ml, float* __restrict__ part, int n, int hkv,
-              int window, float scale, float softcap) {
+              int rep, int window, float scale, float softcap) {
   constexpr int EPL = D / 32;  // elements of a row each lane holds
-  const int h = blockIdx.x;    // KV head
+  const int groups = rep / REP;
+  const int h = blockIdx.x / groups;  // KV head
+  const int q0 = h * rep + (blockIdx.x % groups) * REP;  // first query head
   const int b = blockIdx.y;    // lane of the decode batch
   const int split = blockIdx.z, splits = gridDim.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int hq = hkv * REP;
+  const int hq = hkv * rep;
   const int len = cache_len[b];
 
   // Slots at or past cache_len hold nothing this query may see (a ring slot j
@@ -60,7 +69,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qf[REP][EPL];
 #pragma unroll
   for (int r = 0; r < REP; ++r)
-    rt::load_f32<T, EPL>(q + ((size_t)b * hq + (size_t)h * REP + r) * D + lane * EPL, qf[r]);
+    rt::load_f32<T, EPL>(q + ((size_t)b * hq + q0 + r) * D + lane * EPL, qf[r]);
 
   float m[REP], l[REP], acc[REP][EPL];
 #pragma unroll
@@ -159,7 +168,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) sm_acc[warp][lane * EPL + e] = acc[r][e] * mine;
     __syncthreads();
-    const size_t head = (size_t)b * hq + (size_t)h * REP + r;
+    const size_t head = (size_t)b * hq + q0 + r;
     if (threadIdx.x < D) {
       float total = 0.f, L = 0.f;
 #pragma unroll
@@ -184,13 +193,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int REP>
 cudaError_t launch_rep(const T* q, const T* k, const T* v, const int* cl,
                        const int* pos, T* out, float* work, int B, int n,
-                       int hkv, int splits, int window, float scale,
+                       int hkv, int rep, int splits, int window, float scale,
                        float softcap, cudaStream_t st) {
-  const int hq = hkv * REP;
+  const int hq = hkv * rep;
   float* ml = work;
   float* part = work == nullptr ? nullptr : work + (size_t)B * hq * splits * 2;
-  decode_kernel<T, D, REP><<<dim3(hkv, B, splits), kWarps * 32, 0, st>>>(
-      q, k, v, cl, pos, out, ml, part, n, hkv, window, scale, softcap);
+  decode_kernel<T, D, REP><<<dim3(hkv * (rep / REP), B, splits), kWarps * 32, 0, st>>>(
+      q, k, v, cl, pos, out, ml, part, n, hkv, rep, window, scale, softcap);
   if (splits > 1)
     rt::combine_splits<T, D><<<B * hq, D, 0, st>>>(ml, part, out, splits);
   return cudaGetLastError();
@@ -205,11 +214,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* cl,
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(out);
+  // query heads per block: 8, or 4 at D = 256 (see decode_kernel)
+  constexpr int kMaxRep = D >= 256 ? 4 : 8;
   switch (hq / hkv) {
-    case 1: return launch_rep<T, D, 1>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, splits, window, scale, softcap, st);
-    case 2: return launch_rep<T, D, 2>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, splits, window, scale, softcap, st);
-    case 4: return launch_rep<T, D, 4>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, splits, window, scale, softcap, st);
-    case 8: return launch_rep<T, D, 8>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, splits, window, scale, softcap, st);
+    case 1: return launch_rep<T, D, 1>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, 1, splits, window, scale, softcap, st);
+    case 2: return launch_rep<T, D, 2>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, 2, splits, window, scale, softcap, st);
+    case 4: return launch_rep<T, D, 4>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, 4, splits, window, scale, softcap, st);
+    case 8: return launch_rep<T, D, kMaxRep>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, 8, splits, window, scale, softcap, st);
+    case 16: return launch_rep<T, D, kMaxRep>(qq, kk, vv, cl, pos, oo, work, B, n, hkv, 16, splits, window, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -222,6 +234,7 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const int* cl,
   switch (d) {
     case 64: return launch_d<T, 64>(q, k, v, cl, pos, out, work, B, n, hq, hkv, splits, window, scale, softcap, st);
     case 128: return launch_d<T, 128>(q, k, v, cl, pos, out, work, B, n, hq, hkv, splits, window, scale, softcap, st);
+    case 256: return launch_d<T, 256>(q, k, v, cl, pos, out, work, B, n, hq, hkv, splits, window, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }

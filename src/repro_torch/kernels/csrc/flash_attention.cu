@@ -18,7 +18,9 @@
 //   * one block per (16-query tile, query head, batch row, key split); a
 //     loop inside the block walks 32-key tiles of K and V staged in shared
 //     memory (f32, rows padded against bank conflicts), loaded with 16-byte
-//     vector loads;
+//     vector loads; the tiles are dynamic shared memory (about 43 KB at
+//     D = 128 and 84 KB at D = 256, above the 48 KB a block may declare
+//     statically);
 //   * a chunk has few query tiles, so the keys are also split over blocks
 //     (as flash-decoding does): the launcher picks the split count to fill
 //     about two waves, and a second kernel merges the splits' (max, sum,
@@ -55,12 +57,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   constexpr int CPT = D / TPR;   // output columns per thread
   constexpr int SPT = BK / TPR;  // scores per thread per key tile
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  __shared__ float Qs[BQ][D + 1];
-  __shared__ float Ks[BK][D + 1];
-  __shared__ float Vs[BK][D];
-  __shared__ float Ps[BQ][BK + 1];
-  __shared__ int qp_s[BQ];
-  __shared__ int kp_s[BK];
+  extern __shared__ float smem[];
+  float(*Qs)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem);
+  float(*Ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem + BQ * (D + 1));
+  float(*Vs)[D] = reinterpret_cast<float(*)[D]>(smem + (BQ + BK) * (D + 1));
+  float(*Ps)[BK + 1] =
+      reinterpret_cast<float(*)[BK + 1]>(smem + (BQ + BK) * (D + 1) + BK * D);
+  int* qp_s = reinterpret_cast<int*>(smem + (BQ + BK) * (D + 1) + BK * D + BQ * (BK + 1));
+  int* kp_s = qp_s + BQ;
 
   const int qt = blockIdx.x, h = blockIdx.y;
   const int b = blockIdx.z / splits, split = blockIdx.z % splits;
@@ -195,6 +199,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
+// Dynamic shared memory of flash_kernel<T, D>: the Q, K, V and P tiles and
+// the tiles' positions.
+template <int D>
+constexpr size_t smem_bytes() {
+  return ((BQ + BK) * (D + 1) + BK * D + BQ * (BK + 1)) * sizeof(float) +
+         (BQ + BK) * sizeof(int);
+}
+
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const int* qp,
                      const int* kp, void* out, float* work, int B, int S, int Tk,
@@ -206,7 +218,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* qp,
   T* oo = static_cast<T*>(out);
   float* ml = work;
   float* part = work == nullptr ? nullptr : work + (size_t)B * S * hq * splits * 2;
-  flash_kernel<T, D><<<dim3((S + BQ - 1) / BQ, hq, B * splits), NT, 0, st>>>(
+  constexpr size_t bytes = smem_bytes<D>();
+  if constexpr (bytes > 48 * 1024) {
+    // set once per instance: the size is a constant
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (attr != cudaSuccess) return attr;
+  }
+  flash_kernel<T, D><<<dim3((S + BQ - 1) / BQ, hq, B * splits), NT, bytes, st>>>(
       qq, kk, vv, qp, kp, oo, ml, part, S, Tk, hq, hkv, causal, window, scale,
       softcap, splits);
   if (splits > 1)
@@ -222,6 +241,7 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const int* qp,
   switch (d) {
     case 64: return launch_d<T, 64>(q, k, v, qp, kp, out, work, B, S, Tk, hq, hkv, splits, causal, window, scale, softcap, st);
     case 128: return launch_d<T, 128>(q, k, v, qp, kp, out, work, B, S, Tk, hq, hkv, splits, causal, window, scale, softcap, st);
+    case 256: return launch_d<T, 256>(q, k, v, qp, kp, out, work, B, S, Tk, hq, hkv, splits, causal, window, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }

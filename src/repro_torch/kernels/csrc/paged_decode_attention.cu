@@ -15,8 +15,10 @@
 //     to ceil(cache_len / page) are cut into `splits` ranges
 //     (flash-decoding), so 8 lanes x 8 KV heads still fill the 132 SMs;
 //     the partial softmax states merge in rt::combine_splits;
-//   * inside a block, 8 warps split the range row by row; the rep query
-//     heads of the GQA group share every K/V row loaded;
+//   * inside a block, 8 warps split the range row by row; the query heads
+//     of the block (a GQA group of up to 8, 4 at D = 256; a larger group
+//     runs as several blocks, as in decode_attention.cu) share every K/V
+//     row loaded;
 //   * a table entry of -1 is skipped before any pos or K/V load, and a row
 //     whose pos does not match is skipped before its K/V load;
 //   * pool offsets ((row * page + t) * Hkv + h) * D are 64-bit: the pool
@@ -34,6 +36,9 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kGroup = 4;  // rows of K and V each warp loads before using them
 
+// REP query heads per block: a GQA group of `rep` heads runs as rep / REP
+// blocks, each with its own REP heads, so the per-lane accumulators
+// (REP x D/32 f32) stay in registers at D = 256 and rep = 16.
 template <typename T, int D, int REP>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -41,14 +46,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ tables,
                     const int* __restrict__ cache_len, T* __restrict__ out,
                     float* __restrict__ ml, float* __restrict__ part, int page,
-                    int maxp, int hkv, int window, float scale, float softcap) {
+                    int maxp, int hkv, int rep, int window, float scale,
+                    float softcap) {
   constexpr int EPL = D / 32;  // elements of a row each lane holds
-  const int h = blockIdx.x;    // KV head
+  const int groups = rep / REP;
+  const int h = blockIdx.x / groups;  // KV head
+  const int q0 = h * rep + (blockIdx.x % groups) * REP;  // first query head
   const int b = blockIdx.y;    // lane of the decode batch
   const int split = blockIdx.z, splits = gridDim.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int hq = hkv * REP;
+  const int hq = hkv * rep;
   const int len = cache_len[b];
   const int* tb = tables + (size_t)b * maxp;
 
@@ -63,7 +71,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qf[REP][EPL];
 #pragma unroll
   for (int r = 0; r < REP; ++r)
-    rt::load_f32<T, EPL>(q + ((size_t)b * hq + (size_t)h * REP + r) * D + lane * EPL, qf[r]);
+    rt::load_f32<T, EPL>(q + ((size_t)b * hq + q0 + r) * D + lane * EPL, qf[r]);
 
   float m[REP], l[REP], acc[REP][EPL];
 #pragma unroll
@@ -208,7 +216,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) sm_acc[warp][lane * EPL + e] = acc[r][e] * mine;
     __syncthreads();
-    const size_t head = (size_t)b * hq + (size_t)h * REP + r;
+    const size_t head = (size_t)b * hq + q0 + r;
     if (threadIdx.x < D) {
       float total = 0.f, L = 0.f;
 #pragma unroll
@@ -237,13 +245,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int REP>
 cudaError_t launch_rep(const T* q, const T* k, const T* v, const int* pos,
                        const int* tables, const int* cl, T* out, float* work,
-                       int B, int maxp, int page, int hkv, int splits, int window,
-                       float scale, float softcap, cudaStream_t st) {
-  const int hq = hkv * REP;
+                       int B, int maxp, int page, int hkv, int rep, int splits,
+                       int window, float scale, float softcap, cudaStream_t st) {
+  const int hq = hkv * rep;
   float* ml = work;
   float* part = work == nullptr ? nullptr : work + (size_t)B * hq * splits * 2;
-  paged_decode_kernel<T, D, REP><<<dim3(hkv, B, splits), kWarps * 32, 0, st>>>(
-      q, k, v, pos, tables, cl, out, ml, part, page, maxp, hkv, window, scale, softcap);
+  paged_decode_kernel<T, D, REP><<<dim3(hkv * (rep / REP), B, splits), kWarps * 32, 0, st>>>(
+      q, k, v, pos, tables, cl, out, ml, part, page, maxp, hkv, rep, window, scale,
+      softcap);
   if (splits > 1)
     rt::combine_splits<T, D><<<B * hq, D, 0, st>>>(ml, part, out, splits);
   return cudaGetLastError();
@@ -258,11 +267,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* pos
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(out);
+  // query heads per block: 8, or 4 at D = 256 (see paged_decode_kernel)
+  constexpr int kMaxRep = D >= 256 ? 4 : 8;
   switch (hq / hkv) {
-    case 1: return launch_rep<T, D, 1>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, splits, window, scale, softcap, st);
-    case 2: return launch_rep<T, D, 2>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, splits, window, scale, softcap, st);
-    case 4: return launch_rep<T, D, 4>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, splits, window, scale, softcap, st);
-    case 8: return launch_rep<T, D, 8>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, splits, window, scale, softcap, st);
+    case 1: return launch_rep<T, D, 1>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, 1, splits, window, scale, softcap, st);
+    case 2: return launch_rep<T, D, 2>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, 2, splits, window, scale, softcap, st);
+    case 4: return launch_rep<T, D, 4>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, 4, splits, window, scale, softcap, st);
+    case 8: return launch_rep<T, D, kMaxRep>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, 8, splits, window, scale, softcap, st);
+    case 16: return launch_rep<T, D, kMaxRep>(qq, kk, vv, pos, tables, cl, oo, work, B, maxp, page, hkv, 16, splits, window, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -275,6 +287,7 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const int* pos
   switch (d) {
     case 64: return launch_d<T, 64>(q, k, v, pos, tables, cl, out, work, B, maxp, page, hq, hkv, splits, window, scale, softcap, st);
     case 128: return launch_d<T, 128>(q, k, v, pos, tables, cl, out, work, B, maxp, page, hq, hkv, splits, window, scale, softcap, st);
+    case 256: return launch_d<T, 256>(q, k, v, pos, tables, cl, out, work, B, maxp, page, hq, hkv, splits, window, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }

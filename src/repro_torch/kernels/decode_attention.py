@@ -54,8 +54,8 @@ def _check(q, k_cache, v_cache, cache_len, pos):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
     kb, n, hkv, kd = k_cache.shape
-    if kb != b or kd != d or hq % hkv or (hq // hkv) not in (1, 2, 4, 8) \
-            or d not in (64, 128):
+    if kb != b or kd != d or hq % hkv or (hq // hkv) not in (1, 2, 4, 8, 16) \
+            or d not in (64, 128, 256):
         raise ValueError(f"decode_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, cache {tuple(k_cache.shape)}")
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \

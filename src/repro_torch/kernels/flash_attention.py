@@ -66,7 +66,7 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     hkv = k.shape[2]
-    if hq % hkv or d not in (64, 128):
+    if hq % hkv or d not in (64, 128, 256):
         raise ValueError(f"flash_attention: unsupported heads/head_dim "
                          f"{hq}/{hkv}/{d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -11,7 +11,10 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
+from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import rmsnorm as _norm
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _route(t: torch.Tensor) -> bool:
@@ -56,12 +59,33 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, tables, *,
               window=window, scale=scale, softcap=softcap)
 
 
+def ssd(x, dt, a_log, b_mat, c_mat, d_skip=None, chunk=128):
+    """Zero-state chunked SSD scan: (B,S,H,P) in x's dtype."""
+    fn = _ssd.ssd if _route(x) else _ssd.ssd_plain
+    return fn(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
+
+
+def rglru(x, log_a, gate_x):
+    """Zero-state RG-LRU scan over (B,S,D), in x's dtype."""
+    fn = _rglru.rglru if _route(x) else _rglru.rglru_plain
+    return fn(x, log_a, gate_x)
+
+
+# model functions, not TPU kernels (jnp in the JAX package too): plain
+# PyTorch on every device
+ssd_decode_step = ref.ssd_decode_step
+rglru_decode_step = ref.rglru_decode_step
+causal_conv1d = ref.causal_conv1d
+causal_conv1d_step = ref.causal_conv1d_step
+
+
 _COUNTED = {"decode_attention": _decode, "flash_attention": _flash,
-            "rmsnorm": _norm, "paged_decode_attention": _paged}
+            "rmsnorm": _norm, "paged_decode_attention": _paged, "ssd": _ssd,
+            "rglru": _rglru}
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the four kernels (plain-version calls excluded)."""
+    """Launch counts of the six kernels (plain-version calls excluded)."""
     return {name: mod.launches for name, mod in _COUNTED.items()}
 
 

@@ -56,8 +56,8 @@ def _check(q, k_pages, v_pages, pos_pages, tables, cache_len):
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")
     npool, page, hkv, kd = k_pages.shape
-    if kd != d or hq % hkv or (hq // hkv) not in (1, 2, 4, 8) \
-            or d not in (64, 128):
+    if kd != d or hq % hkv or (hq // hkv) not in (1, 2, 4, 8, 16) \
+            or d not in (64, 128, 256):
         raise ValueError(f"paged_decode_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, pool {tuple(k_pages.shape)}")
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \

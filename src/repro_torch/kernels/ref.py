@@ -1,4 +1,4 @@
-"""Plain PyTorch attention oracles (the port of ``repro.kernels.ref``).
+"""Plain PyTorch oracles (the port of ``repro.kernels.ref``).
 
 Each function keeps the numerics of its JAX twin:
 
@@ -9,7 +9,12 @@ Each function keeps the numerics of its JAX twin:
   the logits in float32, and casts the probabilities to ``v.dtype`` before
   P·V (float32 accumulation again);
 * ``paged_decode_mha_reference`` gathers each lane's pages through its
-  block table and defers to ``decode_mha_masked``.
+  block table and defers to ``decode_mha_masked``;
+* the SSD (``ssd_reference``, ``ssd_chunked``, ``ssd_decode_step``) and
+  RG-LRU (``rglru_reference``, ``rglru_chunked``, ``rglru_decode_step``)
+  scans and the causal depthwise conv run in float32 and round once to
+  the input dtype; ``rglru_chunked`` combines in the order of
+  ``jax.lax.associative_scan``.
 
 These are the CPU path of the port and the oracles its Hopper kernels are
 held against.
@@ -145,3 +150,202 @@ def mha_cache_masked(q, k_cache, v_cache, *, mask, scale=None, softcap=0.0):
     out = _softmax_attend(q, _gqa_expand(k_cache, hq), _gqa_expand(v_cache, hq),
                           mask[:, None], scale, softcap)
     return out.to(q.dtype)
+
+
+# ===================================================================== SSD
+def segsum(log_a):
+    """(..., S) -> (..., S, S) lower-triangular cumulative log-decay:
+    out[i, j] = sum_{r=j+1..i} log_a[r]  (i >= j), -inf above the
+    diagonal."""
+    s = log_a.shape[-1]
+    cum = torch.cumsum(log_a, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                 device=log_a.device))
+    return torch.where(mask, diff, torch.full_like(diff, float("-inf")))
+
+
+def ssd_reference(x, dt, a_log, b_mat, c_mat, d_skip=None):
+    """Mamba2 SSD oracle (quadratic: small shapes only).
+
+    x (B,S,H,P) per-head inputs; dt (B,S,H) post-softplus timestep; a_log
+    (H,), A = -exp(a_log); b_mat/c_mat (B,S,N) (one group, broadcast to the
+    heads); d_skip (H,) or None.  Returns (B,S,H,P) in x's dtype."""
+    f32 = torch.float32
+    a = -torch.exp(a_log.to(f32))
+    log_decay = dt.to(f32) * a[None, None, :]                   # (B,S,H)
+    ls = segsum(log_decay.transpose(1, 2))                      # (B,H,S,S)
+    cb = torch.einsum("bsn,btn->bst", c_mat.to(f32), b_mat.to(f32))
+    att = cb[:, None] * torch.exp(ls)
+    xb = x.to(f32) * dt.to(f32)[..., None]
+    y = torch.einsum("bhst,bthp->bshp", att, xb)
+    if d_skip is not None:
+        y = y + d_skip.to(f32)[None, None, :, None] * x.to(f32)
+    return y.to(x.dtype)
+
+
+def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip=None, chunk=128):
+    """Linear-time chunked SSD (state-space duality), the TPU kernel's
+    algorithm: the quadratic term inside each chunk plus the inter-chunk
+    state recurrence, all in float32."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"ssd: seq {s} % chunk {chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+    a = -torch.exp(a_log.to(f32))
+    log_decay = (dt.to(f32) * a[None, None, :]).reshape(bsz, nc, chunk, h)
+    xb = (x.to(f32) * dt.to(f32)[..., None]).reshape(bsz, nc, chunk, h, p)
+    bm = b_mat.to(f32).reshape(bsz, nc, chunk, n)
+    cm = c_mat.to(f32).reshape(bsz, nc, chunk, n)
+
+    cum = torch.cumsum(log_decay, dim=2)                        # (B,NC,Q,H)
+    total = cum[:, :, -1]                                       # (B,NC,H)
+    # intra-chunk (quadratic within the chunk)
+    ls = segsum(log_decay.permute(0, 1, 3, 2))                  # (B,NC,H,Q,Q)
+    cb = torch.einsum("bcqn,bckn->bcqk", cm, bm)
+    att = cb[:, :, None] * torch.exp(ls)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", att, xb)
+    # chunk states: S_c = sum_j exp(total - cum_j) B_j (x dt)_j
+    decay_to_end = torch.exp(total[:, :, None] - cum)           # (B,NC,Q,H)
+    states = torch.einsum("bcqn,bcqh,bcqhp->bchnp", bm, decay_to_end, xb)
+    # inter-chunk recurrence: the state before each chunk
+    hs = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(hs)
+        hs = torch.exp(total[:, c])[..., None, None] * hs + states[:, c]
+    h_before = torch.stack(before, dim=1)                       # (B,NC,H,N,P)
+    y_inter = torch.einsum("bcqn,bcqh,bchnp->bcqhp", cm, torch.exp(cum),
+                           h_before)
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    if d_skip is not None:
+        y = y + d_skip.to(f32)[None, None, :, None] * x.to(f32)
+    return y.to(x.dtype)
+
+
+def ssd_decode_step(h_state, x_t, dt_t, a_log, b_t, c_t, d_skip=None):
+    """One-token SSD step.  h_state (B,H,N,P) f32; x_t (B,H,P); dt_t (B,H);
+    b_t/c_t (B,N).  Returns (y_t (B,H,P) in x_t's dtype, h_new f32)."""
+    f32 = torch.float32
+    a = -torch.exp(a_log.to(f32))
+    decay = torch.exp(dt_t.to(f32) * a[None, :])                # (B,H)
+    xb = x_t.to(f32) * dt_t.to(f32)[..., None]                  # (B,H,P)
+    h_new = decay[..., None, None] * h_state + torch.einsum(
+        "bn,bhp->bhnp", b_t.to(f32), xb)
+    y = torch.einsum("bn,bhnp->bhp", c_t.to(f32), h_new)
+    if d_skip is not None:
+        y = y + d_skip.to(f32)[None, :, None] * x_t.to(f32)
+    return y.to(x_t.dtype), h_new
+
+
+# ================================================================== RG-LRU
+def _rglru_terms(x, log_a, gate_x):
+    """a = exp(log_a) and b = sqrt(max(1 - a^2, 0)) * gate * x, float32."""
+    f32 = torch.float32
+    la = log_a.to(f32)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * la), 0.0))
+    return torch.exp(la), beta * gate_x.to(f32) * x.to(f32)
+
+
+def rglru_reference(x, log_a, gate_x):
+    """RG-LRU oracle as a step loop over time: h_t = a_t h_{t-1} +
+    sqrt(1 - a_t^2) (gate_t x_t) from h_0 = 0.  x, log_a (<= 0) and
+    gate_x (already sigmoided): (B,S,D).  Returns (B,S,D) in x's dtype."""
+    a, bx = _rglru_terms(x, log_a, gate_x)
+    h = torch.zeros_like(a[:, 0])
+    hs = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype)
+
+
+def _interleave(even, odd, dim: int):
+    """Elements of ``even`` at 0, 2, 4, ... and of ``odd`` at 1, 3, ...
+    along ``dim``."""
+    n = even.shape[dim] + odd.shape[dim]
+    shape = list(even.shape)
+    shape[dim] = n
+    out = even.new_empty(shape)
+    idx = [slice(None)] * even.dim()
+    idx[dim] = slice(0, n, 2)
+    out[tuple(idx)] = even
+    idx[dim] = slice(1, n, 2)
+    out[tuple(idx)] = odd
+    return out
+
+
+def _associative_scan(combine, elems, dim: int):
+    """Inclusive scan of the tuple ``elems`` along ``dim``, combining in the
+    order ``jax.lax.associative_scan`` does (pairs, recurse, fill the
+    evens), so float32 results round as the reference's do."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(t, start, stop=None, step=1):
+        idx = [slice(None)] * t.dim()
+        idx[dim] = slice(start, stop, step)
+        return t[tuple(idx)]
+
+    reduced = combine([sl(e, 0, -1, 2) for e in elems],
+                      [sl(e, 1, None, 2) for e in elems])
+    odd = _associative_scan(combine, reduced, dim)
+    if n % 2 == 0:
+        even = combine([sl(e, 0, -1) for e in odd],
+                       [sl(e, 2, None, 2) for e in elems])
+    else:
+        even = combine(odd, [sl(e, 2, None, 2) for e in elems])
+    even = [torch.cat([sl(e, 0, 1), r], dim=dim) for e, r in zip(elems, even)]
+    return [_interleave(e, o, dim) for e, o in zip(even, odd)]
+
+
+def rglru_chunked(x, log_a, gate_x):
+    """Associative-scan RG-LRU (log depth, linear memory): the reference's
+    production path.  Same arguments and result as ``rglru_reference``."""
+    a, bx = _rglru_terms(x, log_a, gate_x)
+
+    def combine(c1, c2):
+        a1, b1 = c1
+        a2, b2 = c2
+        return [a1 * a2, b1 * a2 + b2]
+
+    _, b_s = _associative_scan(combine, [a, bx], dim=1)
+    return b_s.to(x.dtype)
+
+
+def rglru_decode_step(h_state, x_t, log_a_t, gate_x_t):
+    """h_state (B,D) f32; x_t/log_a_t/gate_x_t (B,D).  Returns (y in x_t's
+    dtype, h_new f32)."""
+    a, bx = _rglru_terms(x_t, log_a_t, gate_x_t)
+    h_new = a * h_state + bx
+    return h_new.to(x_t.dtype), h_new
+
+
+# ============================================================ causal conv1d
+def causal_conv1d(x, w, b=None):
+    """Depthwise causal conv: x (B,S,D), w (W,D), b (D,) or None.  float32
+    taps, result in x's dtype."""
+    width = w.shape[0]
+    s = x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + xp[:, i:i + s].to(torch.float32) * w[i].to(torch.float32)
+    if b is not None:
+        out = out + b.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def causal_conv1d_step(conv_state, x_t, w, b=None):
+    """One conv step: conv_state (B,W-1,D) past inputs, x_t (B,D).  Returns
+    (out (B,D) in x_t's dtype, the new state (B,W-1,D))."""
+    window = torch.cat([conv_state, x_t[:, None]], dim=1)
+    out = torch.einsum("bwd,wd->bd", window.to(torch.float32),
+                       w.to(torch.float32))
+    if b is not None:
+        out = out + b.to(torch.float32)
+    return out.to(x_t.dtype), window[:, 1:]

@@ -3,14 +3,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --policy DDS
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # plain path
   PYTHONPATH=src python -m repro_torch.launch.serve --paged --prefix-cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --paged
 
 The path is the JAX CLI's: warm replicas -> profile pre-evaluation ->
 two-level DDS routing -> SLO accounting.  Flags are those of
 ``repro.launch.serve`` without the chaos flags (not ported yet), plus
 ``--device`` (default ``cuda``: the Hopper kernels) and ``--full`` (the
 arch's published widths; on the CPU the smoke config otherwise).  On the
-card the published widths are always served: the kernels take head_dim 64
-or 128, and the smoke configs' head_dim is 16.  ``--paged`` swaps
+card the published widths are always served: the attention kernels take
+head_dim 64, 128 or 256, and the smoke configs' head_dim is 16.  ``--paged`` swaps
 the per-lane rings for block tables over a shared page pool
 (``--page-size``/``--num-pages``), and ``--prefix-cache`` (which implies
 ``--paged``) adds cross-request prefix reuse.  Replicas share one set of
@@ -123,12 +125,14 @@ def main(argv=None):
     ap.add_argument("--prefix-cache", action="store_true",
                     help="cross-request prefix reuse: prompts sharing "
                          "full cached blocks skip their prefill "
-                         "(global-attention stacks only; implies --paged)")
+                         "(global-attention stacks only, refused on "
+                         "recurrent ones; implies --paged)")
     args = ap.parse_args(argv)
     if args.prefix_cache:
         args.paged = True
 
-    # the Hopper kernels take head_dim 64 or 128, which no smoke config has
+    # the Hopper attention kernels take head_dim 64, 128 or 256, which no
+    # smoke config has
     full = args.full or torch.device(args.device).type == "cuda"
     cfg = get_config(args.arch) if full else get_smoke_config(args.arch)
     fleet = build_fleet(cfg, args.policy, replicas=args.replicas,

@@ -17,12 +17,17 @@ arrays, these functions update the cache **in place** (``index_put_``) and
 return the same dict: a decode step then writes one row per lane instead of
 copying every layer's KV.
 
-Only self-attention (global and sliding-window) blocks with a dense MLP are
-ported; the other kinds raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+A recurrent layer's cache is its mixer's state: ``{"conv", "state"}`` for
+an SSD (Mamba2) block, ``{"conv", "h"}`` for an RG-LRU (Griffin) block,
+batch-major in ring and paged mode alike (block tables do not apply).
+
+Self-attention (global and sliding-window), SSD and RG-LRU blocks with an
+optional dense MLP are ported; cross-attention and MoE layers raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict
 
 import torch
@@ -31,13 +36,11 @@ from torch import nn
 from repro_torch.common.config import ATTN, CROSS, LOCAL, RGLRU, SSM, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp, rmsnorm
 
-_LATER = {
-    SSM: "ROADMAP.md section 2 item 1 (recurrent stacks)",
-    RGLRU: "ROADMAP.md section 2 item 1 (recurrent stacks)",
-    CROSS: "ROADMAP.md section 2 item 4 (cross-attention)",
-}
+_LATER = {CROSS: "ROADMAP.md section 2 item 3 (cross-attention)"}
 
 
 def _not_ported(kind: str):
@@ -52,30 +55,49 @@ def _param(shape, dtype, device, fill=None) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _mixer_params(shapes, f32_leaves, cfg: ModelConfig, device):
+    """A recurrent mixer's leaves: those the reference reads in float32
+    (conv taps and biases, decay and skip parameters, norm gains) stored in
+    float32, the projections in ``cfg.dtype``."""
+    return nn.ParameterDict({
+        name: _param(shape, torch.float32 if name in f32_leaves else cfg.dtype,
+                     device)
+        for name, shape in shapes.items()})
+
+
 class Block(nn.Module):
-    """One decoder layer's parameters (stored in ``cfg.dtype``; the norm
-    gains in float32, as the reference reads them)."""
+    """One decoder layer's parameters (stored in ``cfg.dtype``; the leaves
+    the reference reads in float32, norm gains included, in float32).
+    ``attn``, ``ssm`` or ``rec`` holds the temporal mixer, by kind."""
 
     def __init__(self, cfg: ModelConfig, kind: str, attn_kind: str, device):
         super().__init__()
-        if kind != ATTN:
+        if kind not in (ATTN, SSM, RGLRU):
             raise _not_ported(kind)
         if cfg.num_experts:
             raise NotImplementedError(
-                "MoE layers are not ported yet: ROADMAP.md section 2 item 3")
+                "MoE layers are not ported yet: ROADMAP.md section 2 item 2")
         self.kind, self.attn_kind = kind, attn_kind
         d, h, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)
         dt, f32 = cfg.dtype, torch.float32
         self.norm1 = _param((d,), f32, device, 0.0)
-        attn = {"wq": _param((d, h, hd), dt, device),
-                "wk": _param((d, hkv, hd), dt, device),
-                "wv": _param((d, hkv, hd), dt, device),
-                "wo": _param((h, hd, d), dt, device)}
-        if cfg.use_qk_norm:
-            attn["q_norm"] = _param((hd,), f32, device, 0.0)
-            attn["k_norm"] = _param((hd,), f32, device, 0.0)
-        self.attn = nn.ParameterDict(attn)
+        self.attn = self.ssm = self.rec = None
+        if kind == SSM:
+            self.ssm = _mixer_params(ssm_lib.param_shapes(cfg),
+                                     ssm_lib.F32_LEAVES, cfg, device)
+        elif kind == RGLRU:
+            self.rec = _mixer_params(rglru_lib.param_shapes(cfg),
+                                     rglru_lib.F32_LEAVES, cfg, device)
+        else:
+            attn = {"wq": _param((d, h, hd), dt, device),
+                    "wk": _param((d, hkv, hd), dt, device),
+                    "wv": _param((d, hkv, hd), dt, device),
+                    "wo": _param((h, hd, d), dt, device)}
+            if cfg.use_qk_norm:
+                attn["q_norm"] = _param((hd,), f32, device, 0.0)
+                attn["k_norm"] = _param((hd,), f32, device, 0.0)
+            self.attn = nn.ParameterDict(attn)
         self.norm2 = None
         self.mlp = None
         if cfg.d_ff > 0:
@@ -100,11 +122,16 @@ def _channel_mix(p: Block, x, cfg: ModelConfig):
 # -------------------------------------------------------------- train/prefill
 def apply_block(p: Block, x, cfg: ModelConfig, kind: str, attn_kind: str, *,
                 positions=None, memo=None):
-    if kind != ATTN:
-        raise _not_ported(kind)
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
-    x = x + attn_lib.self_attention(p.attn, h, cfg, attn_kind, positions,
-                                    memo=memo)
+    if kind == ATTN:
+        x = x + attn_lib.self_attention(p.attn, h, cfg, attn_kind, positions,
+                                        memo=memo)
+    elif kind == SSM:
+        x = x + ssm_lib.ssm_mixer(p.ssm, h, cfg)
+    elif kind == RGLRU:
+        x = x + rglru_lib.rglru_block(p.rec, h, cfg)
+    else:
+        raise _not_ported(kind)
     return _channel_mix(p, x, cfg)
 
 
@@ -117,6 +144,10 @@ def _attn_cache_len(cfg: ModelConfig, attn_kind: str, capacity: int) -> int:
 
 def init_block_cache(cfg: ModelConfig, kind: str, attn_kind: str, batch: int,
                      capacity: int, device) -> Dict[str, torch.Tensor]:
+    if kind == SSM:
+        return ssm_lib.init_ssm_cache(cfg, batch, device)
+    if kind == RGLRU:
+        return rglru_lib.init_rglru_cache(cfg, batch, device)
     if kind != ATTN:
         raise _not_ported(kind)
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
@@ -145,7 +176,13 @@ def apply_block_decode(p: Block, x, cache, cfg: ModelConfig, kind: str,
     for position ``cache_index[b]`` (the last, dump row when that entry is
     -1: free and mid-prefill lanes) and attends through the table with the
     paged decode kernel.  Duplicate dump-row writes are harmless: no table
-    names the dump row."""
+    names the dump row.
+
+    A recurrent block advances every lane's state by one token (the tables
+    do not apply); ``Replica._insert`` and ``paged_commit`` overwrite a
+    joining lane's state."""
+    if kind in (SSM, RGLRU):
+        return _recurrent(p, x, cfg, kind, "decode", cache=cache)
     if kind != ATTN:
         raise _not_ported(kind)
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
@@ -182,6 +219,30 @@ def apply_block_decode(p: Block, x, cache, cfg: ModelConfig, kind: str,
     return x, cache, aux
 
 
+# recurrent kind -> the Block field holding its params, and its mixer at
+# each entry point (its params and the normed input -> (y, cache))
+_RECURRENT = {
+    SSM: ("ssm", {"decode": ssm_lib.ssm_decode,
+                  "prefill": partial(ssm_lib.ssm_mixer, return_state=True),
+                  "chunk": ssm_lib.ssm_prefill_chunk}),
+    RGLRU: ("rec", {"decode": rglru_lib.rglru_decode,
+                    "prefill": partial(rglru_lib.rglru_block,
+                                       return_state=True),
+                    "chunk": rglru_lib.rglru_prefill_chunk}),
+}
+
+
+def _recurrent(p: Block, x, cfg: ModelConfig, kind: str, stage: str, **kw):
+    """A recurrent block at one entry point (``stage``, a key of
+    ``_RECURRENT``): the pre-norm, the kind's mixer, the residual and the
+    MLP.  Returns (x, cache, aux)."""
+    field, mixers = _RECURRENT[kind]
+    h = rmsnorm(p.norm1, x, cfg.norm_eps)
+    y, cache = mixers[stage](getattr(p, field), h, cfg=cfg, **kw)
+    x, aux = _channel_mix(p, x + y, cfg)
+    return x, cache, aux
+
+
 def _paged_slots(tables, idx, lanes, npool: int, page: int):
     """Pool row and in-page slot of each lane's write at position ``idx``:
     ``tables[b, min(idx // page, maxp - 1)]``, or the dump row ``npool - 1``
@@ -196,7 +257,10 @@ def apply_block_prefill(p: Block, x, cfg: ModelConfig, kind: str,
                         attn_kind: str, *, positions=None, capacity: int = 0,
                         memo=None):
     """Like ``apply_block`` but also returns a new decode cache holding the
-    prompt's last ``min(S, n)`` keys in ring slots ``pos % n``."""
+    prompt's last ``min(S, n)`` keys in ring slots ``pos % n`` (a recurrent
+    block: its state after the prompt)."""
+    if kind in (SSM, RGLRU):
+        return _recurrent(p, x, cfg, kind, "prefill")
     if kind != ATTN:
         raise _not_ported(kind)
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
@@ -225,7 +289,10 @@ def apply_block_prefill_chunk(p: Block, x, cache, cfg: ModelConfig, kind: str,
     plane followed by the chunk's positions) **before** the chunk's K/V is
     scattered into the ring, so a chunk that wraps the ring cannot
     overwrite keys its own queries still need.  The ring is updated in
-    place."""
+    place.  A recurrent block threads its state through the chunk
+    (``ssm_prefill_chunk`` / ``rglru_prefill_chunk``)."""
+    if kind in (SSM, RGLRU):
+        return _recurrent(p, x, cfg, kind, "chunk", cache=cache)
     if kind != ATTN:
         raise _not_ported(kind)
     h = rmsnorm(p.norm1, x, cfg.norm_eps)

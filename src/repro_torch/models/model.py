@@ -2,8 +2,9 @@
 
 ``Model`` is an ``nn.Module`` holding per-layer ``Block``s in a plain list
 (no scan over pattern periods); caches are a list of per-layer dicts with
-the JAX per-layer layout (``k``/``v`` (B, n, Hkv, D), ``pos`` (B, n) int32,
--1 = empty).  The functions keep the JAX package's names and signatures:
+the JAX per-layer layout (attention: ``k``/``v`` (B, n, Hkv, D), ``pos``
+(B, n) int32, -1 = empty; SSD: ``conv``/``state``; RG-LRU: ``conv``/``h``).
+The functions keep the JAX package's names and signatures:
 ``forward``, ``init_cache``, ``init_paged_cache``, ``prefill``,
 ``prefill_chunk``, ``decode_step``, ``paged_commit``, ``paged_restore``,
 ``paged_copy_page`` and ``chunked_prefill_caps``.  The functions that take a
@@ -11,6 +12,7 @@ cache update it **in place** and return it.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -21,6 +23,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import layers as lyr
+from repro_torch.models import rglru as rglru_lib
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -48,20 +51,54 @@ class Model(nn.Module):
 
 
 # ------------------------------------------------------------------------ init
+def _init_ssm_(p, gen: torch.Generator) -> None:
+    """The reference's Mamba2 initializers: fan-in projections and conv
+    taps, zero conv bias and norm gain, ``dt_bias`` the inverse softplus of
+    a log-uniform dt in [0.001, 0.1], ``a_log`` the log of U(1, 16) and a
+    unit skip."""
+    for name in ("in_proj", "conv_w", "out_proj"):
+        lyr.dense_init_(p[name], 0, gen)
+    p["conv_b"].zero_()
+    p["norm"].zero_()
+    p["d_skip"].fill_(1.0)
+    u = torch.rand(p["dt_bias"].shape, generator=gen, device=gen.device)
+    lo, hi = math.log(0.001), math.log(0.1)
+    dt = torch.exp(u * (hi - lo) + lo)
+    p["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+    u = torch.rand(p["a_log"].shape, generator=gen, device=gen.device)
+    p["a_log"].copy_(torch.log(1.0 + 15.0 * u))
+
+
+def _init_rglru_(p, cfg: ModelConfig, gen: torch.Generator) -> None:
+    """The reference's Griffin initializers: fan-in projections and conv
+    taps, zero biases, and the linspace(0.9, 0.999) Lambda."""
+    for name in ("w_x", "w_y", "conv_w", "w_a", "w_i", "w_out"):
+        lyr.dense_init_(p[name], 0, gen)
+    for name in ("conv_b", "b_a", "b_i"):
+        p[name].zero_()
+    p["lam"].copy_(rglru_lib.lam_init(cfg, p["lam"].device))
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     """Random weights from ``seed``, drawn on ``device`` with a
     ``torch.Generator``: truncated-normal fan-in projections, a standard
-    normal embedding, zero norm gains (the reference's initializers; the
-    draws themselves differ from JAX's)."""
+    normal embedding, zero norm gains and the recurrent mixers' own
+    initializers (the reference's distributions; the draws themselves
+    differ from JAX's)."""
     dev = resolve_device(device)
     model = Model(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     for layer in model.layers:
-        # fan-in is read from axis 0 for every projection, wo's (H, hd, d)
-        # included, exactly as the reference's dense_init does
-        for name in ("wq", "wk", "wv", "wo"):
-            lyr.dense_init_(layer.attn[name], 0, gen)
+        if layer.ssm is not None:
+            _init_ssm_(layer.ssm, gen)
+        elif layer.rec is not None:
+            _init_rglru_(layer.rec, cfg, gen)
+        else:
+            # fan-in is read from axis 0 for every projection, wo's
+            # (H, hd, d) included, exactly as the reference's dense_init does
+            for name in ("wq", "wk", "wv", "wo"):
+                lyr.dense_init_(layer.attn[name], 0, gen)
         if layer.mlp is not None:
             for name in layer.mlp:
                 lyr.dense_init_(layer.mlp[name], 0, gen)
@@ -116,8 +153,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
     page pool indexed through per-lane block tables: ``{"k"/"v":
     (num_pages + 1, page_size, Hkv, D), "pos": (num_pages + 1, page_size)}``
     (pos -1 = empty).  The extra last row is the write dump for lanes with
-    no page mapped.  ``batch`` and ``capacity`` only size the other layer
-    kinds, none of which is ported yet."""
+    no page mapped.  ``batch`` and ``capacity`` size the other layer kinds:
+    a recurrent layer keeps its per-lane state, as in ``init_cache``."""
     dev = resolve_device(device)
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
     cache: Cache = []
@@ -173,10 +210,14 @@ def paged_commit(cache: Cache, lane_cache: Cache, lane: int, table_row,
     table entry is -1, go to the dump row instead: positions below
     ``from_pos`` live in shared prefix pages other lanes (or the prefix
     cache) may be reading, and a commit never writes a page the lane does
-    not own.  ``lane`` would name the batch row of the other layer kinds,
-    none of which is ported yet."""
+    not own.  A recurrent layer's leaves are copied into batch row ``lane``,
+    as ``Replica._insert`` does in ring mode."""
     maxp = table_row.shape[0]
-    for layer, ring in zip(cache, lane_cache):
+    for kind, layer, ring in zip(cfg.layer_kinds(), cache, lane_cache):
+        if kind != ATTN:
+            for name, t in layer.items():
+                t[int(lane)].copy_(ring[name][0])
+            continue
         dump = layer["k"].shape[0] - 1
         p = ring["pos"][0]                                 # (n,) positions
         valid = (p >= 0) & (p >= int(from_pos))
@@ -199,9 +240,13 @@ def paged_restore(cache: Cache, lane_cache: Cache, table_row, matched: int,
     for the absolute position the ring would hold after prefilling
     ``matched`` tokens, ``p = s + ((matched - 1 - s) // n) * n``, while
     ``0 <= p < matched``; other slots keep their K/V and get pos -1.  Chunk
-    prefill then continues from ``start = matched``."""
+    prefill then continues from ``start = matched``.  Recurrent layers are
+    left untouched: their state cannot be rebuilt from KV pages (the engine
+    refuses prefix reuse on such stacks)."""
     maxp = table_row.shape[0]
-    for layer, ring in zip(cache, lane_cache):
+    for kind, layer, ring in zip(cfg.layer_kinds(), cache, lane_cache):
+        if kind != ATTN:
+            continue
         n = ring["k"].shape[1]
         s = torch.arange(n, dtype=torch.int64, device=ring["k"].device)
         p = s + ((int(matched) - 1 - s) // n) * n
@@ -223,8 +268,11 @@ def paged_restore(cache: Cache, lane_cache: Cache, table_row, matched: int,
 def paged_copy_page(cache: Cache, src: int, dst: int,
                     cfg: ModelConfig) -> Cache:
     """Copy pool row ``src`` to ``dst`` (K, V and pos) in every attention
-    layer, in place: the device half of copy-on-write."""
-    for layer in cache:
+    layer, in place: the device half of copy-on-write.  Recurrent layers,
+    whose leading axis is the lane and not a page, are left alone."""
+    for kind, layer in zip(cfg.layer_kinds(), cache):
+        if kind != ATTN:
+            continue
         for t in layer.values():
             t[int(dst)].copy_(t[int(src)])
     return cache

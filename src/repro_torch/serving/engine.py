@@ -290,7 +290,7 @@ class Replica:
         if serving_mesh is not None:
             raise NotImplementedError(
                 "sharded replicas are not ported yet: ROADMAP.md section 2 "
-                "item 5")
+                "item 4")
         self.name = name
         self.cfg = cfg
         self.params = params

@@ -220,7 +220,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     ops.reset_kernel_launches()
     assert ops.kernel_launches() == {"decode_attention": 0,
                                      "flash_attention": 0, "rmsnorm": 0,
-                                     "paged_decode_attention": 0}
+                                     "paged_decode_attention": 0, "ssd": 0,
+                                     "rglru": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

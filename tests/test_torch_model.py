@@ -21,7 +21,8 @@ from repro_torch import bridge
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import model as TM
 
-ARCHS = ["qwen3-4b", "granite-8b", "gemma3-27b"]
+ARCHS = ["qwen3-4b", "granite-8b", "gemma3-27b", "mamba2-780m",
+         "recurrentgemma-9b"]
 TOL = 1e-4
 
 
@@ -91,6 +92,8 @@ def test_prefill_then_decode_token_identical_to_jax(stacks, arch):
     ("qwen3-4b", 19, 64, 5),
     ("granite-8b", 30, 32, 8),
     ("gemma3-27b", 28, 32, 5),      # local rings of 16 wrap inside chunks
+    ("mamba2-780m", 37, 64, 8),     # SSD state threaded across chunks
+    ("recurrentgemma-9b", 28, 32, 5),   # RG-LRU state and a 16-slot ring
 ])
 def test_chunked_prefill_matches_whole_and_jax(stacks, arch, plen, capacity,
                                                chunk):
@@ -124,7 +127,8 @@ def test_chunked_prefill_caps_match_jax():
 
 def test_configs_match_jax_and_count_params():
     """Same fields (dtypes aside) for config() and smoke_config(), and the
-    same parameter counts, full widths included (qwen3-4b: ~4.02 B)."""
+    same parameter counts, full widths included (qwen3-4b: ~4.02 B; the
+    recurrent archs count their SSM and RG-LRU leaves)."""
     for arch in ARCHS:
         for tget, jget in ((get_config, jget_config),
                            (get_smoke_config, jget_smoke)):
@@ -140,7 +144,7 @@ def test_configs_match_jax_and_count_params():
 
 def test_unported_archs_name_their_roadmap_item():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mamba2-780m")
+        get_config("llama-3.2-vision-90b")
     with pytest.raises(KeyError, match="ROADMAP"):
         get_smoke_config("mixtral-8x22b")
     with pytest.raises(KeyError, match="unknown"):

@@ -670,3 +670,122 @@ def test_serve_cli_paged_prefix_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "paged KV" in out and "prefix cache" in out
     assert "outcomes: ok=3 rejected=0 shed=0 lost=0" in out
+
+
+# ------------------------------------------------------- recurrent stacks
+def _recurrent_engines(arch, seed, capacity):
+    """Port ring and paged replicas of ``arch``'s smoke config (f32) on
+    one set of seeded weights: 2 lanes, 8-token chunks, pages of 8."""
+    torch.set_num_threads(2)
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    params = TM.init_model(cfg, seed, "cpu")
+    kw = dict(slots=2, capacity=capacity, prefill_chunk_tokens=CHUNK)
+    ring = teng.Replica("ring", cfg, params, **kw)
+    paged = teng.Replica("paged", cfg, params, paged=True, page_size=PS, **kw)
+    return cfg, params, ring, paged
+
+
+@pytest.fixture(scope="module")
+def ssm_engines():
+    cfg, params, ring, paged = _recurrent_engines("mamba2-780m", 1, 64)
+    yield cfg, params, ring, paged
+    ring.stop()
+    paged.stop()
+
+
+def test_paged_token_identity_ssm(ssm_engines):
+    """Pure-SSM stack (no attention layer, so no page pool at all): the
+    paged engine's recurrent-state plumbing is still token-identical,
+    concurrent joins included."""
+    cfg, params, ring, paged = ssm_engines
+    pa, pb = _prompts(cfg.vocab_size, [19, 9], 37)
+    want = [ring.generate(_req(teng, 300, pa, 6)).tolist(),
+            ring.generate(_req(teng, 301, pb, 4)).tolist()]
+    got = _concurrent(paged.generate, [_req(teng, 310, pa, 6),
+                                       _req(teng, 311, pb, 4)])
+    assert got == want
+    _drained(paged)
+
+
+def test_prefix_cache_refused_on_recurrent_stack(ssm_engines):
+    """Prefix reuse needs positions portable across lanes, which only
+    global-attention KV is: a recurrent stack refuses the knob loudly."""
+    cfg, params, *_ = ssm_engines
+    with pytest.raises(ValueError):
+        teng.Replica("bad", cfg, params, slots=1, capacity=32, paged=True,
+                     page_size=PS, prefix_cache=True)
+
+
+@pytest.fixture(scope="module")
+def rglru_engines():
+    cfg, params, ring, paged = _recurrent_engines("recurrentgemma-9b", 2, 32)
+    yield cfg, params, ring, paged
+    ring.stop()
+    paged.stop()
+
+
+def test_paged_token_identity_rglru(rglru_engines):
+    """Griffin stack (RG-LRU + local attention, window 16 < capacity): a
+    28-token prompt spans the local ring's wrap, the hybrid stack's
+    hardest alignment case; paged must match ring exactly, and prefix
+    reuse is refused."""
+    cfg, params, ring, paged = rglru_engines
+    pa, pb = _prompts(cfg.vocab_size, [28, 7], 41)
+    for i, (p, n) in enumerate([(pa, 4), (pb, 5)]):
+        want = ring.generate(_req(teng, 400 + i, p, n)).tolist()
+        got = paged.generate(_req(teng, 410 + i, p, n)).tolist()
+        assert got == want, f"prompt len {len(p)}"
+    with pytest.raises(ValueError):      # local window < capacity: no reuse
+        teng.Replica("bad", cfg, params, slots=1, capacity=32, paged=True,
+                     page_size=PS, prefix_cache=True)
+
+
+def test_paged_moves_leave_recurrent_leaves_alone(rglru_engines):
+    """On a hybrid stack ``paged_copy_page`` and ``paged_restore`` touch
+    only the attention pools and rings, never a recurrent layer's
+    per-lane state, while ``paged_commit`` splices the lane's recurrent
+    state into its batch row and leaves the other lane's row alone."""
+    cfg, params, *_ = rglru_engines
+    cap, npages = 32, 10
+    gen = torch.Generator().manual_seed(5)
+    pool = TM.init_paged_cache(cfg, 2, cap, npages, PS, "cpu")
+    lane = TM.init_cache(cfg, 1, cap, "cpu")
+    kinds = cfg.layer_kinds()
+    for layers in (pool, lane):
+        for kind, layer in zip(kinds, layers):
+            for name, t in layer.items():
+                if name != "pos":
+                    t.copy_(torch.randn(t.shape, generator=gen))
+            if kind == "attn":
+                layer["pos"].copy_(torch.arange(layer["pos"].numel(),
+                                                dtype=torch.int32)
+                                   .reshape(layer["pos"].shape) % cap)
+
+    def recurrent(layers):
+        return [{k: v.clone() for k, v in layer.items()}
+                for kind, layer in zip(kinds, layers) if kind != "attn"]
+
+    before = recurrent(pool)
+    TM.paged_copy_page(pool, 3, 4, cfg)
+    for kind, layer in zip(kinds, pool):
+        if kind == "attn":
+            for t in layer.values():
+                assert torch.equal(t[4], t[3])
+    for a, b in zip(recurrent(pool), before):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+    row = torch.tensor([7, 2, 9, -1], dtype=torch.int32)
+    lane_before = recurrent(lane)
+    TM.paged_restore(pool, lane, row, 20, cfg, PS)
+    for a, b in zip(recurrent(lane), lane_before):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    attn = [layer for kind, layer in zip(kinds, lane) if kind == "attn"]
+    assert all(int(layer["pos"].max()) == 19 for layer in attn)
+
+    TM.paged_commit(pool, lane, 1, row, 0, cfg, PS)
+    for a, b, ring in zip(recurrent(pool), before,
+                          [layer for kind, layer in zip(kinds, lane)
+                           if kind != "attn"]):
+        for k in a:
+            assert torch.equal(a[k][1], ring[k][0].to(a[k].dtype))
+            assert torch.equal(a[k][0], b[k][0])

@@ -28,6 +28,7 @@ from repro_torch.core import policies as tpol
 from repro_torch.core import profile as tprof
 from repro_torch.launch import serve as tserve
 from repro_torch.serving import engine as teng
+from repro_torch.serving.overload import BrownoutConfig
 from repro_torch.serving.sampling import NEG_INF
 from repro_torch.serving.sampling import _filter_logits as tfilter
 
@@ -201,6 +202,70 @@ def test_copied_policies_decide_like_the_originals(name):
                 policy.decide_coordinator(task, now, views[1],
                                           {"n2": views[2]})))
         assert decisions[0] == decisions[1], trial
+
+
+@pytest.mark.parametrize("fixed,per_token", [(10.0, 0.0), (0.0, 0.5),
+                                              (3.0, 0.25)])
+def test_chunk_cost_fit_does_not_scale_narrow_chunks(fixed, per_token):
+    """Chunks of mixed widths costing ``fixed + per_token * w`` ms: the
+    Update-Profile fit gives the reference chunk's cost within 2%, so a
+    narrow tail chunk on the card (all fixed cost) does not inflate it,
+    and a CPU-like cost (all per-token) is not deflated either."""
+    prof = tprof.AppProfile("serve", 1.0, tprof.Curve([1.0], [1.0]),
+                            prefill_chunk_ms=50.0, prefill_chunk_tokens=32.0)
+    for w in (32, 32, 3, 1, 32, 8, 2, 1, 16, 32, 4, 1):
+        prof.observe_prefill_chunk(fixed + per_token * w, tokens=w)
+    want = fixed + per_token * 32
+    assert prof.prefill_chunk_ms == pytest.approx(want, rel=0.02)
+    assert prof.prefill_ms_per_token() == pytest.approx(want / 32, rel=0.02)
+
+
+@pytest.mark.parametrize("mode", ["step_slo", "brownout"])
+def test_chunk_cost_moves_when_every_chunk_is_narrow(setup, mode):
+    """A binding step SLO (budget floored at 1 token) or brownout (ceiling
+    halved) makes every chunk of a joining prompt narrower than the
+    ceiling.  Each chunk still feeds the Update-Profile chunk cost, so an
+    overestimated cost comes down instead of locking in the small budget
+    it causes."""
+    tc, tp, _, _ = setup
+    ceiling = 8
+    kw = (dict(step_slo_ms=1e-3) if mode == "step_slo" else
+          dict(brownout=BrownoutConfig(budget_factor=0.5,
+                                       restore_after=10 ** 9)))
+    rep = teng.Replica("narrow", tc, tp, slots=2, capacity=64,
+                       prefill_chunk_tokens=ceiling, **kw)
+    if mode == "brownout":
+        rep.brownout.engaged = True
+    prof = tprof.AppProfile(
+        "serve", 40.0, tprof.Curve([1.0, 2.0], [40.0, 44.0]),
+        step_curve=tprof.Curve([1.0, 2.0], [1.0, 1.0]), tokens_per_task=8.0,
+        prefill_chunk_ms=1000.0, prefill_chunk_tokens=float(ceiling))
+    widths = []
+    observe = prof.observe_prefill_chunk
+
+    def record(ms, ewma=0.25, tokens=None):
+        widths.append(tokens)
+        observe(ms, ewma, tokens)
+
+    prof.observe_prefill_chunk = record
+    prompts = _prompts(tc.vocab_size, (4, 12), 5)
+    # a decoding lane first, so the joining prompt is budgeted with a lane
+    # in flight
+    a = threading.Thread(target=rep.generate,
+                         args=(teng.Request(0, prompts[0], 48, 1e9),))
+    try:
+        a.start()
+        t_end = time.monotonic() + 60
+        while rep.state().running == 0:
+            assert time.monotonic() < t_end
+            time.sleep(0.002)
+        rep.profile = prof
+        rep.generate(teng.Request(1, prompts[1], 2, 1e9))
+        a.join(timeout=60)
+    finally:
+        rep.stop()
+    assert widths == ([1] * 12 if mode == "step_slo" else [4, 4, 4])
+    assert 0.0 < prof.prefill_chunk_ms < 500.0
 
 
 def test_unported_replica_modes_raise(setup):

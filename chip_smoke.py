@@ -11,12 +11,20 @@ success):
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
    builds the CUDA kernels from the checkout's sources (one nvcc per
    source, all at once);
-2. kernels against their plain versions, on the card, at main-path shapes
-   in bf16 and f32 (the attention kernels also at recurrentgemma's D 256,
-   16 query heads over 1 KV head, window 2048; ``ssd`` at mamba2's widths
-   with chunks of 32, 128, 100 and 2; ``rglru`` at width 4096), then
-   timings (kernel, plain version, one PyTorch library call as a
-   yardstick where one exists) beside each kernel's bound;
+2. kernels against their plain versions, on the card, at main-path
+   shapes in bf16 and f32 (the attention kernels also at recurrentgemma's
+   D 256, 16 query heads over 1 KV head, window 2048; flash and ring
+   decode also over GQA ratios 1-16 at D 64/128/256, chunks of 1, 17 and
+   32 queries over empty, partial and wrapped rings passed as the ring
+   arguments, window and softcap, prompts of 512 and 2304, and bf16 flash
+   within 0.75 of a bf16 spacing of the f32 oracle, which holds its P
+   hi/lo split; ``ssd`` at mamba2's widths with chunks of 32, 128, 100 and
+   2; ``rglru`` at width 4096), then timings (kernel, plain version, one
+   PyTorch library call as a yardstick where one exists) beside each
+   kernel's bound, and for the two tensor-core attention kernels the same
+   launch with nothing visible, after a flush that leaves the L2 clean and
+   with no flush, and (decode) one PyTorch reduction streaming the same
+   bytes;
 3. identity: qwen3-4b at full width, depth cut to 4 layers, in f32 with
    TF32 off, serves 3 greedy prompts through a ``ServingFleet``; every
    stream must equal the replica's ``generate_sequential`` and the port's
@@ -125,24 +133,39 @@ def device_events(fn, skip=frozenset()):
             if e.device_type == DeviceType.CUDA and e.name not in skip]
 
 
-def device_ms(fn, flush, iters: int = 20) -> float:
+def device_ms(fn, flush, iters: int = 20, how: str = "write") -> float:
     """Device time of one call of ``fn``: the summed durations of the
     kernels it launches, from the profiler, with the L2 cache flushed
     before each call (the main path finds these operands cold, other
-    layers having run in between).  The flush's own kernel is excluded."""
+    layers having run in between).  The flush's own kernel is excluded.
+    ``how``: "write" zeroes the 64 MB buffer, which leaves the L2 full of
+    dirty lines to write back; "read" reads it, which leaves them clean;
+    "none" does not flush (the operands stay in L2 where they fit)."""
+    op = {"write": flush.zero_, "read": flush.max, "none": None}[how]
     for _ in range(3):
         fn()
-    skip = frozenset(n for n, _ in device_events(flush.zero_))
+    skip = frozenset() if op is None else frozenset(
+        n for n, _ in device_events(op))
 
     def run():
         for _ in range(iters):
-            flush.zero_()
+            if op is not None:
+                op()
             fn()
 
     evs = device_events(run, skip)
     if not evs:
         raise RuntimeError("the profiler recorded no device time")
     return sum(d for _, d in evs) / iters / 1e3
+
+
+def stream_ms(nbytes: int, dev, flush) -> float:
+    """Device time of one PyTorch reduction that reads ``nbytes`` (bf16)
+    under the same cold-L2 protocol: what streaming a kernel's bytes costs
+    on this card as the measurement sees it, beside the bound's 3.35 TB/s."""
+    import torch
+    x = torch.ones(nbytes // 2, dtype=torch.bfloat16, device=dev)
+    return device_ms(lambda: x.sum(dtype=torch.float32), flush)
 
 
 def timed(fn, flush) -> dict:
@@ -233,11 +256,14 @@ def check_kernels(dev):
     scan_tol = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
     results = {"decode_attention": [], "flash_attention": [], "rmsnorm": [],
                "paged_decode_attention": [], "ssd": [], "rglru": []}
+    sweep = {}              # (kernel, dtype) -> (cases, max |err|)
 
     def t(a, dtype):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
 
-    def record(name, case, got, exp, dtype, lanes=None):
+    def record(name, case, got, exp, dtype, lanes=None, quiet=False):
+        """Hold ``got`` against ``exp`` within the tolerance; log the case
+        (a quiet case only joins its kernel's sweep summary)."""
         if lanes is not None:
             got, exp = got[lanes], exp[lanes]
         torch.cuda.synchronize()
@@ -249,8 +275,13 @@ def check_kernels(dev):
             lim = 2.0 ** -7 * max(1.0, exp.float().abs().max().item())
         if name in ("ssd", "rglru"):
             lim = scan_tol[dtype] * max(1.0, exp.float().abs().max().item())
-        log(f"  {name:16s} {case:56s} {str(dtype)[6:]:8s} "
-            f"max|err| {err:.3e}  tol {lim:.1e}")
+        if quiet:
+            key = (name, str(dtype)[6:])
+            n_, e_ = sweep.get(key, (0, 0.0))
+            sweep[key] = (n_ + 1, max(e_, err))
+        else:
+            log(f"  {name:16s} {case:56s} {str(dtype)[6:]:8s} "
+                f"max|err| {err:.3e}  tol {lim:.1e}")
         if not err <= lim:
             raise AssertionError(f"{name} {case} {dtype}: {err} > {lim}")
         results[name].append(err)
@@ -340,6 +371,10 @@ def check_kernels(dev):
             ring = ring_positions(rng, 1, n, [start])
             qp = torch.arange(start, start + c, dtype=torch.int32, device=dev)
             kp = torch.cat([torch.from_numpy(ring).to(dev), qp[None]], 1)
+            # the same keys as the ring (the serving path's two sources)
+            # and as one concatenated source
+            two = dict(k_cache=kc[:, :n].contiguous(),
+                       v_cache=vc[:, :n].contiguous(), cache_pos=kp[:, :n])
             for window in (0, 16):
                 kw = dict(q_pos=qp, k_pos=kp, causal=True, window=window,
                           scale=scale)
@@ -349,6 +384,13 @@ def check_kernels(dev):
                            f"chunk C32 ring2048 start{start} w{window} "
                            f"splits={splits or 'auto'}",
                            fk.flash_attention(qc, kc, vc, splits=splits, **kw),
+                           exp, dtype)
+                    kw2 = dict(kw, k_pos=qp, **two)
+                    record("flash_attention",
+                           f"chunk C32 ring2048 start{start} w{window} "
+                           f"two sources splits={splits or 'auto'}",
+                           fk.flash_attention(qc, kc[:, n:], vc[:, n:],
+                                              splits=splits, **kw2),
                            exp, dtype)
 
     # rmsnorm: 8 x 2560 (d_model) and 8 x 32 x 128 (headwise qk-norm)
@@ -388,7 +430,147 @@ def check_kernels(dev):
                    gk.rglru_plain(*args), dtype)
 
     check_attention_d256(dev, rng, t, record)
+    spacings = check_attention_sweep(dev, rng, t, record)
+    for (name, dt), (cases, err) in sorted(sweep.items()):
+        log(f"  {name:16s} sweep: {cases} cases {dt}, max|err| {err:.3e}")
+    DETAILS["attention_sweep"] = {f"{k[0]} {k[1]}": v for k, v in sweep.items()}
+    log(f"  flash_attention  bf16 against the f32 oracle: max |err| "
+        f"{spacings:.3f} bf16 spacings (limit {P_SPACINGS})")
+    DETAILS["flash_bf16_max_spacings"] = spacings
     return {k: max(v) for k, v in results.items()}
+
+
+# The bf16 flash kernel against the f32 oracle, in bf16 spacings at the
+# oracle's value (the spacing at 1/8 below 1/8): rounding the output once
+# costs up to 0.5; with P split into hi + lo (about 16 bits) the rest is
+# far below 0.25, even at 1/8.  P rounded once to bf16 (8 bits) errs by up
+# to 2^-9 of each term and breaks the limit on rows with few visible keys.
+P_SPACINGS = 0.75
+
+
+def bf16_spacings(got, exp32) -> float:
+    """Largest |got - exp32| in units of the bf16 spacing at |exp32|."""
+    import torch
+    mag = exp32.abs().clamp_min(0.125)
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - exp32).abs() / spacing).max().item()
+
+
+def check_attention_sweep(dev, rng, t, record) -> float:
+    """The redesigned attention kernels over GQA ratios and head dims, both
+    dtypes, auto splits and a single pass (summarised per kernel):
+    flash chunks of 1, 17 and 32 queries for 2 batch rows over an empty
+    ring, a partly filled one and a wrapped one with holes, through the
+    two-source arguments (500 slots: key tiles straddle ring and chunk),
+    each with window and softcap variants; whole prompts of 512 and 2304;
+    decode at ratios 1 to 16 over ragged lanes, with and without a wrapped
+    pos plane with holes.  Every bf16 flash case is also held within
+    ``P_SPACINGS`` of the f32 oracle; returns the largest reading."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    worst = 0.0
+
+    def flash_case(case, args, kw, dtype, splits_list):
+        nonlocal worst
+        exp = fk.flash_attention_plain(*args, **kw)
+        exp32 = None
+        if dtype == torch.bfloat16:
+            up = lambda x: x.float() if torch.is_tensor(x) and \
+                x.dtype == dtype else x
+            exp32 = fk.flash_attention_plain(
+                *map(up, args), **{k: up(x) for k, x in kw.items()})
+        for splits in splits_list:
+            got = fk.flash_attention(*args, splits=splits, **kw)
+            name = case + (f" splits={splits or 'auto'}"
+                           if len(splits_list) > 1 else "")
+            record("flash_attention", name, got, exp, dtype, quiet=True)
+            if exp32 is not None:
+                sp = bf16_spacings(got, exp32)
+                worst = max(worst, sp)
+                if not sp <= P_SPACINGS:
+                    raise AssertionError(
+                        f"flash_attention {name} bf16: {sp:.3f} bf16 "
+                        f"spacings from the f32 oracle > {P_SPACINGS}")
+
+    hkv, n, b = 2, 500, 2
+    variants = ((0, 0.0), (64, 0.0), (0, 30.0))     # (window, softcap)
+    rings = (("empty", 0, 0.0), ("partial", 300, 0.0),
+             ("wrapped+holes", 1500, 0.1))
+    for rep in (1, 4, 16):
+        for d in (64, 128, 256):
+            hq, scale = hkv * rep, d ** -0.5
+            for dtype in (torch.bfloat16, torch.float32):
+                kc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+                vc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+                for i, (c, (ring, start, holes)) in enumerate(
+                        (c, r) for c in (1, 17, 32) for r in rings):
+                    window, cap = variants[i % 3]
+                    qc = t(rng.standard_normal((b, c, hq, d)), dtype)
+                    kn = t(rng.standard_normal((b, c, hkv, d)), dtype)
+                    vn = t(rng.standard_normal((b, c, hkv, d)), dtype)
+                    cp = torch.from_numpy(ring_positions(
+                        rng, b, n, [start] * b, holes)).to(dev)
+                    qp = torch.arange(start, start + c, dtype=torch.int32,
+                                      device=dev)
+                    kw = dict(q_pos=qp, k_pos=qp, causal=True, window=window,
+                              scale=scale, softcap=cap, k_cache=kc,
+                              v_cache=vc, cache_pos=cp)
+                    flash_case(f"rep{rep} D{d} C{c} {ring} w{window} "
+                               f"cap{cap:g}", (qc, kn, vn), kw, dtype,
+                               (None, 1))
+    for rep, d in ((1, 64), (4, 128), (16, 256)):
+        hq, scale = hkv * rep, d ** -0.5
+        for s in (512, 2304):
+            for dtype in (torch.bfloat16, torch.float32):
+                qs = t(rng.standard_normal((1, s, hq, d)), dtype)
+                ks = t(rng.standard_normal((1, s, hkv, d)), dtype)
+                vs = t(rng.standard_normal((1, s, hkv, d)), dtype)
+                ar = torch.arange(s, dtype=torch.int32, device=dev)
+                for window, cap in variants:
+                    kw = dict(q_pos=ar, k_pos=ar, causal=True, window=window,
+                              scale=scale, softcap=cap)
+                    flash_case(f"rep{rep} D{d} prompt S{s} w{window} "
+                               f"cap{cap:g}", (qs, ks, vs), kw, dtype,
+                               (None,))
+
+    b, n = 4, 1024
+    lens = np.array([1, 700, 1024, 2500])           # the last wraps
+    for rep in (1, 2, 4, 8, 16):
+        for d in (64, 128, 256):
+            hq, scale = hkv * rep, d ** -0.5
+            for dtype in (torch.bfloat16, torch.float32):
+                q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+                kc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+                vc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+                cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+                for use_pos, window, cap in ((False, 0, 0.0),
+                                             (True, 100, 0.0),
+                                             (True, 0, 30.0)):
+                    pos = (torch.from_numpy(ring_positions(rng, b, n, lens,
+                                                           0.1)).to(dev)
+                           if use_pos else None)
+                    kw = dict(cache_len=cl if use_pos else cl.clamp_max(n),
+                              pos=pos, window=window, scale=scale,
+                              softcap=cap)
+                    exp = dk.decode_attention_plain(q, kc, vc, **kw)
+                    lanes = None
+                    if pos is not None:
+                        vis = (pos >= 0) & (pos < cl[:, None])
+                        if window:
+                            vis &= pos > cl[:, None] - 1 - window
+                        lanes = vis.any(1)
+                    for splits in (None, 1):
+                        record("decode_attention",
+                               f"rep{rep} D{d} {'pos' if use_pos else 'len'} "
+                               f"w{window} cap{cap:g} "
+                               f"splits={splits or 'auto'}",
+                               dk.decode_attention(q, kc, vc, splits=splits,
+                                                   **kw), exp, dtype, lanes,
+                               quiet=True)
+    return worst
 
 
 def ssd_inputs(rng, b, s, h, p, n, dtype, dev, skip=True):
@@ -574,6 +756,13 @@ def time_kernels(dev):
                   lambda: sdpa(q, kc, vc, attn_mask=mask, scale=scale)),
         single_pass_ms=device_ms(
             lambda: dk.decode_attention(q, kc, vc, splits=1, **kw), flush),
+        read_flush_ms=device_ms(lambda: dk.decode_attention(q, kc, vc, **kw),
+                                flush, how="read"),
+        warm_ms=device_ms(lambda: dk.decode_attention(q, kc, vc, **kw),
+                          flush, how="none"),
+        empty_ms=device_ms(lambda: dk.decode_attention(
+            q, kc, vc, **dict(kw, cache_len=torch.zeros_like(cl))), flush),
+        stream_ms=stream_ms(nbytes, dev, flush),
         bound_ms=bms, bound_by=by)
 
     # paged decode at the ring row's shape: the same lanes' lengths over a
@@ -614,27 +803,38 @@ def time_kernels(dev):
                                               **kw), flush),
         bound_ms=bms, bound_by=by)
 
-    # flash: the chunk the engine runs most, 32 queries over a full ring
+    # flash: the chunk the engine runs most, 32 queries over a full ring,
+    # the ring passed beside the chunk as the serving path passes it (SDPA
+    # gets the two concatenated beforehand, the concatenation not timed)
     c, start = 32, 2500
     qc, kc2, vc2 = rnd((1, c, hq, d)), rnd((1, n + c, hkv, d)), rnd((1, n + c, hkv, d))
     qp = torch.arange(start, start + c, dtype=torch.int32, device=dev)
     kp = torch.cat([torch.from_numpy(ring_positions(rng, 1, n, [start])).to(dev),
                     qp[None]], 1)
-    kw = dict(q_pos=qp, k_pos=kp, causal=True, window=0, scale=scale)
+    kn, vn = kc2[:, n:].contiguous(), vc2[:, n:].contiguous()
+    kw = dict(q_pos=qp, k_pos=qp, causal=True, window=0, scale=scale,
+              k_cache=kc2[:, :n].contiguous(), v_cache=vc2[:, :n].contiguous(),
+              cache_pos=kp[:, :n].contiguous())
     vis = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[None, :, None])
     pairs = int(vis.sum())
     keys_read = int(vis.any(1).sum())
     nbytes = keys_read * hkv * d * 2 * 2 + 2 * qc.numel() * 2 + 4 * (n + 2 * c)
     bms, by = bound(nbytes, 4 * hq * d * pairs, PEAK_BF16_FLOPS)
     rows["flash_attention"] = dict(
-        shape=(f"chunk C={c} over n+C={n + c} keys Hq={hq} Hkv={hkv} D={d} "
-               f"bf16, {fk.auto_splits(1, c, hq, n + c, dev)} splits"),
-        **timings(lambda: fk.flash_attention(qc, kc2, vc2, **kw),
-                  lambda: fk.flash_attention_plain(qc, kc2, vc2, **kw),
+        shape=(f"chunk C={c} over a ring of n={n} Hq={hq} Hkv={hkv} D={d} "
+               f"bf16, {fk.auto_splits(1, c, hq, hkv, n + c, dev)} splits"),
+        **timings(lambda: fk.flash_attention(qc, kn, vn, **kw),
+                  lambda: fk.flash_attention_plain(qc, kn, vn, **kw),
                   lambda: sdpa(qc, kc2, vc2, attn_mask=vis[:, None],
                                scale=scale)),
         single_pass_ms=device_ms(
-            lambda: fk.flash_attention(qc, kc2, vc2, splits=1, **kw), flush),
+            lambda: fk.flash_attention(qc, kn, vn, splits=1, **kw), flush),
+        read_flush_ms=device_ms(lambda: fk.flash_attention(qc, kn, vn, **kw),
+                                flush, how="read"),
+        warm_ms=device_ms(lambda: fk.flash_attention(qc, kn, vn, **kw),
+                          flush, how="none"),
+        empty_ms=device_ms(lambda: fk.flash_attention(
+            qc, kn, vn, **nothing_visible(kw)), flush),
         bound_ms=bms, bound_by=by)
     # whole-prompt prefill S=512, reported beside the chunk
     s = 512
@@ -644,10 +844,14 @@ def time_kernels(dev):
     pairs = s * (s + 1) // 2
     bms, by = bound(2 * qs.numel() * 2 + 2 * ks.numel() * 2 + 2 * s * 4,
                     4 * hq * d * pairs, PEAK_BF16_FLOPS)
-    DETAILS["flash_attention_prompt512"] = dict(
+    rows["flash_attention"]["prompt512"] = dict(
         **timings(lambda: fk.flash_attention(qs, ks, vs, **kw),
                   lambda: fk.flash_attention_plain(qs, ks, vs, **kw),
                   lambda: sdpa(qs, ks, vs, is_causal=True, scale=scale)),
+        # every block over every key tile: against the causal time, whether
+        # the work or the longest block's walk sets it
+        noncausal_ms=device_ms(lambda: fk.flash_attention(
+            qs, ks, vs, **dict(kw, causal=False)), flush),
         bound_ms=bms, bound_by=by)
 
     # rmsnorm: the decode step's d_model rows (8 lanes x 2560)
@@ -708,6 +912,22 @@ def time_kernels(dev):
     for name, row in time_attention_d256(dev, rng, flush, timings,
                                          sdpa).items():
         rows[name]["d256"] = row
+    for name in ("decode_attention", "flash_attention"):
+        row = rows[name]
+        for key, at in (("ms", row), ("d256", row["d256"]),
+                        ("prompt512", row.get("prompt512"))):
+            if at is None:
+                continue
+            log(f"  {name:16s} {key:10s} {at['ms']:.4f} ms; bound "
+                f"{at['bound_ms']:.4f} ({at['bound_by']}), library "
+                f"{at['library_ms']:.4f}"
+                + "".join(f"; {label} {at[k]:.4f}" for k, label in (
+                    ("single_pass_ms", "one split"),
+                    ("read_flush_ms", "after a read flush"),
+                    ("warm_ms", "no flush"),
+                    ("empty_ms", "nothing visible"),
+                    ("stream_ms", "streaming its bytes"),
+                    ("noncausal_ms", "not causal")) if k in at))
     return rows
 
 
@@ -769,6 +989,9 @@ def time_attention_d256(dev, rng, flush, timings, sdpa):
                   lambda: dk.decode_attention_plain(q, kc, vc, **kw),
                   lambda: sdpa(q, kc, vc, attn_mask=valid[:, None, None, :],
                                scale=scale)),
+        empty_ms=device_ms(lambda: dk.decode_attention(
+            q, kc, vc, **dict(kw, cache_len=torch.zeros_like(cl))), flush),
+        stream_ms=stream_ms(nbytes, dev, flush),
         bound_ms=bms, bound_by=by)
 
     page, maxp = 16, 4096 // 16
@@ -807,7 +1030,10 @@ def time_attention_d256(dev, rng, flush, timings, sdpa):
     qp = torch.arange(start, start + c, dtype=torch.int32, device=dev)
     kp2 = torch.cat([torch.from_numpy(ring_positions(rng, 1, n, [start])).to(dev),
                      qp[None]], 1)
-    kw = dict(q_pos=qp, k_pos=kp2, causal=True, window=win, scale=scale)
+    kn, vn = kc2[:, n:].contiguous(), vc2[:, n:].contiguous()
+    kw = dict(q_pos=qp, k_pos=qp, causal=True, window=win, scale=scale,
+              k_cache=kc2[:, :n].contiguous(), v_cache=vc2[:, :n].contiguous(),
+              cache_pos=kp2[:, :n].contiguous())
     vis = ((kp2[:, None, :] >= 0) & (kp2[:, None, :] <= qp[None, :, None])
            & (kp2[:, None, :] > qp[None, :, None] - win))
     pairs = int(vis.sum())
@@ -815,14 +1041,24 @@ def time_attention_d256(dev, rng, flush, timings, sdpa):
     nbytes = keys_read * hkv * d * 2 * 2 + 2 * qc.numel() * 2 + 4 * (n + 2 * c)
     bms, by = bound(nbytes, 4 * hq * d * pairs, PEAK_BF16_FLOPS)
     out["flash_attention"] = dict(
-        shape=f"chunk C={c} over n+C={n + c} keys Hq={hq} Hkv={hkv} D={d} "
+        shape=f"chunk C={c} over a ring of n={n} Hq={hq} Hkv={hkv} D={d} "
               f"w={win} bf16",
-        **timings(lambda: fk.flash_attention(qc, kc2, vc2, **kw),
-                  lambda: fk.flash_attention_plain(qc, kc2, vc2, **kw),
+        **timings(lambda: fk.flash_attention(qc, kn, vn, **kw),
+                  lambda: fk.flash_attention_plain(qc, kn, vn, **kw),
                   lambda: sdpa(qc, kc2, vc2, attn_mask=vis[:, None],
                                scale=scale)),
+        empty_ms=device_ms(lambda: fk.flash_attention(
+            qc, kn, vn, **nothing_visible(kw)), flush),
         bound_ms=bms, bound_by=by)
     return out
+
+
+def nothing_visible(kw: dict) -> dict:
+    """Flash arguments with every key position -1: the same launch, grid
+    and splits, with no K/V tile requested (the kernel's fixed cost)."""
+    import torch
+    return dict(kw, k_pos=torch.full_like(kw["k_pos"], -1),
+                cache_pos=torch.full_like(kw["cache_pos"], -1))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1095,8 +1331,11 @@ def recurrent_identity(dev, arch: str, layers: int, capacity: int,
 # ---------------------------------------------------------------- phase 4
 def _kernel_class(name: str) -> str:
     for key, cls in (("paged_decode_kernel", "paged_decode_attention"),
-                     ("decode_kernel", "decode_attention"),
-                     ("flash_kernel", "flash_attention"),
+                     ("decode_tc_kernel", "decode_attention"),
+                     ("decode_f32_kernel", "decode_attention"),
+                     ("flash_tc_kernel", "flash_attention"),
+                     ("flash_f32_kernel", "flash_attention"),
+                     ("combine_splits", "combine"),
                      ("rmsnorm_kernel", "rmsnorm"), ("ssd_kernel", "ssd"),
                      ("rglru_kernel", "rglru")):
         if key in name:
@@ -1520,7 +1759,9 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
-        for extra in ("single_pass_ms", "library_note", "d256"):
+        for extra in ("single_pass_ms", "empty_ms", "stream_ms",
+                      "library_note", "d256", "prompt512",
+                      "read_flush_ms", "warm_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     DETAILS["kernels"] = kernels

@@ -2,12 +2,20 @@
 
 Kernel: ``csrc/decode_attention.cu`` (CUDA C++ for ``sm_90a``), replacing
 the TPU kernel ``repro/kernels/decode_attention.py::decode_attention``
-(``_decode_kernel``).  It is bound by the bytes of K and V it must read;
-the source's header says how its design meets that (flash-decoding: each
-lane's slots are split over several blocks, whose partial softmax states a
-second kernel merges).  ``decode_attention`` launches it on CUDA tensors;
+(``_decode_kernel``).  ``decode_attention`` launches it on CUDA tensors;
 ``decode_attention_plain`` is the same function in plain PyTorch, which the
 CPU path runs and the kernel is held against.
+
+It is bound by the bytes of K and V it must read.  In bf16 one block per
+(KV head, lane, slot range) holds every query head of the GQA group, so
+K and V are read once at every ratio; tiles of 64 slots stream through two
+or three shared-memory stages by ``cp.async`` with the ``pos`` entries
+beside them (no K/V copy waits on a ``pos`` load); scores and P·V run on
+the tensor cores (``mma.sync``, f32 accumulation, P rounded to bf16 where
+the oracle rounds it).  Each lane's slots are split over several blocks
+(flash-decoding), whose partial softmax states a second kernel merges.
+f32 inputs take a CUDA-core body of the same function, selected by dtype
+(the identity checks run f32); both routes launch or raise.
 
 Without ``pos``, slot j of lane b is visible when ``j < cache_len[b]`` (and
 ``j > cache_len[b] - 1 - window`` with a window): ``ref.decode_mha_reference``.
@@ -32,8 +40,6 @@ _count_lock = threading.Lock()
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def _counted() -> None:
     global launches
     with _count_lock:
@@ -41,11 +47,12 @@ def _counted() -> None:
 
 
 def auto_splits(b: int, hkv: int, n: int, device) -> int:
-    """Slot ranges per (lane, KV head): enough blocks for about two waves
-    on the card's SMs, at least 256 slots per range, at most 32."""
+    """Slot ranges per (lane, KV head), each one block that holds the
+    whole GQA group: enough blocks for about two waves on the card's SMs,
+    at least 128 slots per range, at most 32."""
     sms = build.sm_count(torch.device(device).index or 0)
     want = -(-2 * sms // (b * hkv))
-    return max(1, min(want, -(-n // 256), 32))
+    return max(1, min(want, -(-n // 128), 32))
 
 
 def _check(q, k_cache, v_cache, cache_len, pos):

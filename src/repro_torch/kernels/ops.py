@@ -33,11 +33,14 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 
 
 def flash_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, scale,
-                    softcap=0.0):
-    """(B,S,Hq,D) x (B,T,Hkv,D) -> (B,S,Hq,D) under position masks."""
+                    softcap=0.0, k_cache=None, v_cache=None, cache_pos=None):
+    """(B,S,Hq,D) x (B,C,Hkv,D) -> (B,S,Hq,D) under position masks; with
+    a ring (``k_cache``/``v_cache`` (B,n,Hkv,D), ``cache_pos`` (B,n)) its
+    slots are keys ahead of the chunk's."""
     fn = _flash.flash_attention if _route(q) else _flash.flash_attention_plain
     return fn(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
-              window=window, scale=scale, softcap=softcap)
+              window=window, scale=scale, softcap=softcap, k_cache=k_cache,
+              v_cache=v_cache, cache_pos=cache_pos)
 
 
 def decode_attention(q, k_cache, v_cache, *, cache_len, pos=None, window=0,

@@ -285,18 +285,19 @@ def apply_block_prefill_chunk(p: Block, x, cache, cfg: ModelConfig, kind: str,
                               attn_kind: str, *, start, memo=None):
     """Extend a decode cache with a prompt chunk x (B, C, d) at absolute
     positions [start, start + C).  The chunk's queries attend over
-    ``[ring ‖ chunk]`` through the flash kernel (k_pos = the ring's pos
-    plane followed by the chunk's positions) **before** the chunk's K/V is
-    scattered into the ring, so a chunk that wraps the ring cannot
-    overwrite keys its own queries still need.  The ring is updated in
-    place.  A recurrent block threads its state through the chunk
-    (``ssm_prefill_chunk`` / ``rglru_prefill_chunk``)."""
+    ``[ring ‖ chunk]`` through the flash kernel, which takes the ring and
+    its pos plane beside the chunk's own K/V and positions (nothing is
+    concatenated), **before** the chunk's K/V is scattered into the ring,
+    so a chunk that wraps the ring cannot overwrite keys its own queries
+    still need.  The ring is updated in place.  A recurrent block threads
+    its state through the chunk (``ssm_prefill_chunk`` /
+    ``rglru_prefill_chunk``)."""
     if kind in (SSM, RGLRU):
         return _recurrent(p, x, cfg, kind, "chunk", cache=cache)
     if kind != ATTN:
         raise _not_ported(kind)
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
-    b, c, _ = x.shape
+    c = x.shape[1]
     n = cache["k"].shape[1]
     positions = attn_lib.shared(memo, "positions", lambda: torch.arange(
         int(start), int(start) + c, dtype=torch.int32, device=x.device))
@@ -304,13 +305,11 @@ def apply_block_prefill_chunk(p: Block, x, cache, cfg: ModelConfig, kind: str,
                                     memo)
     k = k.to(cache["k"].dtype)
     v = v.to(cache["v"].dtype)
-    k_cat = torch.cat([cache["k"], k], dim=1)
-    v_cat = torch.cat([cache["v"], v], dim=1)
-    pos_cat = torch.cat([cache["pos"], positions.expand(b, c)], dim=1)
     out = ops.flash_attention(
-        q, k_cat, v_cat, q_pos=positions, k_pos=pos_cat, causal=True,
+        q, k, v, q_pos=positions, k_pos=positions, causal=True,
         window=attn_lib._window_for(cfg, attn_kind),
-        scale=attn_lib._scale(cfg), softcap=cfg.logit_softcap)
+        scale=attn_lib._scale(cfg), softcap=cfg.logit_softcap,
+        k_cache=cache["k"], v_cache=cache["v"], cache_pos=cache["pos"])
     # now scatter the chunk's last min(C, n) keys into the ring (older ones
     # are already beyond the ring and can never be read)
     take = min(c, n)

@@ -18,13 +18,20 @@ success):
    32 queries over empty, partial and wrapped rings passed as the ring
    arguments, window and softcap, prompts of 512 and 2304, and bf16 flash
    within 0.75 of a bf16 spacing of the f32 oracle, which holds its P
-   hi/lo split; ``ssd`` at mamba2's widths with chunks of 32, 128, 100 and
-   2; ``rglru`` at width 4096), then timings (kernel, plain version, one
-   PyTorch library call as a yardstick where one exists) beside each
-   kernel's bound, and for the two tensor-core attention kernels the same
-   launch with nothing visible, after a flush that leaves the L2 clean and
-   with no flush, and (decode) one PyTorch reduction streaming the same
-   bytes;
+   hi/lo split; paged decode also over GQA ratios 1-16 at D 64/128/256,
+   pages of 8, 16 and 12, shared prefix pages, absent entries, stale pos
+   rows, an empty lane, window and softcap, bf16 within 3 spacings of the
+   f32 oracle (it rounds P once, as its oracle does); ``ssd`` at mamba2's
+   widths with chunks of 32, 128, 100 and 2, and over chunks of 1, 2, 17,
+   32, 100 and 128 in one chunk and several, bf16 within 0.75 spacings of
+   the f32 oracle, which holds its hi/lo splits; ``rglru`` at width 4096),
+   then timings (kernel, plain version, one PyTorch library call as a
+   yardstick where one exists) beside each kernel's bound, and for the
+   tensor-core attention kernels the same launch with nothing visible (and
+   for paged decode with one visible slot), after a flush that leaves the
+   L2 clean and with no flush, and (decode) one PyTorch reduction
+   streaming the same bytes; ``ssd`` also at one token (its fixed cost),
+   with the prompt's time split by kernel;
 3. identity: qwen3-4b at full width, depth cut to 4 layers, in f32 with
    TF32 off, serves 3 greedy prompts through a ``ServingFleet``; every
    stream must equal the replica's ``generate_sequential`` and the port's
@@ -67,6 +74,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -157,6 +165,24 @@ def device_ms(fn, flush, iters: int = 20, how: str = "write") -> float:
     if not evs:
         raise RuntimeError("the profiler recorded no device time")
     return sum(d for _, d in evs) / iters / 1e3
+
+
+def kernel_breakdown(fn, flush, iters: int = 10) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (by kernel name,
+    template arguments dropped), the L2 flushed before each call."""
+    skip = frozenset(n for n, _ in device_events(flush.zero_))
+
+    def run():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+
+    by = {}
+    for name, us in device_events(run, skip):
+        m = re.search(r"([A-Za-z_]\w*)(?:<[^(]*>)?\(", name)
+        short = m.group(1) if m else name[:60]
+        by[short] = by.get(short, 0.0) + us / iters / 1e3
+    return by
 
 
 def stream_ms(nbytes: int, dev, flush) -> float:
@@ -430,13 +456,23 @@ def check_kernels(dev):
                    gk.rglru_plain(*args), dtype)
 
     check_attention_d256(dev, rng, t, record)
-    spacings = check_attention_sweep(dev, rng, t, record)
+    spacings = {"flash_attention": check_attention_sweep(dev, rng, t, record),
+                "paged_decode_attention": check_paged_sweep(dev, rng, t,
+                                                            record),
+                "ssd": check_ssd_sweep(dev, rng, record)}
     for (name, dt), (cases, err) in sorted(sweep.items()):
         log(f"  {name:16s} sweep: {cases} cases {dt}, max|err| {err:.3e}")
-    DETAILS["attention_sweep"] = {f"{k[0]} {k[1]}": v for k, v in sweep.items()}
-    log(f"  flash_attention  bf16 against the f32 oracle: max |err| "
-        f"{spacings:.3f} bf16 spacings (limit {P_SPACINGS})")
-    DETAILS["flash_bf16_max_spacings"] = spacings
+    DETAILS["sweeps"] = {f"{k[0]} {k[1]}": v for k, v in sweep.items()}
+    paged_sp, paged_plain_sp = spacings["paged_decode_attention"]
+    spacings["paged_decode_attention"] = paged_sp
+    for name, sp in spacings.items():
+        lim = PAGED_SPACINGS if name == "paged_decode_attention" else P_SPACINGS
+        log(f"  {name:16s} bf16 against the f32 oracle: max |err| {sp:.3f} "
+            f"bf16 spacings (limit {lim})")
+        DETAILS[f"{name}_bf16_max_spacings"] = sp
+    log(f"  paged_decode_attention plain bf16 version against the f32 oracle: "
+        f"{paged_plain_sp:.3f} bf16 spacings")
+    DETAILS["paged_decode_attention_plain_bf16_max_spacings"] = paged_plain_sp
     return {k: max(v) for k, v in results.items()}
 
 
@@ -446,6 +482,15 @@ def check_kernels(dev):
 # far below 0.25, even at 1/8.  P rounded once to bf16 (8 bits) errs by up
 # to 2^-9 of each term and breaks the limit on rows with few visible keys.
 P_SPACINGS = 0.75
+
+
+# Paged decode rounds its probabilities P to bf16 once before P·V, as its
+# oracle does (2^-9 of each term), which the f32 oracle does not: over the
+# paged sweep the bf16 plain version itself lies more than 2 spacings from
+# the f32 oracle.  The kernel rounds the running P, not the normalised one,
+# so it is held at 3 spacings, and the run logs the plain version's reading
+# beside its own.
+PAGED_SPACINGS = 3.0
 
 
 def bf16_spacings(got, exp32) -> float:
@@ -570,6 +615,124 @@ def check_attention_sweep(dev, rng, t, record) -> float:
                                dk.decode_attention(q, kc, vc, splits=splits,
                                                    **kw), exp, dtype, lanes,
                                quiet=True)
+    return worst
+
+
+def paged_visible(pp, tab, cl, page, window=0):
+    """(B, maxp * page) bool: the slots the paged oracle lets a lane see."""
+    import torch
+    b, maxp = tab.shape
+    safe = tab.clamp_min(0).long()
+    expected = torch.arange(maxp * page, device=tab.device)[None]
+    vis = ((pp[safe].reshape(b, -1) == expected) & (expected < cl[:, None])
+           & (tab >= 0).repeat_interleave(page, 1))
+    if window:
+        vis &= expected > cl[:, None] - 1 - window
+    return vis
+
+
+def check_paged_sweep(dev, rng, t, record) -> float:
+    """The redesigned paged decode kernel over GQA ratios 1-16 at D 64, 128
+    and 256, pages of 8, 16 and 12 (a size that does not divide the 64-slot
+    tile), both dtypes, auto splits and one pass (summarised): 4 lanes of
+    ragged lengths over a shuffled pool, lanes 0 and 1 sharing prefix
+    pages, absent (-1) entries inside the range, stale pos rows (recycled
+    pages), a lane with no page at all, and window and softcap variants.
+    Every bf16 case is also held within ``PAGED_SPACINGS`` of the f32
+    oracle on the lanes with a visible slot (an empty lane's mean rounds
+    1/(maxp * page) to bf16, as the bf16 oracle does); returns the largest
+    reading of the kernel and of the bf16 plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pk
+
+    worst, plain_worst = 0.0, 0.0
+    hkv = 2
+    lens = np.array([700, 1000, 333, 1])
+    variants = ((0, 0.0), (100, 0.0), (0, 30.0))    # (window, softcap)
+    for page in (8, 16, 12):
+        maxp = -(-1024 // page)
+        for rep in (1, 2, 4, 8, 16):
+            for d in (64, 128, 256):
+                hq, scale = hkv * rep, d ** -0.5
+                tables, ppos = paged_layout(
+                    rng, np.concatenate([lens, [500]]), page, maxp,
+                    share=600 // page, holes=0.05, stale=0.05, empty=(4,))
+                tab = torch.from_numpy(tables).to(dev)
+                pp = torch.from_numpy(ppos).to(dev)
+                cl = torch.as_tensor(np.concatenate([lens, [500]]),
+                                     dtype=torch.int32, device=dev)
+                for dtype in (torch.bfloat16, torch.float32):
+                    q = t(rng.standard_normal((5, 1, hq, d)), dtype)
+                    kp = t(rng.standard_normal((5 * maxp + 1, page, hkv, d)),
+                           dtype)
+                    vp = t(rng.standard_normal((5 * maxp + 1, page, hkv, d)),
+                           dtype)
+                    for window, cap in variants:
+                        kw = dict(cache_len=cl, window=window, scale=scale,
+                                  softcap=cap)
+                        exp = pk.paged_decode_attention_plain(q, kp, vp, pp,
+                                                              tab, **kw)
+                        exp32 = None
+                        if dtype == torch.bfloat16:
+                            exp32 = pk.paged_decode_attention_plain(
+                                q.float(), kp.float(), vp.float(), pp, tab,
+                                **kw)
+                            lanes = paged_visible(pp, tab, cl, page,
+                                                  window).any(1)
+                            plain_worst = max(plain_worst, bf16_spacings(
+                                exp[lanes], exp32[lanes]))
+                        for splits in (None, 1):
+                            case = (f"page{page} rep{rep} D{d} w{window} "
+                                    f"cap{cap:g} splits={splits or 'auto'}")
+                            got = pk.paged_decode_attention(
+                                q, kp, vp, pp, tab, splits=splits, **kw)
+                            record("paged_decode_attention", case, got, exp,
+                                   dtype, quiet=True)
+                            if exp32 is None:
+                                continue
+                            sp = bf16_spacings(got[lanes], exp32[lanes])
+                            worst = max(worst, sp)
+                            if not sp <= PAGED_SPACINGS:
+                                raise AssertionError(
+                                    f"paged_decode_attention {case} bf16: "
+                                    f"{sp:.3f} bf16 spacings from the f32 "
+                                    f"oracle > {PAGED_SPACINGS}")
+    return worst, plain_worst
+
+
+def check_ssd_sweep(dev, rng, record) -> float:
+    """The redesigned ``ssd`` over the chunk widths the mixer gives
+    (``models.ssm._ssd_chunk``: 1, 2, 17, 32, 100, 128), each over one chunk
+    and several, both dtypes, at mamba2's widths (48 heads of 64, state
+    128) and at two narrow ones (5 heads of 32 over a state of 64: an odd
+    head count; 3 heads of 16 over 16: the smoke config's widths).  Every
+    bf16 case is also held within ``P_SPACINGS`` of the f32 oracle, which
+    fails if the hi/lo splits are dropped; returns the largest reading."""
+    import torch
+    from repro_torch.kernels import ssd_scan as sk
+
+    worst = 0.0
+    shapes = [(1, s, chunk, 48, 64, 128) for chunk, several in
+              ((1, 37), (2, 130), (17, 51), (32, 96), (100, 300),
+               (128, 384)) for s in (chunk, several)]
+    shapes += [(2, 68, 17, 5, 32, 64), (2, 64, 16, 3, 16, 16)]
+    for b, s, chunk, h, p, n in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = ssd_inputs(rng, b, s, h, p, n, dtype, dev, skip=s % 2 == 0)
+            case = f"B{b} S{s} chunk{chunk} H{h} P{p} N{n}"
+            got = sk.ssd(*args, chunk=chunk)
+            record("ssd", case, got, sk.ssd_plain(*args, chunk=chunk), dtype,
+                   quiet=True)
+            if dtype != torch.bfloat16:
+                continue
+            up = [a.float() if a is not None else None for a in args]
+            sp = bf16_spacings(got, sk.ssd_plain(*up, chunk=chunk))
+            worst = max(worst, sp)
+            if not sp <= P_SPACINGS:
+                raise AssertionError(f"ssd {case} bf16: {sp:.3f} bf16 "
+                                     f"spacings from the f32 oracle > "
+                                     f"{P_SPACINGS}")
     return worst
 
 
@@ -780,9 +943,7 @@ def time_kernels(dev):
     safe = tab.clamp_min(0).long()
     kg = kp[safe].reshape(b, maxp * page, hkv, d)
     vg = vp[safe].reshape(b, maxp * page, hkv, d)
-    expected = torch.arange(maxp * page, device=dev)[None]
-    pvis = ((pp[safe].reshape(b, -1) == expected) & (expected < cl[:, None])
-            & (tab >= 0).repeat_interleave(page, 1))
+    pvis = paged_visible(pp, tab, cl, page)
     live_pages = int(((tab >= 0) & (torch.arange(maxp, device=dev)[None] * page
                                     < cl[:, None])).sum())
     nbytes = (live_pages * page * (hkv * d * 2 * 2 + 4) + 2 * q.numel() * 2
@@ -801,6 +962,14 @@ def time_kernels(dev):
         single_pass_ms=device_ms(
             lambda: pk.paged_decode_attention(q, kp, vp, pp, tab, splits=1,
                                               **kw), flush),
+        read_flush_ms=device_ms(
+            lambda: pk.paged_decode_attention(q, kp, vp, pp, tab, **kw),
+            flush, how="read"),
+        warm_ms=device_ms(
+            lambda: pk.paged_decode_attention(q, kp, vp, pp, tab, **kw),
+            flush, how="none"),
+        **paged_fixed_ms(q, kp, vp, pp, tab, kw, flush),
+        stream_ms=stream_ms(nbytes, dev, flush),
         bound_ms=bms, bound_by=by)
 
     # flash: the chunk the engine runs most, 32 queries over a full ring,
@@ -875,10 +1044,11 @@ def time_kernels(dev):
         bound_ms=bound(2 * xh.numel() * 2 + 512, 0, PEAK_F32_FLOPS)[0])
 
     # ssd: the 32-token chunk of mamba2's serving path (48 heads of 64,
-    # state 128) and a 1024-token prompt in chunks of 128.  No PyTorch call
+    # state 128), with its fixed cost (the same widths at one token), and a
+    # 1024-token prompt in chunks of 128, split by kernel.  No PyTorch call
     # computes the SSD scan: no library time.
     from repro_torch.kernels import ssd_scan as sk
-    for (s_, chunk), key in (((32, 32), None), ((1024, 128), "ssd_prompt1024")):
+    for (s_, chunk), key in (((32, 32), None), ((1024, 128), "prompt1024")):
         args = ssd_inputs(rng, 1, s_, 48, 64, 128, bf, dev)
         bms, by = bound(ssd_bytes(args), ssd_flops(args, chunk),
                         PEAK_BF16_FLOPS)
@@ -887,9 +1057,14 @@ def time_kernels(dev):
                              lambda: sk.ssd_plain(*args, chunk=chunk), None),
                    bound_ms=bms, bound_by=by)
         if key is None:
+            one = ssd_inputs(rng, 1, 1, 48, 64, 128, bf, dev)
+            row["one_token_ms"] = device_ms(lambda: sk.ssd(*one, chunk=1),
+                                            flush)
             rows["ssd"] = row
         else:
-            DETAILS[key] = row
+            row["by_kernel_ms"] = kernel_breakdown(
+                lambda: sk.ssd(*args, chunk=chunk), flush)
+            rows["ssd"][key] = row
 
     # rglru: recurrentgemma's width, a 32-token chunk and a 1024-token
     # prompt.  No PyTorch call computes the scan: no library time.
@@ -912,20 +1087,26 @@ def time_kernels(dev):
     for name, row in time_attention_d256(dev, rng, flush, timings,
                                          sdpa).items():
         rows[name]["d256"] = row
-    for name in ("decode_attention", "flash_attention"):
+    for name in ("decode_attention", "flash_attention",
+                 "paged_decode_attention", "ssd"):
         row = rows[name]
-        for key, at in (("ms", row), ("d256", row["d256"]),
-                        ("prompt512", row.get("prompt512"))):
+        for key, at in (("ms", row), ("d256", row.get("d256")),
+                        ("prompt512", row.get("prompt512")),
+                        ("prompt1024", row.get("prompt1024"))):
             if at is None:
                 continue
+            lib = at["library_ms"]
             log(f"  {name:16s} {key:10s} {at['ms']:.4f} ms; bound "
-                f"{at['bound_ms']:.4f} ({at['bound_by']}), library "
-                f"{at['library_ms']:.4f}"
+                f"{at['bound_ms']:.4f} ({at['bound_by']}), plain "
+                f"{at['plain_ms']:.4f}, library "
+                + ("none" if lib is None else f"{lib:.4f}")
                 + "".join(f"; {label} {at[k]:.4f}" for k, label in (
                     ("single_pass_ms", "one split"),
                     ("read_flush_ms", "after a read flush"),
                     ("warm_ms", "no flush"),
                     ("empty_ms", "nothing visible"),
+                    ("one_slot_ms", "one slot visible"),
+                    ("one_token_ms", "one token"),
                     ("stream_ms", "streaming its bytes"),
                     ("noncausal_ms", "not causal")) if k in at))
     return rows
@@ -1006,10 +1187,7 @@ def time_attention_d256(dev, rng, flush, timings, sdpa):
     safe = tab.clamp_min(0).long()
     kg = kp[safe].reshape(b, maxp * page, hkv, d)
     vg = vp[safe].reshape(b, maxp * page, hkv, d)
-    expected = torch.arange(maxp * page, device=dev)[None]
-    pvis = ((pp[safe].reshape(b, -1) == expected) & (expected < cl[:, None])
-            & (expected > cl[:, None] - 1 - win)
-            & (tab >= 0).repeat_interleave(page, 1))
+    pvis = paged_visible(pp, tab, cl, page, win)
     seen = int(pvis.sum())
     nbytes = (seen * (hkv * d * 2 * 2 + 4) + 2 * q.numel() * 2
               + tab.numel() * 4 + b * 4)
@@ -1023,6 +1201,8 @@ def time_attention_d256(dev, rng, flush, timings, sdpa):
                   lambda: sdpa(q, kg, vg, attn_mask=pvis[:, None, None, :],
                                scale=scale)),
         library_note="SDPA over K/V gathered beforehand (gather not timed)",
+        **paged_fixed_ms(q, kp, vp, pp, tab, kw, flush),
+        stream_ms=stream_ms(nbytes, dev, flush),
         bound_ms=bms, bound_by=by)
 
     c, start = 32, 5000
@@ -1051,6 +1231,21 @@ def time_attention_d256(dev, rng, flush, timings, sdpa):
             qc, kn, vn, **nothing_visible(kw)), flush),
         bound_ms=bms, bound_by=by)
     return out
+
+
+def paged_fixed_ms(q, kp, vp, pp, tab, kw, flush) -> dict:
+    """Paged decode's fixed costs, the same launch, grid and splits:
+    ``empty_ms`` with every table entry -1 (every tile is still walked,
+    zero-filled, but no K/V byte is read, and each lane's mean of V reads
+    pool row 0 only), ``one_slot_ms`` with a cache length of 1 (one tile in
+    split 0 of each lane, no tile in the others)."""
+    from repro_torch.kernels import paged_decode_attention as pk
+    none = tab.new_full(tab.shape, -1)
+    one = dict(kw, cache_len=kw["cache_len"].clamp_max(1))
+    return {"empty_ms": device_ms(lambda: pk.paged_decode_attention(
+                q, kp, vp, pp, none, **kw), flush),
+            "one_slot_ms": device_ms(lambda: pk.paged_decode_attention(
+                q, kp, vp, pp, tab, **one), flush)}
 
 
 def nothing_visible(kw: dict) -> dict:
@@ -1330,13 +1525,17 @@ def recurrent_identity(dev, arch: str, layers: int, capacity: int,
 
 # ---------------------------------------------------------------- phase 4
 def _kernel_class(name: str) -> str:
-    for key, cls in (("paged_decode_kernel", "paged_decode_attention"),
+    for key, cls in (("paged_decode_tc_kernel", "paged_decode_attention"),
+                     ("paged_decode_f32_kernel", "paged_decode_attention"),
                      ("decode_tc_kernel", "decode_attention"),
                      ("decode_f32_kernel", "decode_attention"),
                      ("flash_tc_kernel", "flash_attention"),
                      ("flash_f32_kernel", "flash_attention"),
                      ("combine_splits", "combine"),
                      ("rmsnorm_kernel", "rmsnorm"), ("ssd_kernel", "ssd"),
+                     ("ssd_chunk_out_kernel", "ssd"),
+                     ("ssd_chunk_state_kernel", "ssd"),
+                     ("ssd_state_pass_kernel", "ssd"),
                      ("rglru_kernel", "rglru")):
         if key in name:
             return cls
@@ -1760,8 +1959,9 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
         for extra in ("single_pass_ms", "empty_ms", "stream_ms",
-                      "library_note", "d256", "prompt512",
-                      "read_flush_ms", "warm_ms"):
+                      "library_note", "d256", "prompt512", "prompt1024",
+                      "one_token_ms", "one_slot_ms", "read_flush_ms",
+                      "warm_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     DETAILS["kernels"] = kernels

@@ -5,9 +5,17 @@ Kernel: ``csrc/paged_decode_attention.cu`` (CUDA C++ for ``sm_90a``),
 replacing the TPU kernel
 ``repro/kernels/decode_attention.py::paged_decode_attention``
 (``_paged_decode_kernel``).  It is bound by the bytes of the live pages'
-K and V; the source's header says how its design meets that (each lane's
-table slots are split over several blocks, whose partial softmax states
-``rt::combine_splits`` merges; absent pages are never loaded).
+K and V.  In bf16 one block per (KV head, lane, page range) holds every
+query head of the GQA group, so each K/V row is read once at every ratio;
+the range's slice of the lane's table sits in shared memory, and tiles of
+64 slots, addressed row by row through it (a tile may span pages), stream
+through two or three shared-memory stages by ``cp.async`` with each slot's
+``pos`` entry beside them; an absent page (-1) is never read.  Scores and
+P·V run on the tensor cores (``mma.sync``, f32 sums, P rounded to bf16
+where the oracle rounds it).  Each lane's pages are split over several
+blocks (flash-decoding), whose partial softmax states a second kernel
+merges.  f32 inputs take a CUDA-core body of the same function, selected by
+dtype (the identity checks run f32); both routes launch or raise.
 ``paged_decode_attention`` launches it on CUDA tensors;
 ``paged_decode_attention_plain`` is the oracle
 ``ref.paged_decode_mha_reference``, which the CPU path runs and the kernel
@@ -32,6 +40,8 @@ _count_lock = threading.Lock()
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# table entries (pages) one block of the bf16 kernel holds in shared memory
+MAX_TABLE_SLICE = 8192
 
 
 def _counted() -> None:
@@ -41,13 +51,15 @@ def _counted() -> None:
 
 
 def auto_splits(b: int, hkv: int, maxp: int, page: int, device) -> int:
-    """Page ranges per (lane, KV head): enough blocks for about two waves
-    on the card's SMs, at least 256 positions' worth of pages per range,
-    at most 32."""
+    """Page ranges per (lane, KV head), each one block that holds the
+    whole GQA group: enough blocks for about two waves on the card's SMs,
+    at least 256 positions' worth of pages per range, at most 32, and
+    enough that a range's table slice fits ``MAX_TABLE_SLICE``."""
     sms = build.sm_count(torch.device(device).index or 0)
     want = -(-2 * sms // (b * hkv))
     min_pages = -(-256 // page)
-    return max(1, min(want, -(-maxp // min_pages), 32))
+    return max(1, min(want, -(-maxp // min_pages), 32),
+               -(-maxp // MAX_TABLE_SLICE))
 
 
 def _check(q, k_pages, v_pages, pos_pages, tables, cache_len):
@@ -101,6 +113,9 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, tables, *,
     maxp = tables.shape[1]
     if splits is None:
         splits = auto_splits(b, hkv, maxp, page, q.device)
+    if q.dtype == torch.bfloat16 and -(-maxp // splits) > MAX_TABLE_SLICE:
+        raise ValueError(f"paged_decode_attention: {maxp} table entries in "
+                         f"{splits} splits exceed {MAX_TABLE_SLICE} a block")
     out = torch.empty_like(q)
     # per (lane, query head, split): (max, sum) and a D-wide accumulator
     work = (torch.empty(b * hq * splits * (d + 2), dtype=torch.float32,

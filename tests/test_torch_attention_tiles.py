@@ -25,6 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_decode_attention as pk
 from repro_torch.models import model as TM
 
 TOL = {"f32": 2e-5, "bf16": 2e-2}
@@ -164,7 +165,10 @@ def test_launch_geometry_fits_hopper_at_serving_shapes(monkeypatch, arch):
     range, the grids it gives within Hopper's limits, no split over more
     key tiles than the kernel's live-tile mask holds, and one split for a
     prompt whose row tiles alone fill the SMs.  (Each kernel's shared
-    memory is held within the SM's at compile time, in its .cu file.)"""
+    memory is held within the SM's at compile time, in its .cu file.)
+    Paged decode at 1-8 lanes over tables of 2048 and 4096 positions in
+    pages of 8 and 16: the same, and its table slice within what the
+    kernel's shared memory holds."""
     monkeypatch.setattr(build, "sm_count", lambda index: 132)
     hq, hkv, d, n = SERVING[arch]
     cfg = get_config(arch)
@@ -191,3 +195,17 @@ def test_launch_geometry_fits_hopper_at_serving_shapes(monkeypatch, arch):
     for b in range(1, 9):
         sp = dk.auto_splits(b, hkv, n, "cuda")
         assert 1 <= sp <= 32 and b <= GRID_YZ and sp <= GRID_YZ
+        # paged decode: grid (KV heads, lanes, page ranges), each block
+        # holding its range's slice of the table in shared memory (the
+        # .cu file holds the block's layout with MAX_TABLE_SLICE entries
+        # within the SM's shared memory); tables of the ring's capacity
+        # and of 4096 positions, in pages of 8 and 16
+        for page in (8, 16):
+            for maxp in (n // page, 4096 // page):
+                sp = pk.auto_splits(b, hkv, maxp, page, "cuda")
+                assert 1 <= sp <= 32 and b <= GRID_YZ and sp <= GRID_YZ
+                assert 1 <= -(-maxp // sp) <= pk.MAX_TABLE_SLICE
+                # every range at least 256 positions, or one range
+                assert sp == 1 or -(-maxp // sp) * page >= 256
+                # about two waves of blocks on the 132 SMs, no more
+                assert sp == 1 or hkv * b * (sp - 1) < 2 * 132

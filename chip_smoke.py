@@ -24,14 +24,20 @@ success):
    f32 oracle (it rounds P once, as its oracle does); ``ssd`` at mamba2's
    widths with chunks of 32, 128, 100 and 2, and over chunks of 1, 2, 17,
    32, 100 and 128 in one chunk and several, bf16 within 0.75 spacings of
-   the f32 oracle, which holds its hi/lo splits; ``rglru`` at width 4096),
-   then timings (kernel, plain version, one PyTorch library call as a
-   yardstick where one exists) beside each kernel's bound, and for the
-   tensor-core attention kernels the same launch with nothing visible (and
-   for paged decode with one visible slot), after a flush that leaves the
-   L2 clean and with no flush, and (decode) one PyTorch reduction
-   streaming the same bytes; ``ssd`` also at one token (its fixed cost),
-   with the prompt's time split by kernel;
+   the f32 oracle, which holds its hi/lo splits; the norm kernel's four
+   entry points (norm, qk pair, residual add, Mamba2's gated norm) over
+   widths 64 to 5376 and an odd one, 1 to 1280 rows, the residual sum
+   bit-equal to ``x + y``; ``rglru`` from one token to 2300 on both of its
+   paths, 1 and 8 rows, width 4096 and an odd one), then timings (kernel,
+   plain version, one PyTorch library call as a yardstick where one
+   exists) beside each kernel's bound, and for the tensor-core attention
+   kernels the same launch with nothing visible (and for paged decode with
+   one visible slot), after a flush that leaves the L2 clean and with no
+   flush, and (decode) one PyTorch reduction streaming the same bytes;
+   ``ssd`` also at one token (its fixed cost), with the prompt's time split
+   by kernel; the norm and ``rglru`` at one row / one token (their fixed
+   costs), each norm form beside the unfused expression it replaces, and
+   the host issue cost of a call (N back-to-back calls between two syncs);
 3. identity: qwen3-4b at full width, depth cut to 4 layers, in f32 with
    TF32 off, serves 3 greedy prompts through a ``ServingFleet``; every
    stream must equal the replica's ``generate_sequential`` and the port's
@@ -45,8 +51,9 @@ success):
    streams equal ``generate_sequential`` (whole-prompt against chunked
    prefill) and the CPU plain path on short prompts, recurrentgemma also on
    a 2300-token prompt across its 2048-token window (capacity 4096); a
-   paged replica emits the ring streams with mid-stream joins, and the
-   prefix cache is refused;
+   paged replica emits the ring streams with mid-stream joins (for
+   recurrentgemma the 2300-token prompt too, its local rings wrapping in
+   paged mode), and the prefix cache is refused;
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
@@ -126,19 +133,25 @@ def host_ms(fn, iters: int = 20, flush=None) -> float:
     return times[len(times) // 2]
 
 
-def device_events(fn, skip=frozenset()):
+def device_events(fn, skip=frozenset(), tries: int = 3):
     """Device-side events (kernels, copies) of one profiled run of ``fn``
-    (CUPTI through ``torch.profiler``), as (name, duration_us) pairs."""
+    (CUPTI through ``torch.profiler``), as (name, duration_us) pairs.  The
+    profiler now and then returns a run with no device event at all; such
+    a run is profiled again, up to ``tries`` runs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA and e.name not in skip]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if evs:
+            break
+    return [(n, d) for n, d in evs if n not in skip]
 
 
 def device_ms(fn, flush, iters: int = 20, how: str = "write") -> float:
@@ -419,19 +432,37 @@ def check_kernels(dev):
                                               splits=splits, **kw2),
                            exp, dtype)
 
-    # rmsnorm: 8 x 2560 (d_model) and 8 x 32 x 128 (headwise qk-norm)
+    # rmsnorm: 8 x 2560 (d_model), the qk-norm pair at 8 x 32/8 x 128, the
+    # residual add at d_model and mamba2's gated norm over d_inner; then
+    # the four entry points over every width and row count (quiet)
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in ((8, 2560), (8, 32, 128)):
-            x = t(rng.standard_normal(shape), dtype)
-            sc = t(0.5 * rng.standard_normal(shape[-1]), torch.float32)
-            record("rmsnorm", "x" + "x".join(map(str, shape)),
-                   rk.rmsnorm(x, sc, 1e-6), rk.rmsnorm_plain(x, sc, 1e-6),
-                   dtype)
-        # mamba2's gated norm over d_inner
-        x = t(rng.standard_normal((8, 3072)), dtype)
-        sc = t(0.5 * rng.standard_normal(3072), torch.float32)
-        record("rmsnorm", "x8x3072", rk.rmsnorm(x, sc, 1e-6),
+        x = t(rng.standard_normal((8, 2560)), dtype)
+        sc = t(0.5 * rng.standard_normal(2560), torch.float32)
+        record("rmsnorm", "x8x2560", rk.rmsnorm(x, sc, 1e-6),
                rk.rmsnorm_plain(x, sc, 1e-6), dtype)
+        y = t(rng.standard_normal((8, 2560)), dtype)
+        s_, h_ = rk.add_rmsnorm(x, y, sc, 1e-6)
+        if not torch.equal(s_, x + y):
+            raise AssertionError("add_rmsnorm: x + y not bit-equal")
+        record("rmsnorm", "add x8x2560", h_,
+               rk.add_rmsnorm_plain(x, y, sc, 1e-6)[1], dtype)
+        q = t(rng.standard_normal((8, 1, 32, 128)), dtype)
+        k = t(rng.standard_normal((8, 1, 8, 128)), dtype)
+        qs = t(0.5 * rng.standard_normal(128), torch.float32)
+        ks = t(0.5 * rng.standard_normal(128), torch.float32)
+        got = rk.rmsnorm_pair(q, k, qs, ks, 1e-6)
+        exp = rk.rmsnorm_pair_plain(q, k, qs, ks, 1e-6)
+        record("rmsnorm", "pair q8x1x32x128 k8x1x8x128", got[0], exp[0],
+               dtype)
+        record("rmsnorm", "pair k", got[1], exp[1], dtype)
+        proj = t(rng.standard_normal((8, 2 * 3072 + 2 * 128 + 48)), dtype)
+        z = proj[:, :3072]
+        y = t(rng.standard_normal((8, 3072)), dtype)
+        sc = t(0.5 * rng.standard_normal(3072), torch.float32)
+        record("rmsnorm", "gated x8x3072, z a slice of the projection",
+               rk.gated_rmsnorm(y, z, sc, 1e-6),
+               rk.gated_rmsnorm_plain(y, z, sc, 1e-6), dtype)
+    check_norm_sweep(dev, rng, t, record)
 
     # ssd at mamba2's widths (48 heads of 64, state 128): the 32-token
     # serving chunk, a 1024-token prompt in chunks of 128, odd chunks (100
@@ -448,12 +479,13 @@ def check_kernels(dev):
                    dtype)
 
     # rglru at recurrentgemma's width (4096): a serving chunk, a 1024-token
-    # prompt and 8 rows of 33
+    # prompt and 8 rows of 33; then the sweep (quiet)
     for dtype in (torch.bfloat16, torch.float32):
         for shape in ((1, 32, 4096), (1, 1024, 4096), (8, 33, 4096)):
             args = rglru_inputs(rng, shape, dtype, dev)
             record("rglru", "x".join(map(str, shape)), gk.rglru(*args),
                    gk.rglru_plain(*args), dtype)
+    check_rglru_sweep(dev, rng, record)
 
     check_attention_d256(dev, rng, t, record)
     spacings = {"flash_attention": check_attention_sweep(dev, rng, t, record),
@@ -701,6 +733,76 @@ def check_paged_sweep(dev, rng, t, record) -> float:
     return worst, plain_worst
 
 
+NORM_WIDTHS = (64, 128, 256, 999, 1000, 1536, 2560, 3072, 4096, 5376)
+NORM_ROWS = (1, 8, 40, 320, 1280)
+
+
+def check_norm_sweep(dev, rng, t, record):
+    """The four norm entry points over the widths the archs run (head_dim
+    64/128/256, d_model 1536-5376, mamba2's d_inner 3072), an odd one (999:
+    element-wise loads) and 1000, at 1 to 1280 rows, both dtypes, nonzero
+    gains: the norm; the qk pair (k with a quarter of q's rows); the
+    residual add, whose sum must equal ``x + y`` bit for bit; the gated
+    norm with z read through a row stride from a wider projection."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rk
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in NORM_WIDTHS:
+            sc = t(0.5 * rng.standard_normal(d), torch.float32)
+            sk = t(0.5 * rng.standard_normal(d), torch.float32)
+            for rows in NORM_ROWS:
+                case = f"D{d} rows{rows}"
+                x = t(2.0 * rng.standard_normal((rows, d)), dtype)
+                y = t(rng.standard_normal((rows, d)), dtype)
+                record("rmsnorm", f"norm {case}", rk.rmsnorm(x, sc, 1e-6),
+                       rk.rmsnorm_plain(x, sc, 1e-6), dtype, quiet=True)
+                k = t(rng.standard_normal((-(-rows // 4), d)), dtype)
+                got = rk.rmsnorm_pair(x, k, sc, sk, 1e-6)
+                exp = rk.rmsnorm_pair_plain(x, k, sc, sk, 1e-6)
+                for g_, e_ in zip(got, exp):
+                    record("rmsnorm", f"pair {case}", g_, e_, dtype,
+                           quiet=True)
+                s_, h_ = rk.add_rmsnorm(x, y, sc, 1e-6)
+                if not torch.equal(s_, x + y):
+                    raise AssertionError(f"add_rmsnorm {case} {dtype}: the "
+                                         f"sum is not x + y bit for bit")
+                record("rmsnorm", f"add {case}", h_,
+                       rk.add_rmsnorm_plain(x, y, sc, 1e-6)[1], dtype,
+                       quiet=True)
+                z = t(2.0 * rng.standard_normal((rows, 2 * d + 8)),
+                      dtype)[:, 8:8 + d]
+                record("rmsnorm", f"gated {case}",
+                       rk.gated_rmsnorm(y, z, sc, 1e-6),
+                       rk.gated_rmsnorm_plain(y, z, sc, 1e-6), dtype,
+                       quiet=True)
+
+
+RGLRU_S = (1, 2, 31, 32, 33, 128, 129, 1024, 2300)
+
+
+def check_rglru_sweep(dev, rng, record):
+    """``rglru`` over prompt lengths from one token to 2300 (one tile in
+    registers up to 128 steps, then tiles of 256 through the staged
+    pipeline, ragged last tiles included), 1 and 8 rows, width 4096 and a
+    narrow odd one (77: element-wise staging, a ragged channel group), both
+    dtypes; the staged path also forced on short prompts, and over 20 tiles
+    of a 5000-step one."""
+    import torch
+    from repro_torch.kernels import rglru_scan as gk
+
+    cases = [(b, s, d, None) for s in RGLRU_S for b in (1, 8)
+             for d in (4096, 77)]
+    cases += [(1, 32, 4096, True), (8, 33, 77, True), (1, 128, 4096, True),
+              (2, 5000, 77, None)]
+    for b, s, d, staged in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = rglru_inputs(rng, (b, s, d), dtype, dev)
+            record("rglru", f"B{b} S{s} D{d} plan {gk.plan(s, staged)}",
+                   gk.rglru(*args, staged=staged), gk.rglru_plain(*args),
+                   dtype, quiet=True)
+
+
 def check_ssd_sweep(dev, rng, record) -> float:
     """The redesigned ``ssd`` over the chunk widths the mixer gives
     (``models.ssm._ssd_chunk``: 1, 2, 17, 32, 100, 128), each over one chunk
@@ -864,7 +966,6 @@ def time_kernels(dev):
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_decode_attention as pk
-    from repro_torch.kernels import rmsnorm as rk
 
     rng = np.random.default_rng(SEED + 1)
     bf = torch.bfloat16
@@ -1023,25 +1124,10 @@ def time_kernels(dev):
             qs, ks, vs, **dict(kw, causal=False)), flush),
         bound_ms=bms, bound_by=by)
 
-    # rmsnorm: the decode step's d_model rows (8 lanes x 2560)
-    x = rnd((8, 2560))
-    sc = torch.zeros(2560, device=dev)
-    w = (1.0 + sc).to(bf)
-    bms, by = bound(2 * x.numel() * 2 + sc.numel() * 4, 4 * x.numel(),
-                    PEAK_F32_FLOPS)
-    rows["rmsnorm"] = dict(
-        shape="8 x 2560 bf16",
-        **timings(lambda: rk.rmsnorm(x, sc, 1e-6),
-                  lambda: rk.rmsnorm_plain(x, sc, 1e-6),
-                  (lambda: F.rms_norm(x, (2560,), weight=w, eps=1e-6))
-                  if hasattr(F, "rms_norm") else None),
-        bound_ms=bms, bound_by=by)
-    xh = rnd((8, 32, 128))
-    sh = torch.zeros(128, device=dev)
-    DETAILS["rmsnorm_headwise_8x32x128"] = dict(
-        **timings(lambda: rk.rmsnorm(xh, sh, 1e-6),
-                  lambda: rk.rmsnorm_plain(xh, sh, 1e-6), None),
-        bound_ms=bound(2 * xh.numel() * 2 + 512, 0, PEAK_F32_FLOPS)[0])
+    # rmsnorm: the decode step's d_model rows (8 lanes x 2560), its fixed
+    # cost (one row), and each fused form at its decode shape beside what
+    # it replaces (the plain version: the unfused expression)
+    rows["rmsnorm"] = time_norms(dev, rnd, flush, timings)
 
     # ssd: the 32-token chunk of mamba2's serving path (48 heads of 64,
     # state 128), with its fixed cost (the same widths at one token), and a
@@ -1066,11 +1152,12 @@ def time_kernels(dev):
                 lambda: sk.ssd(*args, chunk=chunk), flush)
             rows["ssd"][key] = row
 
-    # rglru: recurrentgemma's width, a 32-token chunk and a 1024-token
-    # prompt.  No PyTorch call computes the scan: no library time.
+    # rglru: recurrentgemma's width, a 32-token chunk, its fixed cost (one
+    # token) and the same chunk through the staged path, and the prompts.
+    # No PyTorch call computes the scan: no library time.
     from repro_torch.kernels import rglru_scan as gk
-    for shape, key in (((1, 32, 4096), None), ((1, 1024, 4096),
-                                               "rglru_prompt1024")):
+    for shape, key in (((1, 32, 4096), None), ((1, 1024, 4096), "prompt1024"),
+                       ((1, 2300, 4096), "prompt2300")):
         args = rglru_inputs(rng, shape, bf, dev)
         elems = args[0].numel()
         # per element: exp, exp(2l), 1 - e, sqrt, two products, one FMA
@@ -1080,19 +1167,29 @@ def time_kernels(dev):
                              lambda: gk.rglru_plain(*args), None),
                    bound_ms=bms, bound_by=by)
         if key is None:
+            one = rglru_inputs(rng, (1, 1, 4096), bf, dev)
+            row["fixed_ms"] = device_ms(lambda: gk.rglru(*one), flush)
+            row["issue_us"] = issue_us(lambda: gk.rglru(*args))
+            row["staged_ms"] = device_ms(
+                lambda: gk.rglru(*args, staged=True), flush)
             rows["rglru"] = row
         else:
-            DETAILS[key] = row
+            row["warm_ms"] = device_ms(lambda: gk.rglru(*args), flush,
+                                       how="none")
+            rows["rglru"][key] = row
 
     for name, row in time_attention_d256(dev, rng, flush, timings,
                                          sdpa).items():
         rows[name]["d256"] = row
     for name in ("decode_attention", "flash_attention",
-                 "paged_decode_attention", "ssd"):
+                 "paged_decode_attention", "ssd", "rmsnorm", "rglru"):
         row = rows[name]
         for key, at in (("ms", row), ("d256", row.get("d256")),
                         ("prompt512", row.get("prompt512")),
-                        ("prompt1024", row.get("prompt1024"))):
+                        ("prompt1024", row.get("prompt1024")),
+                        ("prompt2300", row.get("prompt2300")),
+                        ("pair", row.get("pair")), ("add", row.get("add")),
+                        ("gated", row.get("gated"))):
             if at is None:
                 continue
             lib = at["library_ms"]
@@ -1107,9 +1204,105 @@ def time_kernels(dev):
                     ("empty_ms", "nothing visible"),
                     ("one_slot_ms", "one slot visible"),
                     ("one_token_ms", "one token"),
+                    ("fixed_ms", "fixed cost"),
+                    ("staged_ms", "through the staged path"),
+                    ("issue_us", "host issue us"),
+                    ("unfused_issue_us", "unfused host issue us"),
                     ("stream_ms", "streaming its bytes"),
                     ("noncausal_ms", "not causal")) if k in at))
     return rows
+
+
+def issue_us(fn, n: int = 200) -> float:
+    """Host issue cost of one call: the wall time of ``n`` back-to-back
+    calls, with a device sync before and after, over ``n`` (microseconds).
+    At these shapes the device keeps up, so this is the host's time."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def time_norms(dev, rnd, flush, timings) -> dict:
+    """The norm kernel's rows, bf16: the plain norm at 8 x 2560 with its
+    fixed cost (one row) and ``F.rms_norm``; the qk pair at decode (q 8 x
+    32 x 128, k 8 x 8 x 128); the residual add at 8 x 2560; mamba2's gated
+    norm at 8 x 3072 with z a slice of the projection.  Each fused form
+    beside its plain version (the unfused expression: two norms, the add
+    then the norm, the gate then the norm), with the host issue cost of
+    both."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rk
+    bf = torch.bfloat16
+
+    def gain(d):
+        return 0.1 * rnd((d,)).float()
+
+    def nbytes(*ts):
+        return sum(t_.numel() * t_.element_size() for t_ in ts)
+
+    x, sc = rnd((8, 2560)), gain(2560)
+    w = (1.0 + sc).to(bf)
+    bms, by = bound(2 * nbytes(x) + nbytes(sc), 4 * x.numel(),
+                    PEAK_F32_FLOPS)
+    one = rnd((1, 2560))
+    row = dict(shape="8 x 2560 bf16",
+               **timings(lambda: rk.rmsnorm(x, sc, 1e-6),
+                         lambda: rk.rmsnorm_plain(x, sc, 1e-6),
+                         (lambda: F.rms_norm(x, (2560,), weight=w, eps=1e-6))
+                         if hasattr(F, "rms_norm") else None),
+               fixed_ms=device_ms(lambda: rk.rmsnorm(one, sc, 1e-6), flush),
+               issue_us=issue_us(lambda: rk.rmsnorm(x, sc, 1e-6)),
+               bound_ms=bms, bound_by=by)
+
+    q, k = rnd((8, 1, 32, 128)), rnd((8, 1, 8, 128))
+    qs, ks = gain(128), gain(128)
+    bms, by = bound(2 * nbytes(q, k) + nbytes(qs, ks),
+                    4 * (q.numel() + k.numel()), PEAK_F32_FLOPS)
+    row["pair"] = dict(
+        shape="q 8x1x32x128, k 8x1x8x128 bf16",
+        **timings(lambda: rk.rmsnorm_pair(q, k, qs, ks, 1e-6),
+                  lambda: rk.rmsnorm_pair_plain(q, k, qs, ks, 1e-6), None),
+        unfused_ms=device_ms(lambda: (rk.rmsnorm(q, qs, 1e-6),
+                                      rk.rmsnorm(k, ks, 1e-6)), flush),
+        issue_us=issue_us(lambda: rk.rmsnorm_pair(q, k, qs, ks, 1e-6)),
+        unfused_issue_us=issue_us(lambda: (rk.rmsnorm(q, qs, 1e-6),
+                                           rk.rmsnorm(k, ks, 1e-6))),
+        bound_ms=bms, bound_by=by)
+
+    y = rnd((8, 2560))
+    bms, by = bound(4 * nbytes(x) + nbytes(sc), 5 * x.numel(),
+                    PEAK_F32_FLOPS)
+    row["add"] = dict(
+        shape="8 x 2560 bf16",
+        **timings(lambda: rk.add_rmsnorm(x, y, sc, 1e-6),
+                  lambda: rk.add_rmsnorm_plain(x, y, sc, 1e-6), None),
+        unfused_ms=device_ms(lambda: rk.rmsnorm(x + y, sc, 1e-6), flush),
+        issue_us=issue_us(lambda: rk.add_rmsnorm(x, y, sc, 1e-6)),
+        unfused_issue_us=issue_us(lambda: rk.rmsnorm(x + y, sc, 1e-6)),
+        bound_ms=bms, bound_by=by)
+
+    proj = rnd((8, 2 * 3072 + 2 * 128 + 48))
+    z, yg, sg = proj[:, :3072], rnd((8, 3072)), gain(3072)
+    bms, by = bound(3 * nbytes(yg) + nbytes(sg), 10 * yg.numel(),
+                    PEAK_F32_FLOPS)
+    row["gated"] = dict(
+        shape="8 x 3072 bf16, z a slice of the (8, 6448) projection",
+        **timings(lambda: rk.gated_rmsnorm(yg, z, sg, 1e-6),
+                  lambda: rk.gated_rmsnorm_plain(yg, z, sg, 1e-6), None),
+        unfused_ms=device_ms(lambda: rk.rmsnorm(yg * F.silu(z), sg, 1e-6),
+                             flush),
+        issue_us=issue_us(lambda: rk.gated_rmsnorm(yg, z, sg, 1e-6)),
+        unfused_issue_us=issue_us(
+            lambda: rk.rmsnorm(yg * F.silu(z), sg, 1e-6)),
+        bound_ms=bms, bound_by=by)
+    return row
 
 
 def ssd_bytes(args) -> int:
@@ -1491,10 +1684,13 @@ def recurrent_identity(dev, arch: str, layers: int, capacity: int,
         log(line)
 
     # paged replica (no prefix cache) against the ring replica: the first
-    # request alone, the others joining it mid-stream
+    # request alone, the others joining it mid-stream; a prompt past
+    # recurrentgemma's 2048-token window wraps its local rings in paged
+    # mode too
     paged = Replica(f"{arch}-paged", cfg, model, slots=4, capacity=capacity,
                     prefill_chunk_tokens=32, paged=True, page_size=16)
-    short = [p for p in prompts if len(p) <= 700][:3]
+    short = ([p for p in prompts if len(p) <= 700][:3]
+             + [p for p in prompts if len(p) > 2048])
     want = [rep.generate(Request(200 + i, p, new, 1e9)).tolist()
             for i, p in enumerate(short)]
     got = serve_paged(paged, [Request(300 + i, p, new, 1e9)
@@ -1532,11 +1728,13 @@ def _kernel_class(name: str) -> str:
                      ("flash_tc_kernel", "flash_attention"),
                      ("flash_f32_kernel", "flash_attention"),
                      ("combine_splits", "combine"),
-                     ("rmsnorm_kernel", "rmsnorm"), ("ssd_kernel", "ssd"),
+                     ("norm_group_kernel", "rmsnorm"),
+                     ("norm_block_kernel", "rmsnorm"), ("ssd_kernel", "ssd"),
                      ("ssd_chunk_out_kernel", "ssd"),
                      ("ssd_chunk_state_kernel", "ssd"),
                      ("ssd_state_pass_kernel", "ssd"),
-                     ("rglru_kernel", "rglru")):
+                     ("rglru_one_tile_kernel", "rglru"),
+                     ("rglru_staged_kernel", "rglru")):
         if key in name:
             return cls
     low = name.lower()
@@ -1639,14 +1837,16 @@ def expected_launches(cfg, steps: int, chunks: int, wholes: int,
     ``chunks`` prefill chunks and ``wholes`` whole-prompt prefills must
     make, from the layer kinds: an attention layer launches the (paged)
     decode kernel once per step and flash once per prefill, an SSD layer
-    ``ssd`` and an RG-LRU layer ``rglru`` once per prefill, and every norm
-    (pre-norms, MLP norms, qk-norms, Mamba2's gated norm, the final norm)
-    ``rmsnorm`` once per call."""
+    ``ssd`` and an RG-LRU layer ``rglru`` once per prefill, and each call
+    of a norm entry point is one ``rmsnorm`` launch: every layer's
+    pre-norm, every MLP's residual add with its norm (``add_rmsnorm``),
+    every qk-norm pair (``rmsnorm_pair``, q and k in one launch), every
+    Mamba2 gated norm (``gated_rmsnorm``) and the final norm."""
     kinds = cfg.layer_kinds()
     attn = kinds.count("attn")
     prefills = chunks + wholes
     norms = 1 + len(kinds) * (1 + (cfg.d_ff > 0))
-    norms += attn * 2 * cfg.use_qk_norm + kinds.count("ssm")
+    norms += attn * cfg.use_qk_norm + kinds.count("ssm")
     return {"decode_attention": 0 if paged else attn * steps,
             "paged_decode_attention": attn * steps if paged else 0,
             "flash_attention": attn * prefills,
@@ -1934,7 +2134,7 @@ def main(argv=None) -> int:
                              "src/repro/kernels/decode_attention.py:85"),
         "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:75"),
-        "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+        "rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:31"),
         "paged_decode_attention": (
             "cuda", "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -1960,8 +2160,9 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"], "shape": r["shape"]})
         for extra in ("single_pass_ms", "empty_ms", "stream_ms",
                       "library_note", "d256", "prompt512", "prompt1024",
-                      "one_token_ms", "one_slot_ms", "read_flush_ms",
-                      "warm_ms"):
+                      "prompt2300", "one_token_ms", "one_slot_ms",
+                      "read_flush_ms", "warm_ms", "fixed_ms", "issue_us",
+                      "staged_ms", "pair", "add", "gated"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     DETAILS["kernels"] = kernels

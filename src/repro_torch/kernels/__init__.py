@@ -1,2 +1,2 @@
-"""Hopper kernels of the port (CUDA C++ and Triton) and their plain
+"""Hopper kernels of the port (CUDA C++) and their plain
 PyTorch versions; ``ops`` dispatches between them by tensor device."""

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "flash_attention", "paged_decode_attention",
-           "ssd_scan", "rglru_scan")
+           "ssd_scan", "rglru_scan", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -101,6 +101,17 @@ def sm_count(index: int) -> int:
     size their grids by it)."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def current_stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a launcher.
+    PyTorch's own accessor of the raw handle where it has one (it skips
+    building a ``Stream`` object: a few microseconds of every launch)."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def library(name: str, argtypes) -> ctypes.CDLL:

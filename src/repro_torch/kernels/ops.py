@@ -32,6 +32,24 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return fn(x, scale, eps)
 
 
+def rmsnorm_pair(q, k, q_scale, k_scale, eps: float = 1e-6):
+    """(rmsnorm(q, q_scale), rmsnorm(k, k_scale)): the qk-norm, one launch."""
+    fn = _norm.rmsnorm_pair if _route(q) else _norm.rmsnorm_pair_plain
+    return fn(q, k, q_scale, k_scale, eps)
+
+
+def add_rmsnorm(x, y, scale, eps: float = 1e-6):
+    """(x + y, rmsnorm(x + y, scale)): a residual add and the next norm."""
+    fn = _norm.add_rmsnorm if _route(x) else _norm.add_rmsnorm_plain
+    return fn(x, y, scale, eps)
+
+
+def gated_rmsnorm(y, z, scale, eps: float = 1e-6):
+    """rmsnorm(y * silu(z), scale): Mamba2's gated output norm."""
+    fn = _norm.gated_rmsnorm if _route(y) else _norm.gated_rmsnorm_plain
+    return fn(y, z, scale, eps)
+
+
 def flash_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, scale,
                     softcap=0.0, k_cache=None, v_cache=None, cache_pos=None):
     """(B,S,Hq,D) x (B,C,Hkv,D) -> (B,S,Hq,D) under position masks; with

@@ -1,29 +1,47 @@
-"""Fused RMSNorm with the gemma-style ``(1 + scale)`` gain.
+"""RMSNorm with the gemma-style ``(1 + scale)`` gain, and its fused forms.
 
-Kernel: a Triton kernel, replacing the TPU kernel
-``repro/kernels/rmsnorm.py::rmsnorm`` (``_rmsnorm_kernel``), which the JAX
-model never wires in (it normalises in jnp at ``models/layers.py:34/:42``);
-the port runs it at both sites.
+Kernel: ``csrc/rmsnorm.cu`` (CUDA C++ for ``sm_90a``), replacing the TPU
+kernel ``repro/kernels/rmsnorm.py::rmsnorm`` (``_rmsnorm_kernel``), which
+the JAX model never wires in (it normalises in jnp at
+``models/layers.py:34/:42``); the port runs it at every norm site.  One
+kernel body serves four entry points, each one launch:
 
-Bound on the card: bytes, 2 in and 2 out per bf16 element plus the gain.
-One row reduction (f32 mean square) and one elementwise pass: the kernel
-reads each row once into registers and writes it once.  Masked block loads
-coalesce as well as hand-written CUDA would, which is why this one kernel
-is Triton.  One program normalises one row of ``d_model`` (2560 wide, one
-4096-wide block); the headwise qk-norm (D = 128) packs 16 rows into a
-program so each moves a 4 KB tile instead of 256 bytes.
+  rmsnorm(x, scale)            the norm itself (pre-norms, final norm);
+  rmsnorm_pair(q, k, qs, ks)   the qk-norm: both tensors, each with its
+                               own gain, in one launch;
+  add_rmsnorm(x, y, scale)     s = x + y and its norm, both written (the
+                               residual add before every MLP pre-norm);
+  gated_rmsnorm(y, z, scale)   the norm of y * silu(z) (Mamba2's output).
 
-``rmsnorm`` launches the kernel on CUDA tensors; ``rmsnorm_plain`` is the
-same function in plain PyTorch.  ``triton`` is imported inside the
-launching function, so the module imports on machines without it.
+Bound on the card: bytes.  At serving shapes a launch costs its fixed
+overhead, so the fused forms save whole launches (the source's header has
+the design).  Each entry point's ``*_plain`` twin is the plain PyTorch
+expression the model ran before the fusion, which the CPU path runs and
+the kernel is held against.  A wrapper launches on CUDA tensors and raises
+on any other; it reads inputs through a row stride (a slice of a wider
+projection is not copied) and writes contiguous outputs.
 """
+from __future__ import annotations
+
+import ctypes
 import threading
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
 
 launches = 0                 # kernel launches (plain-version calls excluded)
 _count_lock = threading.Lock()
-_kernel = None
+_launcher = None             # rmsnorm_launch, once built and loaded
+
+_NORM, _ADD, _GATED = 0, 1, 2
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# mode, dtype, D, eps; segment 0: a, b, sa, sb, gain, out, sum, rows;
+# segment 1: a, sa, gain, out, rows; stream
+_ARGTYPES = [_I, _I, _I, ctypes.c_float, _P, _P, _L, _L, _P, _P, _P, _I,
+             _P, _L, _P, _P, _I, _P]
 
 
 def _counted() -> None:
@@ -32,66 +50,135 @@ def _counted() -> None:
         launches += 1
 
 
-def _triton_kernel():
-    """Define (once) and return the Triton kernel."""
-    global _kernel
-    if _kernel is None:
-        import triton
-        import triton.language as tl
+def _rows(t: torch.Tensor, d: int):
+    """(tensor, row stride in elements) reading ``t`` as rows of its last
+    axis: ``t`` itself where its leading axes collapse into one stride and
+    its last axis is unit-strided, else a contiguous copy."""
+    if t.is_contiguous():
+        return t, d
+    if t.stride(-1) != 1 and d > 1:
+        return t.contiguous(), d
+    stride = expect = None
+    for size, st in reversed(list(zip(t.shape[:-1], t.stride()[:-1]))):
+        if size == 1:
+            continue
+        if stride is None:
+            stride = st
+        elif st != expect:
+            return t.contiguous(), d
+        expect = st * size
+    return t, d if stride is None else stride
 
-        # the kernel body resolves ``tl`` through the module's globals
-        globals()["tl"] = tl
 
-        @triton.jit(do_not_specialize=["n_rows"])
-        def rmsnorm_kernel(x_ptr, scale_ptr, out_ptr, n_rows, d, eps,
-                           ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-            rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
-            cols = tl.arange(0, BLOCK_D)
-            col_ok = cols < d
-            mask = (rows[:, None] < n_rows) & col_ok[None, :]
-            offs = rows[:, None].to(tl.int64) * d + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            var = tl.sum(x * x, axis=1) / d
-            y = x * tl.rsqrt(var + eps)[:, None]
-            gain = 1.0 + tl.load(scale_ptr + cols, mask=col_ok,
-                                 other=0.0).to(tl.float32)
-            tl.store(out_ptr + offs,
-                     (y * gain[None, :]).to(out_ptr.dtype.element_ty),
-                     mask=mask)
+def _check(name: str, x: torch.Tensor, scale: torch.Tensor, *others):
+    """Device, type and shape checks shared by the four entry points."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name} kernel needs CUDA tensors; use "
+                           f"{name}_plain on the CPU")
+    d = x.shape[-1]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype}")
+    if scale.shape != (d,) or scale.dtype != torch.float32 \
+            or scale.device != x.device:
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} "
+                         f"{scale.dtype} on {scale.device} for x "
+                         f"{tuple(x.shape)} on {x.device}")
+    for t in others:
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} beside {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+    return d
 
-        _kernel = rmsnorm_kernel
-    return _kernel
+
+def _launch(mode, x, eps, a0, sa0, scale0, out0, b0=None, sb0=0, sum0=None,
+            a1=None, sa1=0, scale1=None, out1=None):
+    """One launch.  The host path is kept short: it is a sizeable part of
+    a norm's cost at serving shapes."""
+    global _launcher
+    if _launcher is None:
+        _launcher = build.library("rmsnorm", _ARGTYPES).rmsnorm_launch
+    d = x.shape[-1]
+    rows0 = out0.numel() // d
+    rows1 = 0 if out1 is None else out1.numel() // d
+    dev = x.device
+    args = (mode, _DTYPES[x.dtype], d, eps, a0.data_ptr(),
+            None if b0 is None else b0.data_ptr(), sa0, sb0,
+            scale0.data_ptr(), out0.data_ptr(),
+            None if sum0 is None else sum0.data_ptr(), rows0,
+            None if a1 is None else a1.data_ptr(), sa1,
+            None if scale1 is None else scale1.data_ptr(),
+            None if out1 is None else out1.data_ptr(), rows1,
+            build.current_stream(dev))
+    if dev.index == torch.cuda.current_device():
+        err = _launcher(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _launcher(*args)
+    if err:
+        raise RuntimeError(f"rmsnorm launch failed: CUDA error {err} "
+                           f"(D {d})")
+    _counted()
+
+
+def _empty(x):
+    """An uninitialised contiguous tensor of x's shape and dtype."""
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
-    """Launch the Triton kernel.  x: (..., D) contiguous; scale: (D,).
-    Returns x's shape and dtype.  CUDA tensors only."""
-    if x.device.type != "cuda":
-        raise RuntimeError("rmsnorm kernel needs CUDA tensors; use "
-                           "rmsnorm_plain on the CPU")
-    d = x.shape[-1]
-    if scale.shape != (d,) or scale.device != x.device:
-        raise ValueError(f"rmsnorm: scale {tuple(scale.shape)} on "
-                         f"{scale.device} for x {tuple(x.shape)} on {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"rmsnorm: dtype {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("rmsnorm: x must be contiguous")
-    import triton
-    rows = x.numel() // d
-    out = torch.empty_like(x)
-    block_d = triton.next_power_of_2(d)
-    per_prog = max(1, min(16, 2048 // block_d))
-    grid = (triton.cdiv(rows, per_prog),)
-    with torch.cuda.device(x.device):
-        _triton_kernel()[grid](x, scale, out, rows, d, eps, ROWS=per_prog,
-                               BLOCK_D=block_d,
-                               num_warps=8 if block_d >= 2048 else 4)
-    _counted()
+    """Launch the kernel.  x: (..., D); scale: (D,) float32.  Returns x's
+    shape and dtype, contiguous.  CUDA tensors only."""
+    d = _check("rmsnorm", x, scale)
+    a, sa = _rows(x, d)
+    out = _empty(x)
+    _launch(_NORM, x, eps, a, sa, scale, out)
     return out
 
 
+def rmsnorm_pair(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
+                 k_scale: torch.Tensor, eps: float = 1e-6):
+    """``(rmsnorm(q, q_scale), rmsnorm(k, k_scale))`` in one launch.  q and
+    k: (..., D) of one dtype and width, any leading shapes."""
+    d = _check("rmsnorm_pair", q, q_scale)
+    _check("rmsnorm_pair", k, k_scale)
+    if k.shape[-1] != d or k.dtype != q.dtype:
+        raise ValueError(f"rmsnorm_pair: q {tuple(q.shape)} {q.dtype}, k "
+                         f"{tuple(k.shape)} {k.dtype}")
+    a0, sa0 = _rows(q, d)
+    a1, sa1 = _rows(k, d)
+    q_out, k_out = _empty(q), _empty(k)
+    _launch(_NORM, q, eps, a0, sa0, q_scale, q_out, a1=a1, sa1=sa1,
+            scale1=k_scale, out1=k_out)
+    return q_out, k_out
+
+
+def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6):
+    """``s = x + y`` (rounded to x's dtype) and ``rmsnorm(s, scale)``, both
+    written by one launch.  x, y: (..., D), one shape and dtype."""
+    d = _check("add_rmsnorm", x, scale, y)
+    a, sa = _rows(x, d)
+    b, sb = _rows(y, d)
+    s, out = _empty(x), _empty(x)
+    _launch(_ADD, x, eps, a, sa, scale, out, b0=b, sb0=sb, sum0=s)
+    return s, out
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm(y * silu(z), scale)`` in one launch, rounded as PyTorch
+    rounds the expression.  y, z: (..., D), one shape and dtype."""
+    d = _check("gated_rmsnorm", y, scale, z)
+    a, sa = _rows(y, d)
+    b, sb = _rows(z, d)
+    out = _empty(y)
+    _launch(_GATED, y, eps, a, sa, scale, out, b0=b, sb0=sb)
+    return out
+
+
+# ------------------------------------------------------- plain versions
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
                   ) -> torch.Tensor:
     """The same function in plain PyTorch (the CPU path and the oracle)."""
@@ -99,3 +186,16 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rmsnorm_pair_plain(q, k, q_scale, k_scale, eps: float = 1e-6):
+    return rmsnorm_plain(q, q_scale, eps), rmsnorm_plain(k, k_scale, eps)
+
+
+def add_rmsnorm_plain(x, y, scale, eps: float = 1e-6):
+    s = x + y
+    return s, rmsnorm_plain(s, scale, eps)
+
+
+def gated_rmsnorm_plain(y, z, scale, eps: float = 1e-6):
+    return rmsnorm_plain(y * F.silu(z), scale, eps)

@@ -10,7 +10,7 @@ import torch
 from repro_torch.common.config import GLOBAL, LOCAL, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.layers import rmsnorm_headwise
+from repro_torch.models.layers import qk_norm
 
 
 def _window_for(cfg: ModelConfig, attn_kind: str) -> int:
@@ -62,8 +62,7 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, attn_kind: str,
     ``positions`` ((S,) or (B, S))."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.use_qk_norm:
-        q = rmsnorm_headwise(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm_headwise(p["k_norm"], k, cfg.norm_eps)
+        q, k = qk_norm(p["q_norm"], p["k_norm"], q, k, cfg.norm_eps)
     theta = _rope_theta_for(cfg, attn_kind)
     cos, sin = shared(memo, ("rope", theta), lambda: rope_lib.rope_freqs(
         cfg.resolved_head_dim, theta, positions))

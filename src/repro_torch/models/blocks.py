@@ -38,7 +38,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import mlp, rmsnorm
+from repro_torch.models.layers import add_rmsnorm, mlp, rmsnorm
 
 _LATER = {CROSS: "ROADMAP.md section 2 item 3 (cross-attention)"}
 
@@ -110,12 +110,14 @@ class Block(nn.Module):
             self.mlp = nn.ParameterDict(m)
 
 
-def _channel_mix(p: Block, x, cfg: ModelConfig):
-    """Pre-norm dense MLP with residual; the aux (MoE balance) loss of a
-    dense layer is 0.0."""
+def _channel_mix(p: Block, x, y, cfg: ModelConfig):
+    """The mixer's residual ``x + y``, then the pre-norm dense MLP with its
+    residual.  The add and the norm are one launch on the card
+    (``add_rmsnorm``).  The aux (MoE balance) loss of a dense layer is
+    0.0."""
     if p.mlp is None:
-        return x, 0.0
-    h = rmsnorm(p.norm2, x, cfg.norm_eps)
+        return x + y, 0.0
+    x, h = add_rmsnorm(p.norm2, x, y, cfg.norm_eps)
     return x + mlp(p.mlp, h, cfg.mlp_kind), 0.0
 
 
@@ -124,15 +126,15 @@ def apply_block(p: Block, x, cfg: ModelConfig, kind: str, attn_kind: str, *,
                 positions=None, memo=None):
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     if kind == ATTN:
-        x = x + attn_lib.self_attention(p.attn, h, cfg, attn_kind, positions,
-                                        memo=memo)
+        y = attn_lib.self_attention(p.attn, h, cfg, attn_kind, positions,
+                                    memo=memo)
     elif kind == SSM:
-        x = x + ssm_lib.ssm_mixer(p.ssm, h, cfg)
+        y = ssm_lib.ssm_mixer(p.ssm, h, cfg)
     elif kind == RGLRU:
-        x = x + rglru_lib.rglru_block(p.rec, h, cfg)
+        y = rglru_lib.rglru_block(p.rec, h, cfg)
     else:
         raise _not_ported(kind)
-    return _channel_mix(p, x, cfg)
+    return _channel_mix(p, x, y, cfg)
 
 
 # --------------------------------------------------------------------- caches
@@ -214,8 +216,7 @@ def apply_block_decode(p: Block, x, cache, cfg: ModelConfig, kind: str,
     else:
         out = ops.paged_decode_attention(q, cache["k"], cache["v"],
                                          cache["pos"], block_tables, **kw)
-    x = x + attn_lib._out_proj(out, p.attn["wo"])
-    x, aux = _channel_mix(p, x, cfg)
+    x, aux = _channel_mix(p, x, attn_lib._out_proj(out, p.attn["wo"]), cfg)
     return x, cache, aux
 
 
@@ -239,7 +240,7 @@ def _recurrent(p: Block, x, cfg: ModelConfig, kind: str, stage: str, **kw):
     field, mixers = _RECURRENT[kind]
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     y, cache = mixers[stage](getattr(p, field), h, cfg=cfg, **kw)
-    x, aux = _channel_mix(p, x + y, cfg)
+    x, aux = _channel_mix(p, x, y, cfg)
     return x, cache, aux
 
 
@@ -267,7 +268,6 @@ def apply_block_prefill(p: Block, x, cfg: ModelConfig, kind: str,
     b, s, _ = x.shape
     y, (k, v) = attn_lib.self_attention(p.attn, h, cfg, attn_kind, positions,
                                         return_kv=True, memo=memo)
-    x = x + y
     cache = init_block_cache(cfg, kind, attn_kind, b, capacity, x.device)
     n = cache["k"].shape[1]
     take = min(s, n)
@@ -276,7 +276,7 @@ def apply_block_prefill(p: Block, x, cfg: ModelConfig, kind: str,
     cache["k"][:, slots] = k[:, s - take:].to(cache["k"].dtype)
     cache["v"][:, slots] = v[:, s - take:].to(cache["v"].dtype)
     cache["pos"][:, slots] = src
-    x, aux = _channel_mix(p, x, cfg)
+    x, aux = _channel_mix(p, x, y, cfg)
     return x, cache, aux
 
 
@@ -318,6 +318,5 @@ def apply_block_prefill_chunk(p: Block, x, cache, cfg: ModelConfig, kind: str,
     cache["k"][:, slots] = k[:, c - take:]
     cache["v"][:, slots] = v[:, c - take:]
     cache["pos"][:, slots] = src
-    x = x + attn_lib._out_proj(out, p.attn["wo"])
-    x, aux = _channel_mix(p, x, cfg)
+    x, aux = _channel_mix(p, x, attn_lib._out_proj(out, p.attn["wo"]), cfg)
     return x, cache, aux

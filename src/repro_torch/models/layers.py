@@ -1,8 +1,9 @@
 """Core layers: initializers, norms, MLPs, embeddings.
 
 Plain functions over tensors; the parameters live in the ``nn.Module``s of
-``repro_torch.models.model``.  Both norms go through ``ops.rmsnorm``, the
-Triton kernel on the card and its plain version on the CPU.
+``repro_torch.models.model``.  The norms go through ``ops``: the CUDA
+norm kernel on the card (alone, or fused with the qk pair, the residual
+add or Mamba2's gate) and its plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -38,9 +39,17 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     return ops.rmsnorm(x.contiguous(), scale, eps)
 
 
-def rmsnorm_headwise(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
-    """qk-norm: normalise the trailing head_dim of (..., H, D) tensors."""
-    return ops.rmsnorm(x.contiguous(), scale, eps)
+def qk_norm(q_scale: torch.Tensor, k_scale: torch.Tensor, q: torch.Tensor,
+            k: torch.Tensor, eps: float = 1e-6):
+    """qk-norm: normalise the trailing head_dim of (..., H, D) q and k, each
+    with its own gain, in one launch on the card."""
+    return ops.rmsnorm_pair(q, k, q_scale, k_scale, eps)
+
+
+def add_rmsnorm(scale: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                eps: float = 1e-6):
+    """A residual add and the norm after it: (x + y, rmsnorm(x + y))."""
+    return ops.add_rmsnorm(x, y, scale, eps)
 
 
 # ----------------------------------------------------------------------- mlps

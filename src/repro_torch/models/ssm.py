@@ -24,7 +24,6 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rmsnorm
 
 # leaves the reference reads in float32 (stored in float32 here too)
 F32_LEAVES = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "norm")
@@ -79,8 +78,9 @@ def _scan_inputs(xbc, cfg: ModelConfig):
 
 
 def _gated_out(p, y, z, cfg: ModelConfig):
-    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"]
+    """The gated norm ``rmsnorm(y * silu(z))`` (one launch on the card; z is
+    read in place from the projection) and the out-projection."""
+    return ops.gated_rmsnorm(y, z, p["norm"], cfg.norm_eps) @ p["out_proj"]
 
 
 def ssm_mixer(p, x, cfg: ModelConfig, return_state: bool = False):

@@ -57,7 +57,7 @@ struct Stages {
 };
 
 struct Ctx {
-  int S, D, segs, seg, lane, ch;
+  int S, D, seg, lane, ch;
   size_t row0;  // element offset of (b, t = 0, ch)
 };
 
@@ -125,8 +125,7 @@ rglru_one_tile_kernel(const T* __restrict__ x, const T* __restrict__ log_a,
   __shared__ float2 s_seg[kOneSegs][kGroup];
   const int groups = (D + kGroup - 1) / kGroup;
   Ctx k;
-  k.S = S, k.D = D, k.segs = blockDim.x / 32;
-  k.seg = threadIdx.x / 32, k.lane = threadIdx.x % 32;
+  k.S = S, k.D = D, k.seg = threadIdx.x / 32, k.lane = threadIdx.x % 32;
   k.ch = blockIdx.x % groups * kGroup + k.lane;
   k.row0 = (size_t)(blockIdx.x / groups) * S * D + k.ch;
   const int t_lo = k.seg * per;
@@ -212,8 +211,7 @@ rglru_staged_kernel(const T* __restrict__ x, const T* __restrict__ log_a,
   const int groups = (D + kGroup - 1) / kGroup;
   const int g = blockIdx.x % groups, b = blockIdx.x / groups;
   Ctx k;
-  k.S = S, k.D = D, k.segs = kSegs;
-  k.seg = threadIdx.x / 32, k.lane = threadIdx.x % 32;
+  k.S = S, k.D = D, k.seg = threadIdx.x / 32, k.lane = threadIdx.x % 32;
   k.ch = g * kGroup + k.lane;
   k.row0 = (size_t)b * S * D + k.ch;
   const int tiles = (S + kRows - 1) / kRows;

@@ -10,7 +10,6 @@ import torch
 from repro_torch.common.config import GLOBAL, LOCAL, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.layers import qk_norm
 
 
 def _window_for(cfg: ModelConfig, attn_kind: str) -> int:
@@ -62,7 +61,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, attn_kind: str,
     ``positions`` ((S,) or (B, S))."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.use_qk_norm:
-        q, k = qk_norm(p["q_norm"], p["k_norm"], q, k, cfg.norm_eps)
+        # qk-norm: q's and k's trailing head_dim, each with its own gain,
+        # in one launch on the card
+        q, k = ops.rmsnorm_pair(q, k, p["q_norm"], p["k_norm"], cfg.norm_eps)
     theta = _rope_theta_for(cfg, attn_kind)
     cos, sin = shared(memo, ("rope", theta), lambda: rope_lib.rope_freqs(
         cfg.resolved_head_dim, theta, positions))

@@ -38,7 +38,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import add_rmsnorm, mlp, rmsnorm
+from repro_torch.models.layers import mlp, rmsnorm
 
 _LATER = {CROSS: "ROADMAP.md section 2 item 3 (cross-attention)"}
 
@@ -117,7 +117,7 @@ def _channel_mix(p: Block, x, y, cfg: ModelConfig):
     0.0."""
     if p.mlp is None:
         return x + y, 0.0
-    x, h = add_rmsnorm(p.norm2, x, y, cfg.norm_eps)
+    x, h = ops.add_rmsnorm(x, y, p.norm2, cfg.norm_eps)
     return x + mlp(p.mlp, h, cfg.mlp_kind), 0.0
 
 

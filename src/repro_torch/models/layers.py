@@ -1,9 +1,10 @@
 """Core layers: initializers, norms, MLPs, embeddings.
 
 Plain functions over tensors; the parameters live in the ``nn.Module``s of
-``repro_torch.models.model``.  The norms go through ``ops``: the CUDA
-norm kernel on the card (alone, or fused with the qk pair, the residual
-add or Mamba2's gate) and its plain versions on the CPU.
+``repro_torch.models.model``.  ``rmsnorm`` goes through ``ops.rmsnorm``:
+the CUDA norm kernel on the card, its plain version on the CPU (the norm's
+fused forms are called where they apply: the qk pair in ``attention``,
+the residual add in ``blocks``, the gate in ``ssm``).
 """
 from __future__ import annotations
 
@@ -37,19 +38,6 @@ def embed_init_(t: torch.Tensor, gen: torch.Generator):
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     """Gemma-style ``(1 + scale)`` RMSNorm over the last axis."""
     return ops.rmsnorm(x.contiguous(), scale, eps)
-
-
-def qk_norm(q_scale: torch.Tensor, k_scale: torch.Tensor, q: torch.Tensor,
-            k: torch.Tensor, eps: float = 1e-6):
-    """qk-norm: normalise the trailing head_dim of (..., H, D) q and k, each
-    with its own gain, in one launch on the card."""
-    return ops.rmsnorm_pair(q, k, q_scale, k_scale, eps)
-
-
-def add_rmsnorm(scale: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                eps: float = 1e-6):
-    """A residual add and the norm after it: (x + y, rmsnorm(x + y))."""
-    return ops.add_rmsnorm(x, y, scale, eps)
 
 
 # ----------------------------------------------------------------------- mlps

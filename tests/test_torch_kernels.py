@@ -3,7 +3,7 @@ Pallas kernels (``interpret=True``), on the CPU, with the same inputs drawn
 from numpy seeds; plus device dispatch, the launch counters, the package's
 import hygiene and the sampler's Philox stream.
 
-The CUDA/Triton kernels themselves run only on the card: ``chip_smoke.py``
+The CUDA kernels themselves run only on the card: ``chip_smoke.py``
 holds each against the plain version tested here.
 
 Tolerances: f32 cases compare the same f32 math summed in another order,

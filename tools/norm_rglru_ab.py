@@ -73,14 +73,24 @@ def time_tree(tree: str) -> dict:
     proj = rnd((8, 2 * 3072 + 2 * 128 + 48))
     z, yg, sg = proj[:, :3072], rnd((8, 3072)), 0.1 * rnd((3072,)).float()
     if out["fused"]:
-        pair = lambda: rk.rmsnorm_pair(q, k, qs, ks, 1e-6)  # noqa: E731
-        add = lambda: rk.add_rmsnorm(x, y, sc, 1e-6)  # noqa: E731
-        gated = lambda: rk.gated_rmsnorm(yg, z, sg, 1e-6)  # noqa: E731
-    else:
-        pair = lambda: (rk.rmsnorm(q, qs, 1e-6),  # noqa: E731
-                        rk.rmsnorm(k, ks, 1e-6))
-        add = lambda: (x + y, rk.rmsnorm(x + y, sc, 1e-6))  # noqa: E731
-        gated = lambda: rk.rmsnorm(yg * F.silu(z), sg, 1e-6)  # noqa: E731
+        def pair():
+            return rk.rmsnorm_pair(q, k, qs, ks, 1e-6)
+
+        def add():
+            return rk.add_rmsnorm(x, y, sc, 1e-6)
+
+        def gated():
+            return rk.gated_rmsnorm(yg, z, sg, 1e-6)
+    else:  # the expressions the fused forms replace
+        def pair():
+            return rk.rmsnorm(q, qs, 1e-6), rk.rmsnorm(k, ks, 1e-6)
+
+        def add():
+            s = x + y
+            return s, rk.rmsnorm(s, sc, 1e-6)
+
+        def gated():
+            return rk.rmsnorm(yg * F.silu(z), sg, 1e-6)
     out["qk pair q8x32x128 k8x8x128"] = row(pair)
     out["add + norm 8x2560"] = row(add)
     out["gated norm 8x3072"] = row(gated)

@@ -22,7 +22,10 @@
 //     steps): the inputs go straight from global memory to registers, every
 //     load of a lane issued before the first use, and each warp folds the
 //     (at most 15) pairs before its own.  One launch, one pass, 128 blocks at
-//     D 4096.
+//     D 4096: 128 of the 132 SMs.  More blocks would have to cut the 32 steps
+//     between blocks, which needs a carry from block to block (a look-back
+//     and its zeroed workspace, or a second launch) on a launch that its
+//     fixed cost already holds; the channels are already one a lane.
 //   * Several tiles (whole prompts): tiles of 32 segments of 8 steps (256
 //     steps) pass through a ring of shared-memory stages, filled by 16-byte
 //     cp.async copies two tiles (f32: one) ahead of the tile being scanned.

@@ -8,9 +8,9 @@ runs the timings of OTHER_TREE (e.g. an earlier commit unpacked with
 checkout in turns, other, this, this, other, each in a process of its own
 that imports that tree's ``repro_torch`` (building its kernels into that
 tree's ``build/kernels``), and prints one line per row with the two trees'
-means and their ratio; ``--out`` (default
-``chiprun_out/norm_rglru_ab.json``) gets every number.  With ``--tree
-DIR`` it times one tree and prints its JSON.
+means and their ratio; ``--out`` (default ``build/norm_rglru_ab.json``)
+gets every number.  With ``--tree DIR`` it times one tree and prints its
+JSON.
 
 Rows, bf16, the L2 flushed before each launch as ``chip_smoke.py`` flushes
 it: the norm at 8 x 2560 and at one row (its fixed cost); each fused call
@@ -135,7 +135,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", help="time this tree alone; print its JSON")
     ap.add_argument("--compare", help="the other tree, timed in turns with "
                     "this checkout")
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
+    ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "norm_rglru_ab.json"))
     args = ap.parse_args(argv)
     if args.tree:

@@ -70,7 +70,23 @@ success):
 7. serve recurrentgemma-9b at full config (38 layers, bf16, capacity
    4096, one prompt of 2300 tokens) as in phase 4: 26 ``rglru`` and 12
    ``flash_attention`` launches per chunk, 12 ``decode_attention`` per
-   decode step.
+   decode step;
+8. chaos: minicpm-2b at full config (40 layers, d_model 2304, 36 heads of
+   64 over 36 KV heads, vocab 122753, bf16), two DDS replicas over one set
+   of weights (8 lanes, capacity 2048), fresh for each fault, which lands
+   on ``replica0`` once it decodes (heartbeat 20 ms, staleness alarm
+   100 ms, progress timeout 1000 ms): a crash under phase 4's 12 requests
+   (all ``ok``, none lost, replica0 the only one evicted, greedy streams
+   equal to ``generate_sequential`` on the survivor, the sampled stream
+   equal to its undisturbed run); a hang, evicted by the progress
+   watchdog while its heartbeats go on, then healed and stopped without
+   a leak; slow(4x), after which the victim's one-lane step estimate has
+   grown at least 2.5x and DDS places the next requests on the other
+   replica; a partition, evicted by staleness while its decode loop runs
+   on, then healed and rejoined.  The launches of the four scenarios
+   equal what the engine counters of every replica imply, the crashed and
+   hung ones included; it prints each fault-to-eviction time, the
+   failovers and the survivor's tokens/s.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary, the card
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -2077,6 +2093,346 @@ def paged_serve_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+# the fleet's fault timings in phase 8 (as the port's fault tests use them):
+# a 20 ms heartbeat, staleness after 5 of them, and a progress watchdog
+# well above a step or a chunk (tens of ms; 4x that under slow(4))
+CHAOS_HEARTBEAT_MS = 20.0
+CHAOS_STALENESS = 5.0
+CHAOS_PROGRESS_MS = 1000.0
+
+
+def wait_until(cond, what: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def decoding(rep) -> bool:
+    return any(j is not None for j in rep._lanes)
+
+
+def chaos_phase(dev):
+    """Phase 8: fault injection on the card.  minicpm-2b at its full config
+    in bf16 (head_dim 64, 36 heads over 36 KV heads), fleets of two DDS
+    replicas over one set of weights, 8 lanes, capacity 2048, a 32-token
+    chunk ceiling, built afresh for each scenario (a crash is permanent):
+    crash, hang, slow(4x) and partition-then-heal against ``replica0``,
+    each applied once the victim decodes.  Returns the kernels' launches
+    summed over the scenarios' traffic, which must equal
+    ``expected_launches`` from the engine counters of every replica, the
+    crashed and the hung ones included."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency import NodeState, Task, predict_total_ms
+    from repro_torch.core.policies import make_policy
+    from repro_torch.ft import faults
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import (Replica, Request, ServingFleet,
+                                            profile_replica)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    cfg = get_config("minicpm-2b")
+    params = M.init_model(cfg, SEED, dev)
+    log(f"  fleet timings: heartbeat {CHAOS_HEARTBEAT_MS:.0f} ms, staleness "
+        f"alarm {CHAOS_HEARTBEAT_MS * CHAOS_STALENESS:.0f} ms, progress "
+        f"timeout {CHAOS_PROGRESS_MS:.0f} ms")
+    rng = np.random.default_rng(SEED + 8)
+
+    def prompt(n):
+        return rng.integers(2, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+
+    def replica(name):
+        return Replica(name, cfg, params, slots=8, capacity=2048,
+                       prefill_chunk_tokens=32)
+
+    def fleet_of(reps):
+        """A DDS fleet (source replica0, coordinator replica1) that records
+        each eviction: its reason, when, and the victim's decode steps."""
+        fleet = ServingFleet(make_policy("DDS"), source="replica0",
+                             coordinator="replica1",
+                             heartbeat_ms=CHAOS_HEARTBEAT_MS,
+                             staleness_factor=CHAOS_STALENESS,
+                             progress_timeout_ms=CHAOS_PROGRESS_MS,
+                             admission_margin=0.0)
+        deaths = []
+        declare = fleet.monitor.on_dead
+
+        def on_dead(name, reason):
+            rep = fleet.replicas.get(name)
+            deaths.append(dict(name=name, reason=reason,
+                               at=time.perf_counter(),
+                               decode_steps=(rep.decode_steps
+                                             if rep is not None else -1)))
+            declare(name, reason)
+
+        fleet.monitor.on_dead = on_dead
+        for r in reps:
+            fleet.add_replica(r)
+        return fleet, deaths
+
+    launches_sum, engine_sum = {}, dict(steps=0, chunks=0, wholes=0)
+    stats = {}
+
+    def counted(key, reps, drive):
+        """Run ``drive`` (which leaves every decode thread stopped) with the
+        launch counts set to 0 just before, and hold them against the
+        engine counters of all of ``reps`` just after."""
+        before = [(r.decode_steps, r.prefill_chunks, r.whole_prefills)
+                  for r in reps]
+        ops.reset_kernel_launches()
+        out = drive()
+        if any(r._thread.is_alive() for r in reps):
+            raise AssertionError(f"chaos {key}: a decode thread outlived "
+                                 "the scenario")
+        launches = ops.kernel_launches()
+        steps, chunks, wholes = (sum(getattr(r, k) - b[i]
+                                     for r, b in zip(reps, before))
+                                 for i, k in enumerate(("decode_steps",
+                                                        "prefill_chunks",
+                                                        "whole_prefills")))
+        expect = expected_launches(cfg, steps, chunks, wholes)
+        log(f"  {key}: launches {launches}; expected {expect} from {steps} "
+            f"decode steps, {chunks} chunks, {wholes} whole prefills over "
+            + ", ".join(r.name for r in reps))
+        if launches != expect or steps == 0 or chunks == 0:
+            raise AssertionError(f"chaos {key}: launches {launches}, "
+                                 f"expected {expect}")
+        for k, v in launches.items():
+            launches_sum[k] = launches_sum.get(k, 0) + v
+        for k, v in zip(("steps", "chunks", "wholes"), (steps, chunks, wholes)):
+            engine_sum[k] += v
+        return out
+
+    def evicted(fleet, deaths, t_fault, cause):
+        if fleet.dead != ["replica0"] or not deaths or cause not in \
+                deaths[0]["reason"]:
+            raise AssertionError(f"expected replica0 evicted by {cause}: "
+                                 f"dead {fleet.dead}, {deaths}")
+        return (deaths[0]["at"] - t_fault) * 1e3
+
+    def pair():
+        gc.collect()            # the last scenario's replicas and caches
+        t0 = time.perf_counter()
+        reps = [replica("replica0"), replica("replica1")]
+        fleet, deaths = fleet_of(reps)
+        return reps, fleet, deaths, time.perf_counter() - t0
+
+    # ---- crash: phase 4's prompt mix, one request sampled
+    reps, fleet, deaths, build_s = pair()
+    lens = np.random.default_rng(SEED + 3).integers(64, 1025, size=12)
+    reqs = [Request(i, prompt(n), 32, 600_000.0) for i, n in enumerate(lens)]
+    reqs[5].temperature, reqs[5].top_p, reqs[5].seed = 0.8, 0.95, 1234
+    # the sampled request served with no fault, on the survivor-to-be
+    calm = reps[1].generate(dataclasses.replace(reqs[5], request_id=105))
+    inj = faults.inject(fleet, "replica0")
+
+    def drive_crash():
+        with ThreadPoolExecutor(len(reqs)) as ex:
+            futs = [ex.submit(fleet.submit, r) for r in reqs]
+            wait_until(lambda: decoding(reps[0]), "replica0 to decode")
+            t_fault = time.perf_counter()
+            inj.apply("crash")
+            res = [f.result() for f in futs]
+        t_end = time.perf_counter()
+        inj.stop()
+        fleet.stop()
+        reps[0].stop()          # its decode thread died at the gate
+        return res, t_fault, t_end
+
+    res, t_fault, t_end = counted("crash", reps, drive_crash)
+    bad = [(i, r.outcome, r.error) for i, r in enumerate(res) if not r.ok]
+    moved = sum(1 for r in res if r.failed_over or r.attempts > 1)
+    if bad or fleet.lost != 0 or moved == 0:
+        raise AssertionError(f"crash: not ok {bad}, lost {fleet.lost}, "
+                             f"failed over {moved}")
+    evict_ms = evicted(fleet, deaths, t_fault, "staleness")
+    for i, (q, r) in enumerate(zip(reqs, res)):
+        want = (calm if i == 5 else reps[1].generate_sequential(q)).tolist()
+        if r.tokens.tolist() != want:
+            raise AssertionError(
+                f"crash request {i} ({len(q.prompt)} tokens, on "
+                f"{r.replica}): {r.tokens.tolist()} != "
+                f"{'undisturbed' if i == 5 else 'generate_sequential'} "
+                f"{want}")
+    DETAILS["chaos_step_profile"] = step_profile(reps[1], cfg, dev)
+    gen = sum(len(r.tokens) for r in res if r.replica == "replica1")
+    stats["crash"] = dict(
+        requests=len(res), ok=sum(r.ok for r in res), lost=fleet.lost,
+        failed_over=moved, fleet_failovers=fleet.failovers, dead=fleet.dead,
+        reason=deaths[0]["reason"], fault_to_eviction_ms=evict_ms,
+        placements=dict(fleet.stats), survivor_tokens=gen,
+        survivor_tokens_per_s=gen / (t_end - t_fault),
+        wall_s=t_end - t_fault, build_s=build_s)
+    log(f"  crash: {stats['crash']['ok']}/{len(res)} ok, lost 0, "
+        f"{moved} failed over, placements {stats['crash']['placements']}; "
+        f"fault to eviction {evict_ms:.0f} ms ({deaths[0]['reason']}); the "
+        f"survivor served {gen} tokens in {t_end - t_fault:.2f} s = "
+        f"{gen / (t_end - t_fault):.1f} tok/s; greedy streams equal "
+        f"generate_sequential, the sampled one its undisturbed stream")
+    del reps, fleet, inj
+
+    # ---- hang: the progress watchdog, with the heartbeats going on
+    reps, fleet, deaths, build_s = pair()
+    reqs = [Request(20 + i, prompt(n), 32, 600_000.0)
+            for i, n in enumerate((96, 160, 224))]
+    inj = faults.inject(fleet, "replica0")
+
+    def drive_hang():
+        with ThreadPoolExecutor(len(reqs)) as ex:
+            futs = [ex.submit(fleet.submit, r) for r in reqs]
+            wait_until(lambda: decoding(reps[0]), "replica0 to decode")
+            t_fault = time.perf_counter()
+            inj.apply("hang")
+            res = [f.result() for f in futs]
+        inj.apply("heal")
+        inj.stop()
+        clean = reps[0].stop()  # raises ReplicaLeak if still hung
+        fleet.stop()
+        return res, t_fault, clean
+
+    res, t_fault, clean = counted("hang", reps, drive_hang)
+    evict_ms = evicted(fleet, deaths, t_fault, "progress stalled")
+    failed = sum(1 for r in res if not r.ok)
+    if fleet.lost != failed or not clean or any(
+            r.ok and r.replica != "replica1" for r in res):
+        raise AssertionError(f"hang: lost {fleet.lost}, failed {failed}, "
+                             f"clean stop {clean}, "
+                             f"{[(r.replica, r.outcome) for r in res]}")
+    stats["hang"] = dict(requests=len(res), ok=len(res) - failed,
+                         lost=fleet.lost, dead=fleet.dead,
+                         reason=deaths[0]["reason"],
+                         fault_to_eviction_ms=evict_ms,
+                         failed_over=sum(1 for r in res if r.attempts > 1),
+                         placements=dict(fleet.stats), build_s=build_s)
+    log(f"  hang: evicted by the watchdog {evict_ms:.0f} ms after the fault "
+        f"({deaths[0]['reason']}); {len(res) - failed}/{len(res)} ok on "
+        f"replica1, {fleet.lost} lost; healed, stopped without a leak")
+    del reps, fleet, inj
+
+    # ---- slow(4x): the Update-Profile loop moves placements off the victim
+    reps, fleet, deaths, build_s = pair()
+    inj = faults.inject(fleet, "replica0")
+    prof = reps[0].profile
+    probe = prompt(64)
+    # a deadline twice what the idle, healthy victim is predicted to take:
+    # DDS keeps such a request on its source until the step estimate grows
+    task = Task(task_id=0, app_id="serve", size_kb=64.0, created_ms=0.0,
+                constraint_ms=1e9, source="replica0")
+    deadline = 2.0 * predict_total_ms(fleet.profiles["replica0"], task,
+                                      NodeState(), remote=False)
+
+    def short(i):
+        return Request(i, probe, 16, deadline)
+
+    def drive_slow():
+        before = fleet.submit(short(30))
+        est0 = prof.step_curve(1.0)
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(fleet.submit, Request(31, prompt(64), 32,
+                                                  600_000.0))
+            wait_until(lambda: decoding(reps[0]), "replica0 to decode")
+            steps0 = reps[0].decode_steps
+            inj.apply("slow", factor=4.0)
+            slowed = fut.result()
+        est1 = prof.step_curve(1.0)
+        after = [fleet.submit(short(32 + i)) for i in range(2)]
+        inj.apply("heal")
+        inj.stop()
+        fleet.stop()
+        return [before, slowed] + after, est0, est1, \
+            reps[0].decode_steps - steps0
+
+    res, est0, est1, n_slow = counted("slow", reps, drive_slow)
+    places = [r.replica for r in res]
+    if (not all(r.ok for r in res) or est1 < 2.5 * est0 or n_slow < 8
+            or places != ["replica0", "replica0", "replica1", "replica1"]):
+        raise AssertionError(f"slow: step estimate {est0:.2f} -> {est1:.2f} "
+                             f"ms over {n_slow} steps, placements {places}, "
+                             f"{[r.outcome for r in res]}")
+    stats["slow"] = dict(step_estimate_ms=[est0, est1], ratio=est1 / est0,
+                         slowed_steps=n_slow, deadline_ms=deadline,
+                         placements=places, dead=fleet.dead,
+                         build_s=build_s)
+    log(f"  slow(4x): replica0's step estimate at one lane {est0:.2f} -> "
+        f"{est1:.2f} ms ({est1 / est0:.2f}x) over {n_slow} slowed steps; "
+        f"with a {deadline:.0f} ms deadline the request before the fault "
+        f"went to {places[0]}, the two after it to {places[2]} and "
+        f"{places[3]}")
+    del reps, fleet, inj, prof
+
+    # ---- partition, then heal: staleness evicts, the healed node rejoins
+    reps, fleet, deaths, build_s = pair()
+    # the healed node comes back as a fresh process (the fleet stopped the
+    # evicted one), built and profiled before the counted traffic
+    rejoin = replica("replica0")
+    rejoin_prof = profile_replica(rejoin)
+    inj = faults.inject(fleet, "replica0")
+    req = Request(40, prompt(128), 48, 600_000.0)
+
+    def drive_partition():
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(fleet.submit, req)
+            wait_until(lambda: decoding(reps[0]), "replica0 to decode")
+            # partition just after a step ends: the eviction (one
+            # staleness alarm after the last heartbeat) then leaves the
+            # loop the most time to show that it runs on
+            steps0 = reps[0].decode_steps
+            wait_until(lambda: reps[0].decode_steps > steps0, "a step")
+            steps0 = reps[0].decode_steps
+            t_fault = time.perf_counter()
+            inj.apply("partition")
+            wait_until(lambda: "replica0" in fleet.dead, "the eviction", 10)
+            first = fut.result()
+        inj.apply("heal")
+        inj.stop()
+        reps[0].stop()
+        fleet.add_replica(rejoin, profile=rejoin_prof)
+        again = fleet.submit(Request(41, prompt(64), 16, 600_000.0))
+        fleet.stop()
+        return first, again, steps0, t_fault
+
+    first, again, steps0, t_fault = counted(
+        "partition", reps + [rejoin], drive_partition)
+    evict_ms = evicted(fleet, deaths, t_fault, "staleness")
+    ran = deaths[0]["decode_steps"] - steps0
+    if not (first.ok and first.replica == "replica1" and first.attempts > 1
+            and again.ok and again.replica == "replica0" and ran > 0):
+        raise AssertionError(
+            f"partition: first {first.replica} {first.outcome}, rejoined "
+            f"{again.replica} {again.outcome}, {ran} steps while partitioned")
+    stats["partition"] = dict(fault_to_eviction_ms=evict_ms,
+                              reason=deaths[0]["reason"],
+                              steps_while_partitioned=ran,
+                              failed_over=first.replica,
+                              after_rejoin=again.replica, build_s=build_s)
+    log(f"  partition: evicted by staleness {evict_ms:.0f} ms after the "
+        f"fault, {ran} decode steps while partitioned; the request failed "
+        f"over to {first.replica}; healed and rejoined, the next request "
+        f"ran on {again.replica}")
+    del reps, fleet, inj, rejoin
+
+    stats.update(launches=launches_sum, engine=engine_sum,
+                 wall_s=time.perf_counter() - t_phase,
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    log(f"  phase 8 wall {stats['wall_s']:.1f} s, peak memory "
+        f"{stats['peak_mem_gb']:.1f} GB; launches {launches_sum}")
+    DETAILS["chaos"] = stats
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches_sum
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2128,6 +2484,12 @@ def main(argv=None) -> int:
     launches["recurrentgemma"] = serve_phase(
         dev, "recurrentgemma-9b", 4096, long_prompts=(2300,),
         key="serve_recurrentgemma")
+    log("phase 8: chaos (minicpm-2b full config: 40 layers, head_dim 64, "
+        "MHA, bf16; 2 replicas, DDS): crash, hang, slow(4x), partition")
+    launches["chaos"] = chaos_phase(dev)
+    for name in ("decode_attention", "flash_attention", "rmsnorm"):
+        if not launches["chaos"][name]:
+            raise AssertionError(f"{name}: no launch on the chaos path")
 
     meta = {
         "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -12,7 +12,7 @@ from typing import Dict, List
 from repro_torch.common.config import ModelConfig
 
 ARCHS: List[str] = ["granite_8b", "qwen3_4b", "gemma3_27b", "mamba2_780m",
-                    "recurrentgemma_9b"]
+                    "recurrentgemma_9b", "minicpm_2b"]
 
 # archs of the JAX package not ported yet -> the ROADMAP item that ports them
 _LATER = {
@@ -20,7 +20,6 @@ _LATER = {
     "arctic_480b": "section 2 item 2 (MoE)",
     "llama32_vision_90b": "section 2 item 3 (cross-attention)",
     "musicgen_medium": "section 2 item 3 (cross-attention)",
-    "minicpm_2b": "section 2 item 6 (the rest)",
 }
 
 

@@ -1,1 +1,2 @@
-"""Failure detection for the serving fleet (copy of ``repro.ft.monitor``)."""
+"""Failure detection and fault injection for the serving fleet (copies of
+``repro.ft.monitor`` and ``repro.ft.faults``)."""

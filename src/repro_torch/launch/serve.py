@@ -5,10 +5,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --paged --prefix-cache
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --chaos crash
 
 The path is the JAX CLI's: warm replicas -> profile pre-evaluation ->
 two-level DDS routing -> SLO accounting.  Flags are those of
-``repro.launch.serve`` without the chaos flags (not ported yet), plus
+``repro.launch.serve``, plus
 ``--device`` (default ``cuda``: the Hopper kernels) and ``--full`` (the
 arch's published widths; on the CPU the smoke config otherwise).  On the
 card the published widths are always served: the attention kernels take
@@ -16,7 +17,10 @@ head_dim 64, 128 or 256, and the smoke configs' head_dim is 16.  ``--paged`` swa
 the per-lane rings for block tables over a shared page pool
 (``--page-size``/``--num-pages``), and ``--prefix-cache`` (which implies
 ``--paged``) adds cross-request prefix reuse.  Replicas share one set of
-weight tensors, drawn from seed 0.
+weight tensors, drawn from seed 0.  ``--chaos crash|hang|slow|partition``
+injects that fault into ``replica0`` at ``--chaos-at-ms`` after the first
+request (``slow`` at 4x) and ends the run with a chaos summary: requests
+failed and failed over, the fleet's losses and the replicas it evicted.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.policies import make_policy
+from repro_torch.ft import faults
 from repro_torch.models import model as model_lib
 from repro_torch.serving.engine import Replica, Request, ServingFleet
 from repro_torch.serving.overload import PRIORITIES, BrownoutConfig
@@ -106,6 +111,13 @@ def main(argv=None):
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="stop decoding when this token id is emitted "
                          "(-1 = disabled)")
+    ap.add_argument("--chaos", default="",
+                    choices=["", "crash", "hang", "slow", "partition"],
+                    help="inject this fault into the source replica mid-run "
+                         "(empty = no chaos)")
+    ap.add_argument("--chaos-at-ms", type=float, default=500.0,
+                    help="when the injected fault fires, relative to the "
+                         "first request")
     ap.add_argument("--priority", default="interactive",
                     choices=list(PRIORITIES),
                     help="priority class for every request")
@@ -143,6 +155,17 @@ def main(argv=None):
                         page_size=args.page_size, num_pages=args.num_pages,
                         prefix_cache=args.prefix_cache, device=args.device)
 
+    inj = None
+    if args.chaos:
+        # the source replica is the one DDS loads up first: killing it is
+        # the demo worth watching (in-flight streams fail over to peers)
+        victim = "replica0"
+        ev = (faults.slow(args.chaos_at_ms, 4.0) if args.chaos == "slow"
+              else faults.FaultEvent(args.chaos_at_ms, args.chaos))
+        inj = faults.inject(fleet, victim, faults.FaultPlan([ev]))
+        print(f"chaos: {args.chaos} on {victim} at t+{args.chaos_at_ms:.0f}ms")
+        inj.arm()
+
     rng = np.random.default_rng(0)
     results: List = []
     with ThreadPoolExecutor(max_workers=8) as ex:
@@ -158,8 +181,12 @@ def main(argv=None):
             futs.append(ex.submit(fleet.submit, req))
             time.sleep(args.interval_ms / 1e3)
         results = [f.result() for f in futs]
+    if inj is not None:
+        inj.stop()
 
     met = sum(1 for r in results if r.met(args.deadline_ms))
+    failed = sum(1 for r in results if not r.ok)
+    failovers = sum(1 for r in results if r.failed_over)
     outcomes = {k: sum(1 for r in results if r.outcome == k)
                 for k in ("ok", "rejected", "shed", "lost")}
     degraded = sum(1 for r in results if r.degraded)
@@ -170,6 +197,10 @@ def main(argv=None):
           f" p50={p50:.0f}ms p99={p99:.0f}ms placements={fleet.stats}")
     print("outcomes: " + " ".join(f"{k}={v}" for k, v in outcomes.items())
           + f" degraded={degraded} browned_out={fleet.degraded()}")
+    if args.chaos or failed or failovers:
+        print(f"chaos summary: failed={failed} failed_over={failovers} "
+              f"fleet_failovers={fleet.failovers} lost={fleet.lost} "
+              f"dead={fleet.dead}")
     fleet.stop()
 
 

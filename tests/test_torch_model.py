@@ -22,7 +22,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import model as TM
 
 ARCHS = ["qwen3-4b", "granite-8b", "gemma3-27b", "mamba2-780m",
-         "recurrentgemma-9b"]
+         "recurrentgemma-9b", "minicpm-2b"]
 TOL = 1e-4
 
 

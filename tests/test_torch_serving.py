@@ -281,3 +281,62 @@ def test_serve_cli_runs_on_cpu(capsys):
                  "--new-tokens", "4", "--prompt-len", "12"])
     out = capsys.readouterr().out
     assert "outcomes: ok=3 rejected=0 shed=0 lost=0" in out
+
+
+@pytest.mark.parametrize("kind", ["crash", "hang", "slow", "partition"])
+def test_serve_cli_chaos_on_cpu(capsys, kind):
+    """``--chaos`` injects its fault into replica0 on the plan's clock and
+    the run ends with a chaos summary: every request has a classified
+    outcome (a request the slowed victim sheds under its deadline is one),
+    and nothing is lost (crash, slow and partition) or the loss is
+    counted."""
+    n = 6
+    tserve.main(["--device", "cpu", "--requests", str(n), "--interval-ms",
+                 "60", "--new-tokens", "24", "--prompt-len", "12",
+                 "--chaos", kind, "--chaos-at-ms", "100"])
+    out = capsys.readouterr().out
+    assert f"chaos: {kind} on replica0 at t+100ms" in out
+    summary = [ln for ln in out.splitlines()
+               if ln.startswith("chaos summary:")]
+    assert len(summary) == 1, out
+    fields = dict(kv.split("=", 1) for kv in summary[0].split()[2:6])
+    outcomes = [ln for ln in out.splitlines() if ln.startswith("outcomes:")]
+    counts = dict(kv.split("=") for kv in outcomes[0].split()[1:5])
+    assert sum(int(v) for v in counts.values()) == n
+    assert int(fields["lost"]) == int(counts["lost"])
+    assert int(fields["failed"]) == sum(int(counts[k]) for k in
+                                        ("rejected", "shed", "lost"))
+    if kind != "hang":
+        assert fields["lost"] == "0", out
+    if kind == "slow":
+        assert "dead=[]" in summary[0]
+
+
+def test_minicpm_smoke_streams_match_jax_replica():
+    """minicpm-2b (MHA, tied embeddings, an odd vocab at full width) through
+    the port's replica: greedy streams with mid-stream joins equal the JAX
+    replica's on the same f32 smoke weights."""
+    jc = jget_smoke("minicpm-2b").replace(dtype=jnp.float32,
+                                          param_dtype=jnp.float32)
+    tc = get_smoke_config("minicpm-2b").replace(dtype=torch.float32)
+    assert tc.num_kv_heads == tc.num_heads and tc.tie_embeddings
+    jp = JM.init_model(jax.random.PRNGKey(1), jc)
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    jrep = jeng.Replica("jax", jc, jp, slots=2, capacity=64,
+                        prefill_chunk_tokens=4)
+    trep = teng.Replica("torch", tc, tp, slots=2, capacity=64,
+                        prefill_chunk_tokens=4)
+    try:
+        prompts = _prompts(tc.vocab_size, (9, 14, 5), 23)
+        new = [10, 7, 8]
+        got = _run_staggered(trep.generate, [
+            teng.Request(i, p, k, 1e9)
+            for i, (p, k) in enumerate(zip(prompts, new))])
+        exp = _run_staggered(jrep.generate, [
+            jeng.Request(i, p, k, 1e9)
+            for i, (p, k) in enumerate(zip(prompts, new))])
+        assert got == exp
+        assert [len(g) for g in got] == new
+    finally:
+        jrep.stop()
+        trep.stop()

@@ -13,7 +13,11 @@ success):
    source, all at once);
 2. kernels against their plain versions, on the card, at main-path
    shapes in bf16 and f32 (the attention kernels also at recurrentgemma's
-   D 256, 16 query heads over 1 KV head, window 2048; flash and ring
+   D 256, 16 query heads over 1 KV head, window 2048; ring decode and flash
+   also at the shapes phase 8 serves minicpm-2b with, D 64 and 36 query
+   heads over 36 KV heads: 8 lanes over ragged and wrapped 2048-slot rings,
+   chunks of 1, 8 and 32 over empty, partial, full and wrapped rings, and
+   prompts of 64, 512 and 1024; flash and ring
    decode also over GQA ratios 1-16 at D 64/128/256, chunks of 1, 17 and
    32 queries over empty, partial and wrapped rings passed as the ring
    arguments, window and softcap, prompts of 512 and 2304, and bf16 flash
@@ -26,7 +30,8 @@ success):
    32, 100 and 128 in one chunk and several, bf16 within 0.75 spacings of
    the f32 oracle, which holds its hi/lo splits; the norm kernel's four
    entry points (norm, qk pair, residual add, Mamba2's gated norm) over
-   widths 64 to 5376 and an odd one, 1 to 1280 rows, the residual sum
+   widths 64 to 5376 (minicpm-2b's 2304 among them) and an odd one, 1 to
+   1280 rows, the residual sum
    bit-equal to ``x + y``; ``rglru`` from one token to 2300 on both of its
    paths, 1 and 8 rows, width 4096 and an odd one), then timings (kernel,
    plain version, one PyTorch library call as a yardstick where one
@@ -54,6 +59,8 @@ success):
    paged replica emits the ring streams with mid-stream joins (for
    recurrentgemma the 2300-token prompt too, its local rings wrapping in
    paged mode), and the prefix cache is refused;
+   then minicpm-2b at full width (D 64, MHA, vocab 122753), 4 layers, in
+   f32: the same checks as qwen3-4b's ring path, card against CPU;
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
@@ -86,7 +93,10 @@ success):
    on, then healed and rejoined.  The launches of the four scenarios
    equal what the engine counters of every replica imply, the crashed and
    hung ones included; it prints each fault-to-eviction time, the
-   failovers and the survivor's tokens/s.
+   failovers and the survivor's tokens/s.  The streams are held against
+   the same replica's kernels here; phase 2 holds those kernels against
+   their plain versions at these shapes, and phase 3 the 4-layer stack on
+   the card against the CPU.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary, the card
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -504,6 +514,7 @@ def check_kernels(dev):
     check_rglru_sweep(dev, rng, record)
 
     check_attention_d256(dev, rng, t, record)
+    check_attention_d64(dev, rng, t, record)
     spacings = {"flash_attention": check_attention_sweep(dev, rng, t, record),
                 "paged_decode_attention": check_paged_sweep(dev, rng, t,
                                                             record),
@@ -749,14 +760,15 @@ def check_paged_sweep(dev, rng, t, record) -> float:
     return worst, plain_worst
 
 
-NORM_WIDTHS = (64, 128, 256, 999, 1000, 1536, 2560, 3072, 4096, 5376)
-NORM_ROWS = (1, 8, 40, 320, 1280)
+NORM_WIDTHS = (64, 128, 256, 999, 1000, 1536, 2304, 2560, 3072, 4096, 5376)
+NORM_ROWS = (1, 8, 32, 40, 320, 1280)
 
 
 def check_norm_sweep(dev, rng, t, record):
     """The four norm entry points over the widths the archs run (head_dim
-    64/128/256, d_model 1536-5376, mamba2's d_inner 3072), an odd one (999:
-    element-wise loads) and 1000, at 1 to 1280 rows, both dtypes, nonzero
+    64/128/256, d_model 1536-5376 with minicpm-2b's 2304, mamba2's d_inner
+    3072), an odd one (999: element-wise loads) and 1000, at 1 to 1280 rows
+    (8 decode lanes and a 32-token chunk among them), both dtypes, nonzero
     gains: the norm; the qk pair (k with a quarter of q's rows); the
     residual add, whose sum must equal ``x + y`` bit for bit; the gated
     norm with z read through a row stride from a wider projection."""
@@ -971,6 +983,84 @@ def check_attention_d256(dev, rng, t, record):
             record("flash_attention", f"D256 Hq16 Hkv1 prompt S{s} w2048",
                    fk.flash_attention(qs, ks, vs, **kw),
                    fk.flash_attention_plain(qs, ks, vs, **kw), dtype)
+
+
+def check_attention_d64(dev, rng, t, record):
+    """Ring decode and flash at the shapes phase 8 serves minicpm-2b with:
+    D 64, 36 query heads over 36 KV heads (MHA), no window, 8 lanes over a
+    2048-slot ring.  Decode over ragged rings with a pos plane (empty to
+    full) and over wrapped rings with holes; the chunk widths the replica
+    buckets (1, 8, 32 queries) over an empty, a partial, a full and a
+    wrapped ring, through the two ring arguments as the chunked prefill
+    calls them and as one concatenated source; whole prompts of 64, 512
+    and 1024 tokens.  Auto splits and one pass, both dtypes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    hq = hkv = 36
+    d, n, b = 64, 2048, 8
+    scale = d ** -0.5
+    ragged = np.concatenate([[1, n], rng.integers(1, n + 1, b - 2)])
+    wrapped = np.concatenate([[n + 1, 2 * n], rng.integers(1, 2 * n, b - 2)])
+    for dtype in (torch.bfloat16, torch.float32):
+        q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+        kc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+        vc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+        for lens, holes, what in ((ragged, 0.0, "ragged"),
+                                  (wrapped, 0.1, "wrapped+holes")):
+            cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+            pos = torch.from_numpy(ring_positions(rng, b, n, lens,
+                                                  holes)).to(dev)
+            kw = dict(cache_len=cl, pos=pos, window=0, scale=scale)
+            exp = dk.decode_attention_plain(q, kc, vc, **kw)
+            lanes = ((pos >= 0) & (pos < cl[:, None])).any(1)
+            for splits in (None, 1):
+                record("decode_attention",
+                       f"D64 Hq36 Hkv36 B8 n2048 pos {what} "
+                       f"splits={splits or 'auto'}",
+                       dk.decode_attention(q, kc, vc, splits=splits, **kw),
+                       exp, dtype, lanes)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in (1, 8, 32):
+            qc = t(rng.standard_normal((1, c, hq, d)), dtype)
+            kc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
+            vc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
+            for start in (0, 700, n, 2500):
+                ring = ring_positions(rng, 1, n, [start])
+                qp = torch.arange(start, start + c, dtype=torch.int32,
+                                  device=dev)
+                kp = torch.cat([torch.from_numpy(ring).to(dev), qp[None]], 1)
+                kw = dict(q_pos=qp, k_pos=kp, causal=True, window=0,
+                          scale=scale)
+                exp = fk.flash_attention_plain(qc, kc, vc, **kw)
+                two = dict(kw, k_pos=qp, k_cache=kc[:, :n].contiguous(),
+                           v_cache=vc[:, :n].contiguous(),
+                           cache_pos=kp[:, :n])
+                for splits in (None, 1):
+                    case = (f"D64 Hq36 Hkv36 chunk C{c} ring2048 start{start} "
+                            f"splits={splits or 'auto'}")
+                    record("flash_attention", case,
+                           fk.flash_attention(qc, kc, vc, splits=splits, **kw),
+                           exp, dtype)
+                    record("flash_attention", f"{case} two sources",
+                           fk.flash_attention(qc, kc[:, n:], vc[:, n:],
+                                              splits=splits, **two),
+                           exp, dtype)
+        for s in (64, 512, 1024):
+            qs = t(rng.standard_normal((1, s, hq, d)), dtype)
+            ks = t(rng.standard_normal((1, s, hkv, d)), dtype)
+            vs = t(rng.standard_normal((1, s, hkv, d)), dtype)
+            ar = torch.arange(s, dtype=torch.int32, device=dev)
+            kw = dict(q_pos=ar, k_pos=ar, causal=True, window=0, scale=scale)
+            exp = fk.flash_attention_plain(qs, ks, vs, **kw)
+            for splits in (None, 1):
+                record("flash_attention",
+                       f"D64 Hq36 Hkv36 prompt S{s} splits={splits or 'auto'}",
+                       fk.flash_attention(qs, ks, vs, splits=splits, **kw),
+                       exp, dtype)
 
 
 def time_kernels(dev):
@@ -1493,7 +1583,11 @@ def cpu_plain_stream(model, cfg, prompt, new_tokens, ceiling, capacity=1024):
     return out, logits[0, -1].float().cpu()
 
 
-def identity_phase(dev):
+def identity_phase(dev, arch="qwen3-4b", layers=4, paged=True):
+    """``arch`` at full width, depth cut to ``layers``, in f32 with TF32
+    off: greedy fleet streams equal ``generate_sequential``, the port's
+    plain path on the CPU and the same path on the card, and the last
+    logits agree; with ``paged`` the paged replica's identity follows."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1503,7 +1597,7 @@ def identity_phase(dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen3-4b").replace(num_layers=4, dtype=torch.float32)
+    cfg = get_config(arch).replace(num_layers=layers, dtype=torch.float32)
     model = M.init_model(cfg, SEED, dev)
     cpu_model = M.Model(cfg, "cpu")
     cpu_model.load_state_dict(model.state_dict())
@@ -1523,7 +1617,8 @@ def identity_phase(dev):
     worst = 0.0
     for i, (p, r) in enumerate(zip(prompts, res)):
         if r.outcome != "ok":
-            raise AssertionError(f"identity request {i}: {r.outcome} {r.error}")
+            raise AssertionError(f"{arch} identity request {i}: {r.outcome} "
+                                 f"{r.error}")
         fleet_toks = r.tokens.tolist()
         seq = rep.generate_sequential(Request(100 + i, p, new, 1e9)).tolist()
         cpu_toks, cpu_last = cpu_plain_stream(cpu_model, cfg, p, new, 32)
@@ -1535,16 +1630,18 @@ def identity_phase(dev):
             f"plain {gpu_toks == cpu_toks}, last logits max|diff| {err:.3e}")
         if not (fleet_toks == seq == cpu_toks == gpu_toks):
             raise AssertionError(
-                f"identity prompt {len(p)}: fleet {fleet_toks} seq {seq} "
+                f"{arch} identity prompt {len(p)}: fleet {fleet_toks} seq {seq} "
                 f"cpu {cpu_toks} card {gpu_toks}")
         # f32 throughout with TF32 off: the two devices differ only in the
         # order of their sums; 1e-3 on O(1) logits leaves two orders of
         # magnitude while a masking or position fault moves them by O(1)
         if not err <= 1e-3:
-            raise AssertionError(f"identity logits differ by {err}")
-    DETAILS["identity"] = dict(prompts=[40, 200, 700], new_tokens=new,
-                               last_logits_max_abs_diff=worst, tol=1e-3)
-    paged_identity(cfg, model, cpu_model, rep)
+            raise AssertionError(f"{arch} identity logits differ by {err}")
+    key = "identity" if arch == "qwen3-4b" else f"identity_{arch}"
+    DETAILS[key] = dict(layers=layers, prompts=[40, 200, 700], new_tokens=new,
+                        last_logits_max_abs_diff=worst, tol=1e-3)
+    if paged:
+        paged_identity(cfg, model, cpu_model, rep)
     fleet.stop()
     del model, rep, fleet
     torch.cuda.empty_cache()
@@ -2467,6 +2564,9 @@ def main(argv=None) -> int:
     recurrent_identity(dev, "mamba2-780m", 4, 1024, (40, 200, 700), ())
     recurrent_identity(dev, "recurrentgemma-9b", 5, 4096, (40, 200),
                        (700, 2300))
+    log("phase 3d: identity of minicpm-2b (full width: head_dim 64, 36 "
+        "heads over 36 KV heads, vocab 122753; 4 layers, f32, TF32 off)")
+    identity_phase(dev, "minicpm-2b", 4, paged=False)
 
     log("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
     launches = {"ring": serve_phase(dev)}

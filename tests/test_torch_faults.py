@@ -143,6 +143,10 @@ def test_fleet_monitor_progress_signal():
 
 
 # ------------------------------------------------------------ simulator churn
+# The JAX package's churn properties, on the port's simulator.  The same
+# kinds of plan (kill and rejoin, partition and heal, a kill with no retry
+# left, churn on the source) are held record for record against the JAX
+# simulator in tests/test_torch_scheduler.py.
 def _accounted(res):
     return all(r.finished_ms < float("inf") or r.lost or r.dropped
                for r in res.records)

@@ -54,18 +54,40 @@ def test_sim_records_identical_to_jax(policy):
     assert 0 < port.num_met < 200
 
 
-@pytest.mark.parametrize("policy", ["DDS", "DDS_EDF", "AOE"])
-@pytest.mark.parametrize("churn", [
-    ((500, "kill", "rasp2"), (900, "rejoin", "rasp2")),
-    ((400, "kill", "edge_server"), (2000, "rejoin", "edge_server")),
-    ((500, "partition", "edge_server"), (1500, "heal", "edge_server")),
-], ids=["kill-rejoin-peer", "kill-rejoin-coordinator", "partition-heal"])
-def test_sim_records_identical_to_jax_under_churn(policy, churn):
+CHURN_POLICIES = ["DDS", "DDS_EDF", "AOE"]
+
+
+@pytest.mark.parametrize("policy", CHURN_POLICIES)
+@pytest.mark.parametrize("churn,kw", [
+    (((500, "kill", "rasp2"), (900, "rejoin", "rasp2")), {}),
+    (((400, "kill", "edge_server"), (2000, "rejoin", "edge_server")), {}),
+    (((500, "partition", "edge_server"), (1500, "heal", "edge_server")), {}),
+    # the first placement is the only one: no retry is left after the kill
+    (((300, "kill", "edge_server"),), {"retry_max": 1}),
+], ids=["kill-rejoin-peer", "kill-rejoin-coordinator", "partition-heal",
+        "kill-coordinator-no-retry"])
+def test_sim_records_identical_to_jax_under_churn(policy, churn, kw):
     port, ref = _both(policy, num_tasks=120, interval_ms=25.0,
-                      constraint_ms=2000.0, churn=churn)
+                      constraint_ms=2000.0, churn=churn, **kw)
     assert _records(port) == _records(ref)
     assert port.num_failed_over == ref.num_failed_over
     assert port.num_lost == ref.num_lost
+    if kw and policy == "AOE":          # everything on the victim: losses
+        assert port.num_lost > 0
+
+
+@pytest.mark.parametrize("policy", CHURN_POLICIES)
+@pytest.mark.parametrize("kind", ["kill", "partition"])
+def test_sim_churn_on_source_rejected_by_both(policy, kind):
+    """Churn on the source node is not modeled: both packages refuse the
+    config with the same message."""
+    churn = ((100, kind, "rasp1"),)
+    with pytest.raises(ValueError) as port:
+        _both(policy, num_tasks=10, churn=churn)
+    with pytest.raises(ValueError) as ref:
+        jsim.run_sim(jpol.make_policy(policy), jsim.SimConfig(
+            num_tasks=10, churn=(jsim.ChurnEvent(*churn[0]),)))
+    assert str(port.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("policy", ["AOE", "DDS", "EODS"])

@@ -17,7 +17,15 @@ success):
    also at the shapes phase 8 serves minicpm-2b with, D 64 and 36 query
    heads over 36 KV heads: 8 lanes over ragged and wrapped 2048-slot rings,
    chunks of 1, 8 and 32 over empty, partial, full and wrapped rings, and
-   prompts of 64, 512 and 1024; flash and ring
+   prompts of 64, 512 and 1024; all three attention kernels also at the
+   MoE archs' GQA ratios, where a 64-row flash tile ends part way through
+   a token's heads: ratio 6 (48 query heads over 8, D 128, window 4096,
+   8 lanes over ragged and wrapped 4096-slot rings) and ratio 7 (56 over
+   8, 2048-slot rings; paged decode over pages of 16 with shared, absent
+   and stale pages and an empty lane), flash chunks of 1, 17 and 32 over
+   empty, partial, full and wrapped rings through both key sources and
+   prompts of 64 and 1024, and a cross over ratios 3, 5, 6 and 7 at D
+   64/128/256; flash and ring
    decode also over GQA ratios 1-16 at D 64/128/256, chunks of 1, 17 and
    32 queries over empty, partial and wrapped rings passed as the ring
    arguments, window and softcap, prompts of 512 and 2304, and bf16 flash
@@ -30,8 +38,8 @@ success):
    32, 100 and 128 in one chunk and several, bf16 within 0.75 spacings of
    the f32 oracle, which holds its hi/lo splits; the norm kernel's four
    entry points (norm, qk pair, residual add, Mamba2's gated norm) over
-   widths 64 to 5376 (minicpm-2b's 2304 among them) and an odd one, 1 to
-   1280 rows, the residual sum
+   widths 64 to 7168 (minicpm-2b's 2304, mixtral's 6144 and arctic's 7168
+   among them) and an odd one, 1 to 1280 rows, the residual sum
    bit-equal to ``x + y``; ``rglru`` from one token to 2300 on both of its
    paths, 1 and 8 rows, width 4096 and an odd one), then timings (kernel,
    plain version, one PyTorch library call as a yardstick where one
@@ -43,6 +51,12 @@ success):
    by kernel; the norm and ``rglru`` at one row / one token (their fixed
    costs), each norm form beside the unfused expression it replaces, and
    the host issue cost of a call (N back-to-back calls between two syncs);
+   (2b) the MoE FFN (``models.moe.moe_ffn``, plain PyTorch around the
+   kernels) against ``ref.moe_ffn_reference``, a loop over tokens and
+   choices, on one layer at full width (mixtral-8x22b in f32 and bf16,
+   arctic-480b in bf16): an 8-row decode batch and a 32-token chunk, of
+   normal and of identical rows, the identical ones dropping choices at
+   the published capacity factor;
 3. identity: qwen3-4b at full width, depth cut to 4 layers, in f32 with
    TF32 off, serves 3 greedy prompts through a ``ServingFleet``; every
    stream must equal the replica's ``generate_sequential`` and the port's
@@ -61,6 +75,14 @@ success):
    paged mode), and the prefix cache is refused;
    then minicpm-2b at full width (D 64, MHA, vocab 122753), 4 layers, in
    f32: the same checks as qwen3-4b's ring path, card against CPU;
+   then (3e, 3f) the MoE archs at full width in f32, mixtral-8x22b at 2
+   layers and arctic-480b at 1 (the depth one card holds in f32, and the
+   host beside it): B=1 greedy streams of 40 and 200 prompt tokens on the
+   card equal to the CPU's, last logits within 1e-3, and a fixed batch of
+   8 lanes (6 with one prompt, so the batched MoE drops choices) over 8
+   decode steps, tokens equal and logits within 1e-3; whether the fleet's
+   stream equals ``generate_sequential`` is logged, since MoE couples a
+   batch's lanes once an expert overflows;
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
@@ -96,7 +118,15 @@ success):
    failovers and the survivor's tokens/s.  The streams are held against
    the same replica's kernels here; phase 2 holds those kernels against
    their plain versions at these shapes, and phase 3 the 4-layer stack on
-   the card against the CPU.
+   the card against the CPU;
+9. serve mixtral-8x22b at full width, depth cut to 8 layers (bf16, 41 GB
+   of weights; 56 layers do not fit one card) as in phase 4, capacity
+   8192 so the local rings hold the whole 4096 window, the last prompt
+   4600 tokens so they wrap: per step 8 ``decode_attention`` and 17
+   ``rmsnorm`` launches, per chunk 8 ``flash_attention`` and 17;
+10. paged serve with the prefix cache, arctic-480b at full width, depth
+   cut to 2 layers (bf16, 55 GB of weights) as in phase 5: per step 2
+   ``paged_decode_attention`` and 5 ``rmsnorm`` launches.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary, the card
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -328,7 +358,8 @@ def check_kernels(dev):
 
     def record(name, case, got, exp, dtype, lanes=None, quiet=False):
         """Hold ``got`` against ``exp`` within the tolerance; log the case
-        (a quiet case only joins its kernel's sweep summary)."""
+        (a quiet case only joins a summary: its kernel's sweep, or the dict
+        ``quiet`` names)."""
         if lanes is not None:
             got, exp = got[lanes], exp[lanes]
         torch.cuda.synchronize()
@@ -340,16 +371,18 @@ def check_kernels(dev):
             lim = 2.0 ** -7 * max(1.0, exp.float().abs().max().item())
         if name in ("ssd", "rglru"):
             lim = scan_tol[dtype] * max(1.0, exp.float().abs().max().item())
-        if quiet:
+        if quiet is not False:
+            into = sweep if quiet is True else quiet
             key = (name, str(dtype)[6:])
-            n_, e_ = sweep.get(key, (0, 0.0))
-            sweep[key] = (n_ + 1, max(e_, err))
+            n_, e_ = into.get(key, (0, 0.0))
+            into[key] = (n_ + 1, max(e_, err))
         else:
             log(f"  {name:16s} {case:56s} {str(dtype)[6:]:8s} "
                 f"max|err| {err:.3e}  tol {lim:.1e}")
         if not err <= lim:
             raise AssertionError(f"{name} {case} {dtype}: {err} > {lim}")
         results[name].append(err)
+        return err
 
     # decode: B=8, ragged cache_len in 1..2048, with and without pos,
     # window 0 and 16; plus a wrapped ring (cache_len up to 2n) with holes
@@ -513,8 +546,8 @@ def check_kernels(dev):
                    gk.rglru_plain(*args), dtype)
     check_rglru_sweep(dev, rng, record)
 
-    check_attention_d256(dev, rng, t, record)
-    check_attention_d64(dev, rng, t, record)
+    DETAILS["serve_shapes"] = check_attention_serve(dev, rng, t, record)
+    DETAILS["gqa_cross"] = check_attention_gqa_cross(dev, rng, t, record)
     spacings = {"flash_attention": check_attention_sweep(dev, rng, t, record),
                 "paged_decode_attention": check_paged_sweep(dev, rng, t,
                                                             record),
@@ -760,16 +793,17 @@ def check_paged_sweep(dev, rng, t, record) -> float:
     return worst, plain_worst
 
 
-NORM_WIDTHS = (64, 128, 256, 999, 1000, 1536, 2304, 2560, 3072, 4096, 5376)
+NORM_WIDTHS = (64, 128, 256, 999, 1000, 1536, 2304, 2560, 3072, 4096, 5376,
+               6144, 7168)
 NORM_ROWS = (1, 8, 32, 40, 320, 1280)
 
 
 def check_norm_sweep(dev, rng, t, record):
     """The four norm entry points over the widths the archs run (head_dim
-    64/128/256, d_model 1536-5376 with minicpm-2b's 2304, mamba2's d_inner
-    3072), an odd one (999: element-wise loads) and 1000, at 1 to 1280 rows
-    (8 decode lanes and a 32-token chunk among them), both dtypes, nonzero
-    gains: the norm; the qk pair (k with a quarter of q's rows); the
+    64/128/256, d_model 1536-7168 with minicpm-2b's 2304, mixtral's 6144
+    and arctic's 7168, mamba2's d_inner 3072), an odd one (999:
+    element-wise loads) and 1000, at 1 to 1280 rows (8 decode lanes and a
+    32-token chunk among them), both dtypes, nonzero gains: the norm; the qk pair (k with a quarter of q's rows); the
     residual add, whose sum must equal ``x + y`` bit for bit; the gated
     norm with z read through a row stride from a wider projection."""
     import torch
@@ -904,163 +938,312 @@ def rglru_inputs(rng, shape, dtype, dev):
                  for a in (rng.standard_normal(shape), log_a, gate))
 
 
-def check_attention_d256(dev, rng, t, record):
-    """The three attention kernels at recurrentgemma's local-attention
-    shapes: D 256, 16 query heads over 1 KV head, window 2048: ring decode
-    over wrapped rings with holes, paged decode over shuffled tables of a
-    4096-token lane, a 32-token chunk over a full 2048-slot ring, and whole
-    prompts shorter and longer than the window."""
+# The attention shapes of the served archs: arch -> (query heads, KV heads,
+# head dim, ring slots, window, chunk widths, whole-prompt lengths, lengths
+# of the first paged lanes or None where the arch is not checked paged).
+# mixtral-8x22b (GQA 6) and arctic-480b (GQA 7) are the ratios where a
+# 64-row flash tile ends part way through a token's heads and the f32
+# decode bodies take a group in blocks of the ratio's largest divisor
+# within their limit.
+SERVE_SHAPES = {
+    "minicpm-2b": (36, 36, 64, 2048, 0, (1, 8, 32), (64, 512, 1024), None),
+    "recurrentgemma-9b": (16, 1, 256, 2048, 2048, (32,), (512, 2304),
+                          (3000, 4096, 1, 2100)),
+    "mixtral-8x22b": (48, 8, 128, 4096, 4096, (1, 17, 32), (64, 1024), None),
+    "arctic-480b": (56, 8, 128, 2048, 0, (1, 17, 32), (64, 1024),
+                    (700, 900, 1, 2048)),
+}
+
+
+def summarize(what: str, summary: dict) -> dict:
+    """Log one line for each (kernel, dtype) of a quiet summary and return
+    it keyed by ``"what kernel dtype"``."""
+    out = {}
+    for (name, dt), (cases, err) in sorted(summary.items()):
+        log(f"  {what} {name} {dt}: {cases} cases, max|err| {err:.3e}")
+        out[f"{what} {name} {dt}"] = (cases, err)
+    return out
+
+
+def check_attention_serve(dev, rng, t, record) -> dict:
+    """The three attention kernels at each served arch's shapes
+    (``SERVE_SHAPES``), 8 lanes: ring decode over ragged rings (one slot to
+    full) and over wrapped rings with holes; paged decode, where the entry
+    names lanes, over pages of 16 with shared, absent and stale pages and
+    an empty lane; flash chunks over an empty, a partial, a full and a
+    wrapped ring, through the two key sources as the chunked prefill passes
+    them and as one concatenated source; whole prompts.  Both dtypes, auto
+    splits and one pass.  One line is logged for each arch, kernel and
+    dtype.  Returns (cases, max |err|) by arch, kernel and dtype."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_decode_attention as pk
 
-    hq, hkv, d, n, win = 16, 1, 256, 2048, 2048
-    scale = d ** -0.5
-    b = 8
-    wrapped = np.concatenate([[1, n, 2 * n], rng.integers(1, 2 * n, b - 3)])
-    for dtype in (torch.bfloat16, torch.float32):
-        q = t(rng.standard_normal((b, 1, hq, d)), dtype)
-        kc = t(rng.standard_normal((b, n, hkv, d)), dtype)
-        vc = t(rng.standard_normal((b, n, hkv, d)), dtype)
-        cl = torch.as_tensor(wrapped, dtype=torch.int32, device=dev)
-        pos = torch.from_numpy(ring_positions(rng, b, n, wrapped, 0.1)).to(dev)
-        kw = dict(cache_len=cl, pos=pos, window=win, scale=scale)
-        exp = dk.decode_attention_plain(q, kc, vc, **kw)
-        vis = (pos >= 0) & (pos < cl[:, None]) & (pos > cl[:, None] - 1 - win)
-        for splits in (None, 1):
-            record("decode_attention",
-                   f"D256 Hq16 Hkv1 B8 n2048 w2048 wrapped+holes "
-                   f"splits={splits or 'auto'}",
-                   dk.decode_attention(q, kc, vc, splits=splits, **kw), exp,
-                   dtype, vis.any(1))
+    b, page = 8, 16
+    both = (torch.bfloat16, torch.float32)
+    seen = {}
+    for arch, (hq, hkv, d, n, win, chunks, prompts,
+               paged) in SERVE_SHAPES.items():
+        scale = d ** -0.5
+        tag = f"{arch} Hq{hq} Hkv{hkv} D{d}"
+        summary = {}
+        ragged = np.concatenate([[1, n], rng.integers(1, n + 1, b - 2)])
+        wrapped = np.concatenate([[n + 1, 2 * n],
+                                  rng.integers(n // 2, 3 * n, b - 2)])
+        for dtype in both:
+            q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+            kc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+            vc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+            for lens, holes, what in ((ragged, 0.0, "ragged"),
+                                      (wrapped, 0.1, "wrapped+holes")):
+                cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+                pos = torch.from_numpy(ring_positions(rng, b, n, lens,
+                                                      holes)).to(dev)
+                kw = dict(cache_len=cl, pos=pos, window=win, scale=scale)
+                exp = dk.decode_attention_plain(q, kc, vc, **kw)
+                vis = (pos >= 0) & (pos < cl[:, None])
+                if win:
+                    vis &= pos > cl[:, None] - 1 - win
+                for splits in (None, 1):
+                    record("decode_attention",
+                           f"{tag} B8 n{n} w{win} {what} "
+                           f"splits={splits or 'auto'}",
+                           dk.decode_attention(q, kc, vc, splits=splits, **kw),
+                           exp, dtype, vis.any(1), quiet=summary)
 
-    page, maxp = 16, 4096 // 16
-    plens = np.concatenate([[3000, 4096, 1, 2100],
-                            rng.integers(1, 4097, size=b - 4)])
-    tables, ppos = paged_layout(rng, plens, page, maxp, share=1000 // page,
-                                holes=0.05, stale=0.05, empty=(7,))
-    tab = torch.from_numpy(tables).to(dev)
-    pp = torch.from_numpy(ppos).to(dev)
-    cl = torch.as_tensor(plens, dtype=torch.int32, device=dev)
-    for dtype in (torch.bfloat16, torch.float32):
-        q = t(rng.standard_normal((b, 1, hq, d)), dtype)
-        kp = t(rng.standard_normal((b * maxp + 1, page, hkv, d)), dtype)
-        vp = t(rng.standard_normal((b * maxp + 1, page, hkv, d)), dtype)
-        kw = dict(cache_len=cl, window=win, scale=scale)
-        exp = pk.paged_decode_attention_plain(q, kp, vp, pp, tab, **kw)
-        for splits in (None, 1):
-            record("paged_decode_attention",
-                   f"D256 Hq16 Hkv1 B8 page16 maxp256 w2048 shuffled "
-                   f"splits={splits or 'auto'}",
-                   pk.paged_decode_attention(q, kp, vp, pp, tab, splits=splits,
-                                             **kw), exp, dtype)
+        if paged:
+            reach = max(paged)
+            maxp = reach // page
+            plens = np.concatenate([paged, rng.integers(1, reach + 1,
+                                                        b - len(paged))])
+            tables, ppos = paged_layout(rng, plens, page, maxp,
+                                        share=reach // 4 // page, holes=0.05,
+                                        stale=0.05, empty=(7,))
+            tab = torch.from_numpy(tables).to(dev)
+            pp = torch.from_numpy(ppos).to(dev)
+            cl = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+            for dtype in both:
+                q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+                kp = t(rng.standard_normal((b * maxp + 1, page, hkv, d)),
+                       dtype)
+                vp = t(rng.standard_normal((b * maxp + 1, page, hkv, d)),
+                       dtype)
+                kw = dict(cache_len=cl, window=win, scale=scale)
+                exp = pk.paged_decode_attention_plain(q, kp, vp, pp, tab, **kw)
+                for splits in (None, 1):
+                    record("paged_decode_attention",
+                           f"{tag} B8 page16 maxp{maxp} w{win} "
+                           f"shuffled+holes+stale+shared "
+                           f"splits={splits or 'auto'}",
+                           pk.paged_decode_attention(q, kp, vp, pp, tab,
+                                                     splits=splits, **kw),
+                           exp, dtype, quiet=summary)
 
-    c = 32
-    for dtype in (torch.bfloat16, torch.float32):
-        qc = t(rng.standard_normal((1, c, hq, d)), dtype)
-        kc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
-        vc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
-        for start in (2500, 5000):
-            ring = ring_positions(rng, 1, n, [start])
-            qp = torch.arange(start, start + c, dtype=torch.int32, device=dev)
-            kp = torch.cat([torch.from_numpy(ring).to(dev), qp[None]], 1)
-            kw = dict(q_pos=qp, k_pos=kp, causal=True, window=win, scale=scale)
-            exp = fk.flash_attention_plain(qc, kc, vc, **kw)
-            for splits in (None, 1):
-                record("flash_attention",
-                       f"D256 Hq16 Hkv1 chunk C32 ring2048 start{start} w2048 "
-                       f"splits={splits or 'auto'}",
-                       fk.flash_attention(qc, kc, vc, splits=splits, **kw),
-                       exp, dtype)
-        for s in (512, 2304):
-            qs = t(rng.standard_normal((1, s, hq, d)), dtype)
-            ks = t(rng.standard_normal((1, s, hkv, d)), dtype)
-            vs = t(rng.standard_normal((1, s, hkv, d)), dtype)
-            ar = torch.arange(s, dtype=torch.int32, device=dev)
-            kw = dict(q_pos=ar, k_pos=ar, causal=True, window=win, scale=scale)
-            record("flash_attention", f"D256 Hq16 Hkv1 prompt S{s} w2048",
-                   fk.flash_attention(qs, ks, vs, **kw),
-                   fk.flash_attention_plain(qs, ks, vs, **kw), dtype)
+        for dtype in both:
+            for c in chunks:
+                qc = t(rng.standard_normal((1, c, hq, d)), dtype)
+                kc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
+                vc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
+                for start in (0, 700, n, n + 1500):
+                    ring = ring_positions(rng, 1, n, [start])
+                    qp = torch.arange(start, start + c, dtype=torch.int32,
+                                      device=dev)
+                    kp = torch.cat([torch.from_numpy(ring).to(dev), qp[None]],
+                                   1)
+                    kw = dict(q_pos=qp, k_pos=kp, causal=True, window=win,
+                              scale=scale)
+                    exp = fk.flash_attention_plain(qc, kc, vc, **kw)
+                    two = dict(kw, k_pos=qp, k_cache=kc[:, :n].contiguous(),
+                               v_cache=vc[:, :n].contiguous(),
+                               cache_pos=kp[:, :n])
+                    for splits in (None, 1):
+                        case = (f"{tag} chunk C{c} ring{n} start{start} "
+                                f"w{win} splits={splits or 'auto'}")
+                        record("flash_attention", case,
+                               fk.flash_attention(qc, kc, vc, splits=splits,
+                                                  **kw),
+                               exp, dtype, quiet=summary)
+                        record("flash_attention", f"{case} two sources",
+                               fk.flash_attention(qc, kc[:, n:], vc[:, n:],
+                                                  splits=splits, **two),
+                               exp, dtype, quiet=summary)
+            for s in prompts:
+                qs = t(rng.standard_normal((1, s, hq, d)), dtype)
+                ks = t(rng.standard_normal((1, s, hkv, d)), dtype)
+                vs = t(rng.standard_normal((1, s, hkv, d)), dtype)
+                ar = torch.arange(s, dtype=torch.int32, device=dev)
+                kw = dict(q_pos=ar, k_pos=ar, causal=True, window=win,
+                          scale=scale)
+                exp = fk.flash_attention_plain(qs, ks, vs, **kw)
+                for splits in (None, 1):
+                    record("flash_attention",
+                           f"{tag} prompt S{s} w{win} "
+                           f"splits={splits or 'auto'}",
+                           fk.flash_attention(qs, ks, vs, splits=splits, **kw),
+                           exp, dtype, quiet=summary)
+        seen.update(summarize(arch, summary))
+    return seen
 
 
-def check_attention_d64(dev, rng, t, record):
-    """Ring decode and flash at the shapes phase 8 serves minicpm-2b with:
-    D 64, 36 query heads over 36 KV heads (MHA), no window, 8 lanes over a
-    2048-slot ring.  Decode over ragged rings with a pos plane (empty to
-    full) and over wrapped rings with holes; the chunk widths the replica
-    buckets (1, 8, 32 queries) over an empty, a partial, a full and a
-    wrapped ring, through the two ring arguments as the chunked prefill
-    calls them and as one concatenated source; whole prompts of 64, 512
-    and 1024 tokens.  Auto splits and one pass, both dtypes."""
+def check_attention_gqa_cross(dev, rng, t, record) -> dict:
+    """The three attention kernels over GQA ratios 3, 5, 6 and 7 at D 64,
+    128 and 256, none of which divides a 64-row flash tile: 2 KV
+    heads, 4 lanes; ring decode over a 512-slot ring (the last lane
+    wrapped) with a window, paged decode over pages of 16 with softcap, a
+    17-query chunk over a wrapped 300-slot ring (two sources) and a
+    129-token prompt.  Both dtypes.  Returns (cases, max |err|) by kernel
+    and dtype."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode_attention as pk
 
-    hq = hkv = 36
-    d, n, b = 64, 2048, 8
-    scale = d ** -0.5
-    ragged = np.concatenate([[1, n], rng.integers(1, n + 1, b - 2)])
-    wrapped = np.concatenate([[n + 1, 2 * n], rng.integers(1, 2 * n, b - 2)])
-    for dtype in (torch.bfloat16, torch.float32):
-        q = t(rng.standard_normal((b, 1, hq, d)), dtype)
-        kc = t(rng.standard_normal((b, n, hkv, d)), dtype)
-        vc = t(rng.standard_normal((b, n, hkv, d)), dtype)
-        for lens, holes, what in ((ragged, 0.0, "ragged"),
-                                  (wrapped, 0.1, "wrapped+holes")):
+    summary = {}
+    both = (torch.bfloat16, torch.float32)
+    hkv, b, n = 2, 4, 512
+    lens = np.array([1, 300, 512, 900])
+    for rep in (3, 5, 6, 7):
+        for d in (64, 128, 256):
+            hq, scale = hkv * rep, d ** -0.5
+            tables, ppos = paged_layout(rng, lens, 16, 64, share=10,
+                                        holes=0.05, stale=0.05)
+            tab = torch.from_numpy(tables).to(dev)
+            pp = torch.from_numpy(ppos).to(dev)
             cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
             pos = torch.from_numpy(ring_positions(rng, b, n, lens,
-                                                  holes)).to(dev)
-            kw = dict(cache_len=cl, pos=pos, window=0, scale=scale)
-            exp = dk.decode_attention_plain(q, kc, vc, **kw)
-            lanes = ((pos >= 0) & (pos < cl[:, None])).any(1)
-            for splits in (None, 1):
-                record("decode_attention",
-                       f"D64 Hq36 Hkv36 B8 n2048 pos {what} "
-                       f"splits={splits or 'auto'}",
-                       dk.decode_attention(q, kc, vc, splits=splits, **kw),
-                       exp, dtype, lanes)
-
-    for dtype in (torch.bfloat16, torch.float32):
-        for c in (1, 8, 32):
-            qc = t(rng.standard_normal((1, c, hq, d)), dtype)
-            kc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
-            vc = t(rng.standard_normal((1, n + c, hkv, d)), dtype)
-            for start in (0, 700, n, 2500):
-                ring = ring_positions(rng, 1, n, [start])
+                                                  0.1)).to(dev)
+            for dtype in both:
+                case = f"GQA{rep} D{d}"
+                q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+                kc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+                vc = t(rng.standard_normal((b, n, hkv, d)), dtype)
+                kw = dict(cache_len=cl, pos=pos, window=100, scale=scale)
+                exp = dk.decode_attention_plain(q, kc, vc, **kw)
+                vis = ((pos >= 0) & (pos < cl[:, None])
+                       & (pos > cl[:, None] - 101))
+                kp = t(rng.standard_normal((b * 64 + 1, 16, hkv, d)), dtype)
+                vp = t(rng.standard_normal((b * 64 + 1, 16, hkv, d)), dtype)
+                pkw = dict(cache_len=cl, window=0, scale=scale, softcap=30.0)
+                pexp = pk.paged_decode_attention_plain(q, kp, vp, pp, tab,
+                                                       **pkw)
+                for splits in (None, 1):
+                    record("decode_attention", f"cross {case} splits={splits}",
+                           dk.decode_attention(q, kc, vc, splits=splits, **kw),
+                           exp, dtype, vis.any(1), quiet=summary)
+                    record("paged_decode_attention",
+                           f"cross {case} splits={splits}",
+                           pk.paged_decode_attention(q, kp, vp, pp, tab,
+                                                     splits=splits, **pkw),
+                           pexp, dtype, quiet=summary)
+                c, start = 17, 800
+                qc = t(rng.standard_normal((2, c, hq, d)), dtype)
+                kn = t(rng.standard_normal((2, c, hkv, d)), dtype)
+                vn = t(rng.standard_normal((2, c, hkv, d)), dtype)
+                ring = torch.from_numpy(ring_positions(
+                    rng, 2, 300, [start] * 2, 0.1)).to(dev)
                 qp = torch.arange(start, start + c, dtype=torch.int32,
                                   device=dev)
-                kp = torch.cat([torch.from_numpy(ring).to(dev), qp[None]], 1)
-                kw = dict(q_pos=qp, k_pos=kp, causal=True, window=0,
-                          scale=scale)
-                exp = fk.flash_attention_plain(qc, kc, vc, **kw)
-                two = dict(kw, k_pos=qp, k_cache=kc[:, :n].contiguous(),
-                           v_cache=vc[:, :n].contiguous(),
-                           cache_pos=kp[:, :n])
+                kw = dict(q_pos=qp, k_pos=qp, causal=True, window=0,
+                          scale=scale, k_cache=kc[:2, :300].contiguous(),
+                          v_cache=vc[:2, :300].contiguous(), cache_pos=ring)
+                exp = fk.flash_attention_plain(qc, kn, vn, **kw)
                 for splits in (None, 1):
-                    case = (f"D64 Hq36 Hkv36 chunk C{c} ring2048 start{start} "
-                            f"splits={splits or 'auto'}")
-                    record("flash_attention", case,
-                           fk.flash_attention(qc, kc, vc, splits=splits, **kw),
-                           exp, dtype)
-                    record("flash_attention", f"{case} two sources",
-                           fk.flash_attention(qc, kc[:, n:], vc[:, n:],
-                                              splits=splits, **two),
-                           exp, dtype)
-        for s in (64, 512, 1024):
-            qs = t(rng.standard_normal((1, s, hq, d)), dtype)
-            ks = t(rng.standard_normal((1, s, hkv, d)), dtype)
-            vs = t(rng.standard_normal((1, s, hkv, d)), dtype)
-            ar = torch.arange(s, dtype=torch.int32, device=dev)
-            kw = dict(q_pos=ar, k_pos=ar, causal=True, window=0, scale=scale)
-            exp = fk.flash_attention_plain(qs, ks, vs, **kw)
-            for splits in (None, 1):
-                record("flash_attention",
-                       f"D64 Hq36 Hkv36 prompt S{s} splits={splits or 'auto'}",
-                       fk.flash_attention(qs, ks, vs, splits=splits, **kw),
-                       exp, dtype)
+                    record("flash_attention",
+                           f"cross {case} chunk splits={splits}",
+                           fk.flash_attention(qc, kn, vn, splits=splits, **kw),
+                           exp, dtype, quiet=summary)
+                s = 129
+                qs = t(rng.standard_normal((1, s, hq, d)), dtype)
+                ks = t(rng.standard_normal((1, s, hkv, d)), dtype)
+                vs = t(rng.standard_normal((1, s, hkv, d)), dtype)
+                ar = torch.arange(s, dtype=torch.int32, device=dev)
+                kw = dict(q_pos=ar, k_pos=ar, causal=True, window=0,
+                          scale=scale)
+                record("flash_attention", f"cross {case} prompt S{s}",
+                       fk.flash_attention(qs, ks, vs, **kw),
+                       fk.flash_attention_plain(qs, ks, vs, **kw), dtype,
+                       quiet=summary)
+    return summarize("GQA cross", summary)
+
+
+def check_moe(dev) -> None:
+    """Phase 2: ``moe_ffn`` on the card against ``ref.moe_ffn_reference``
+    (a plain loop over tokens and choices) on the card, on one layer's
+    weights at full width drawn from the seed: mixtral-8x22b (8 experts
+    of 6144 x 16384) in f32 with TF32 off and in bf16, arctic-480b (128
+    experts of 7168 x 4864 and its dense FFN) in bf16.  Inputs: an 8-row
+    decode batch and a 32-token chunk of normal rows, and the same two
+    shapes of identical rows, which at the published capacity factor 1.25
+    must drop choices (arctic's 8 rows: 8 choices on each of two experts
+    over a capacity of 4; mixtral's 32 rows: 32 over 12).  Tolerance
+    relative to max(1, max|ref|): f32 2e-5, bf16 2^-7; the rows that lose
+    both choices (zero where there is no dense FFN) must be the same.
+    Logs the kept (token, choice) pairs of each case."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 7)
+    out = {}
+    for arch, dtype in (("mixtral-8x22b", torch.float32),
+                        ("mixtral-8x22b", torch.bfloat16),
+                        ("arctic-480b", torch.bfloat16)):
+        cfg = get_config(arch).replace(dtype=dtype)
+        p = blocks.Experts(cfg, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        M.init_moe_(p, gen)
+        d, k = cfg.d_model, cfg.num_experts_per_tok
+        lim_rel = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+        for what, shape in (("decode B8", (8, 1, d)),
+                            ("chunk C32", (1, 32, d))):
+            for same in (False, True):
+                if same:
+                    one = rng.standard_normal((1, 1, d))
+                    x = np.broadcast_to(one, shape)
+                else:
+                    x = rng.standard_normal(shape)
+                x = torch.from_numpy(np.ascontiguousarray(x, np.float32)
+                                     ).to(dev, dtype)
+                y, aux = moe.moe_ffn(p, x, cfg)
+                r, kept = ref.moe_ffn_reference(p, x, cfg)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(y).all() and torch.isfinite(aux)):
+                    raise AssertionError(f"moe {arch} {what}: non-finite")
+                err = (y.float() - r.float()).abs().max().item()
+                lim = lim_rel * max(1.0, r.float().abs().max().item())
+                t = shape[0] * shape[1]
+                case = (f"{arch} {str(dtype)[6:]} {what}"
+                        f"{' identical rows' if same else ''}")
+                log(f"  moe_ffn {case:48s} max|err| {err:.3e} tol "
+                    f"{lim:.1e}; kept {len(kept)} of {t * k} choices "
+                    f"(capacity {moe.expert_capacity(t, cfg)})")
+                if not err <= lim:
+                    raise AssertionError(f"moe_ffn {case}: {err} > {lim}")
+                if not cfg.moe_dense_ff and not torch.equal(
+                        y.abs().amax(-1) == 0, r.abs().amax(-1) == 0):
+                    raise AssertionError(f"moe_ffn {case}: dropped rows "
+                                         f"differ from the reference's")
+                if same and len(kept) >= t * k:
+                    raise AssertionError(f"moe_ffn {case}: no choice dropped")
+                out[case] = dict(max_abs_err=err, tol=lim, kept=len(kept),
+                                 choices=t * k,
+                                 capacity=moe.expert_capacity(t, cfg))
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    DETAILS["moe"] = out
 
 
 def time_kernels(dev):
@@ -1832,6 +2015,141 @@ def recurrent_identity(dev, arch: str, layers: int, capacity: int,
     torch.cuda.empty_cache()
 
 
+def host_mem_gb(field: str = "MemAvailable") -> float:
+    """``/proc/meminfo``'s ``field`` in GB (1e9 bytes)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError(f"/proc/meminfo has no {field}")
+
+
+def moe_identity(dev, arch: str, layers: int):
+    """Phases 3e and 3f: an MoE arch at full width with its depth cut to
+    ``layers``, in f32 with TF32 off, on the card against the CPU.
+    Greedy B=1 streams of 4 tokens after prompts of 40 and 200 (chunked
+    prefill in the replica's buckets, then decode steps; each CPU pass
+    reads every expert's f32 weights, 53.5 GB for arctic's layer) must be
+    equal and their last logits within 1e-3.  Then a fixed batch
+    composition: 8 lanes prefilled together with 8 prompts, lanes 0-5 with
+    one prompt, so that a decode step's identical rows overflow their
+    experts and drop choices, then 8 batched decode steps: the identical
+    lanes' logits must part on the card (choices dropped), and both devices
+    give the same tokens and every step's logits within 1e-3.  MoE does not
+    promise that a fleet's stream equals ``generate_sequential`` (every
+    lane's choices compete for the same expert capacity), so that equality
+    is logged, not required.  The phase fails at once where the host cannot
+    hold the CPU copy (MemAvailable below its size plus 16 GB)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policies import make_policy
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Replica, Request, ServingFleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).replace(num_layers=layers, dtype=torch.float32)
+    t0 = time.perf_counter()
+    model = M.init_model(cfg, SEED, dev)
+    need_gb = sum(p.numel() * 4 for p in model.parameters()) / 1e9
+    avail_gb = host_mem_gb()
+    log(f"  {arch}: {layers} layers, {need_gb:.1f} GB of f32 weights; host "
+        f"MemAvailable {avail_gb:.1f} GB")
+    if avail_gb < need_gb + 16.0:
+        raise AssertionError(f"{arch}: the CPU copy needs {need_gb:.1f} GB "
+                             f"and 16 GB beside it; the host has "
+                             f"{avail_gb:.1f} GB available")
+    rng = np.random.default_rng(SEED + 8)
+    new = 4
+    prompts = [rng.integers(2, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (40, 200)]
+    base = rng.integers(2, cfg.vocab_size, size=24)
+    batch = np.stack([base] * 6 + [rng.integers(2, cfg.vocab_size, size=24)
+                                   for _ in range(2)]).astype(np.int64)
+    stats = dict(layers=layers, weights_gb=need_gb,
+                 host_mem_available_gb=avail_gb,
+                 prompts=[len(p) for p in prompts], new_tokens=new,
+                 batch_lanes=8, batch_prompt=24, batch_steps=8, tol=1e-3)
+
+    def batched(m):
+        """Tokens (steps, 8) and every step's last logits, from a whole
+        prefill of the 8 lanes and 8 batched decode steps."""
+        logits, cache = M.prefill(m, torch.as_tensor(batch, device=m.device),
+                                  cfg, 64)
+        toks, lgs = [], []
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        for i in range(8):
+            toks.append(tok[:, 0].tolist())
+            logits, cache = M.decode_step(m, cache, tok, batch.shape[1] + i,
+                                          cfg)
+            lgs.append(logits[:, -1].float().cpu())
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+        return toks, torch.stack(lgs)
+
+    card_toks, card_lgs = batched(model)
+    # lanes 0-5 carry one prompt: after the first step their logits part
+    # only if the step dropped some of their choices, which this composition
+    # is here to make certain
+    parted = not torch.equal(card_lgs[0, 0], card_lgs[0, 5])
+    stats["identical_lanes_parted"] = parted
+    if not parted:
+        raise AssertionError(f"{arch} batched: the 6 identical lanes kept "
+                             f"equal logits, so no choice dropped")
+    cpu_model = M.Model(cfg, "cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    worst = 0.0
+    for p in prompts:
+        cpu_t, cpu_last = cpu_plain_stream(cpu_model, cfg, p, new, 32)
+        gpu_t, gpu_last = cpu_plain_stream(model, cfg, p, new, 32)
+        err = (gpu_last - cpu_last).abs().max().item()
+        worst = max(worst, err)
+        log(f"  {arch} prompt {len(p):4d}: card plain == cpu plain "
+            f"{gpu_t == cpu_t}, last logits max|diff| {err:.3e}")
+        if gpu_t != cpu_t or not err <= 1e-3:
+            raise AssertionError(f"{arch} identity prompt {len(p)}: card "
+                                 f"{gpu_t} cpu {cpu_t}, logits {err}")
+    cpu_toks, cpu_lgs = batched(cpu_model)
+    berr = (card_lgs - cpu_lgs).abs().max().item()
+    log(f"  {arch} batch of 8 (6 identical lanes), 8 steps: tokens "
+        f"equal {card_toks == cpu_toks}, logits max|diff| {berr:.3e}; "
+        f"identical lanes parted (choices dropped)")
+    if card_toks != cpu_toks or not berr <= 1e-3:
+        raise AssertionError(f"{arch} batched: card {card_toks} cpu "
+                             f"{cpu_toks}, logits {berr}")
+    stats.update(last_logits_max_abs_diff=worst,
+                 batch_logits_max_abs_diff=berr)
+    del cpu_model
+    gc.collect()
+
+    # observed, not required: the fleet against generate_sequential
+    rep = Replica(f"{arch}-identity", cfg, model, slots=4, capacity=1024,
+                  prefill_chunk_tokens=32)
+    fleet = ServingFleet(make_policy("DDS"), source=rep.name,
+                         coordinator=rep.name, admission_margin=0.0)
+    fleet.add_replica(rep)
+    with ThreadPoolExecutor(len(prompts)) as ex:
+        res = list(ex.map(fleet.submit, [Request(i, p, new, 1e9)
+                                         for i, p in enumerate(prompts)]))
+    same = []
+    for i, (p, r) in enumerate(zip(prompts, res)):
+        if r.outcome != "ok":
+            raise AssertionError(f"{arch} fleet request {i}: {r.outcome}")
+        seq = rep.generate_sequential(Request(100 + i, p, new, 1e9)).tolist()
+        same.append(r.tokens.tolist() == seq)
+    log(f"  {arch} fleet == generate_sequential (observed, not required): "
+        f"{same}")
+    stats.update(fleet_equals_sequential=same,
+                 seconds=time.perf_counter() - t0)
+    fleet.stop()
+    rep.stop()
+    DETAILS[f"identity_{arch}"] = stats
+    del model, rep, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 4
 def _kernel_class(name: str) -> str:
     for key, cls in (("paged_decode_tc_kernel", "paged_decode_attention"),
@@ -1969,11 +2287,12 @@ def expected_launches(cfg, steps: int, chunks: int, wholes: int,
 
 
 def serve_phase(dev, arch="qwen3-4b", capacity=2048, long_prompts=(),
-                key="serve"):
-    """Phase 4: ``arch`` at its full config in bf16 through a DDS fleet of
-    2 replicas sharing weights, 8 slots, a 32-token chunk ceiling; 12
-    requests of 64-1024 prompt tokens (the last ones replaced by
-    ``long_prompts``), 32 new tokens each, one sampled."""
+                key="serve", layers=0):
+    """Phase 4: ``arch`` at its full config in bf16 (its depth cut to
+    ``layers`` where that is set) through a DDS fleet of 2 replicas sharing
+    weights, 8 slots, a 32-token chunk ceiling; 12 requests of 64-1024
+    prompt tokens (the last ones replaced by ``long_prompts``), 32 new
+    tokens each, one sampled."""
     import gc
     import numpy as np
     import torch
@@ -1988,6 +2307,8 @@ def serve_phase(dev, arch="qwen3-4b", capacity=2048, long_prompts=(),
     torch.cuda.reset_peak_memory_stats(dev)
     held_gb = torch.cuda.memory_allocated(dev) / 1e9    # left by earlier phases
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     fleet = build_fleet(cfg, "DDS", replicas=2, slots=8, capacity=capacity,
                         prefill_chunk_tokens=32, seed=SEED, device=dev,
@@ -2074,12 +2395,13 @@ def serve_phase(dev, arch="qwen3-4b", capacity=2048, long_prompts=(),
     return launches
 
 
-def paged_serve_phase(dev):
-    """Phase 5: the paged path with the prefix cache at qwen3-4b's full
-    config: 2 replicas sharing weights, 8 lanes, capacity 2048, pages of
-    16, 512 pages each (half of what 8 full lanes need), DDS; 12 requests
-    opening with one 512-token system prompt, the first alone until its
-    first token, one equal to the system prompt (a full hit)."""
+def paged_serve_phase(dev, arch="qwen3-4b", key="paged", layers=0):
+    """Phase 5: the paged path with the prefix cache at ``arch``'s full
+    config (its depth cut to ``layers`` where that is set): 2 replicas
+    sharing weights, 8 lanes, capacity 2048, pages of 16, 512 pages each
+    (half of what 8 full lanes need), DDS; 12 requests opening with one
+    512-token system prompt, the first alone until its first token, one
+    equal to the system prompt (a full hit)."""
     import gc
     import numpy as np
     import torch
@@ -2091,7 +2413,9 @@ def paged_serve_phase(dev):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg = get_config("qwen3-4b")
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     fleet = build_fleet(cfg, "DDS", replicas=2, slots=8, capacity=2048,
                         prefill_chunk_tokens=32, paged=True, page_size=16,
@@ -2106,9 +2430,9 @@ def paged_serve_phase(dev):
                 zip(r.profile.step_curve.xs, r.profile.step_curve.ys))
             + f"; chunk({r.prefill_chunk_tokens}) "
               f"{r.profile.prefill_chunk_ms:.2f} ms")
-    DETAILS["paged_serve_build_s"] = build_s
-    DETAILS["paged_step_curve_ms"] = {r.name: list(r.profile.step_curve.ys)
-                                      for r in reps}
+    DETAILS[f"{key}_serve_build_s"] = build_s
+    DETAILS[f"{key}_step_curve_ms"] = {r.name: list(r.profile.step_curve.ys)
+                                       for r in reps}
 
     rng = np.random.default_rng(SEED + 5)
     sysp = rng.integers(2, cfg.vocab_size, size=512)
@@ -2150,7 +2474,8 @@ def paged_serve_phase(dev):
     log(f"  launches {launches}; expected {expect} from {steps} decode "
         f"steps, {chunks} chunks")
     if launches != expect or steps == 0 or chunks == 0:
-        raise AssertionError(f"paged: launches {launches}, expected {expect}")
+        raise AssertionError(f"{arch} paged: launches {launches}, expected "
+                             f"{expect}")
     hit = {r.name: r._prefix.hit_rate() for r in reps}
     # LRU evictions: distinct full prompt blocks a replica served, less the
     # blocks its prefix cache still holds
@@ -2167,7 +2492,7 @@ def paged_serve_phase(dev):
             and delta["cow_copies"] >= 1):
         raise AssertionError("the prefix cache was not exercised")
 
-    DETAILS["paged_step_profile"] = step_profile(reps[0], cfg, dev)
+    DETAILS[f"{key}_step_profile"] = step_profile(reps[0], cfg, dev)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     gen = sum(len(r.tokens) for r in res)
     ttft = sorted(r.ttft_ms for r in res)
@@ -2186,7 +2511,7 @@ def paged_serve_phase(dev):
         f"{stats['ttft_p99_ms']:.0f} ms, peak memory {peak:.1f} GB")
     fleet.stop()
     stats["pools_after_stop"] = {r.name: drained(r) for r in reps}
-    DETAILS["paged_serve"] = stats
+    DETAILS[f"{key}_serve"] = stats
     return launches
 
 
@@ -2545,52 +2870,86 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"phase 1: card {card}; torch {torch.__version__} CUDA "
-        f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
+    phase_s, started = {}, [None, time.perf_counter()]
+
+    def phase(msg: str) -> None:
+        """Log a phase's first line; time the one before it."""
+        now = time.perf_counter()
+        if started[0] is not None:
+            phase_s[started[0]] = round(now - started[1], 1)
+        started[:] = [msg.split(":")[0], now]
+        log(msg)
+
+    phase(f"phase 1: card {card}; torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}; {torch.cuda.device_count()} device(s); host "
+        f"MemTotal {host_mem_gb('MemTotal'):.1f} GB")
+    DETAILS["host_mem_total_gb"] = host_mem_gb("MemTotal")
     t0 = time.perf_counter()
     took = build.build_all()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
     DETAILS["build_logs"] = {k: build.build_log(k) for k in build.SOURCES}
 
-    log("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     errs = check_kernels(dev)
+    phase("phase 2b: moe_ffn against the reference loop (one layer at full "
+        "width: mixtral-8x22b f32 and bf16, arctic-480b bf16)")
+    check_moe(dev)
+    phase("phase 2c: kernel timings beside their bounds (bf16)")
     rows = time_kernels(dev)
 
-    log("phase 3: identity (qwen3-4b width, 4 layers, f32, TF32 off)")
+    phase("phase 3: identity (qwen3-4b width, 4 layers, f32, TF32 off)")
     identity_phase(dev)
-    log("phase 3c: identity of the recurrent stacks (full width, f32, TF32 "
+    phase("phase 3c: identity of the recurrent stacks (full width, f32, TF32 "
         "off): mamba2-780m at 4 layers, recurrentgemma-9b at 5")
     recurrent_identity(dev, "mamba2-780m", 4, 1024, (40, 200, 700), ())
     recurrent_identity(dev, "recurrentgemma-9b", 5, 4096, (40, 200),
                        (700, 2300))
-    log("phase 3d: identity of minicpm-2b (full width: head_dim 64, 36 "
+    phase("phase 3d: identity of minicpm-2b (full width: head_dim 64, 36 "
         "heads over 36 KV heads, vocab 122753; 4 layers, f32, TF32 off)")
     identity_phase(dev, "minicpm-2b", 4, paged=False)
+    phase("phase 3e: identity of mixtral-8x22b (full width: 8 experts of "
+        "6144 x 16384, GQA 48/8, window 4096; 2 layers, f32, TF32 off)")
+    moe_identity(dev, "mixtral-8x22b", 2)
+    phase("phase 3f: identity of arctic-480b (full width: 128 experts of "
+        "7168 x 4864 and a dense FFN, GQA 56/8; 1 layer, f32, TF32 off)")
+    moe_identity(dev, "arctic-480b", 1)
 
-    log("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
+    phase("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
     launches = {"ring": serve_phase(dev)}
 
-    log("phase 5: paged serve with prefix cache (qwen3-4b full config, "
+    phase("phase 5: paged serve with prefix cache (qwen3-4b full config, "
         "bf16, 2 replicas, DDS)")
     launches["paged"] = paged_serve_phase(dev)
 
-    log("phase 6: serve mamba2-780m (full config: 48 layers, bf16, 2 "
+    phase("phase 6: serve mamba2-780m (full config: 48 layers, bf16, 2 "
         "replicas, DDS, capacity 2048)")
     launches["mamba2"] = serve_phase(dev, "mamba2-780m", 2048,
                                      key="serve_mamba2")
-    log("phase 7: serve recurrentgemma-9b (full config: 38 layers, bf16, 2 "
+    phase("phase 7: serve recurrentgemma-9b (full config: 38 layers, bf16, 2 "
         "replicas, DDS, capacity 4096, one prompt past the 2048 window)")
     launches["recurrentgemma"] = serve_phase(
         dev, "recurrentgemma-9b", 4096, long_prompts=(2300,),
         key="serve_recurrentgemma")
-    log("phase 8: chaos (minicpm-2b full config: 40 layers, head_dim 64, "
+    phase("phase 8: chaos (minicpm-2b full config: 40 layers, head_dim 64, "
         "MHA, bf16; 2 replicas, DDS): crash, hang, slow(4x), partition")
     launches["chaos"] = chaos_phase(dev)
     for name in ("decode_attention", "flash_attention", "rmsnorm"):
         if not launches["chaos"][name]:
             raise AssertionError(f"{name}: no launch on the chaos path")
+    phase("phase 9: serve mixtral-8x22b (full width, 8 layers, bf16, 2 "
+        "replicas, DDS, capacity 8192, one prompt of 4600 tokens past the "
+        "4096 window)")
+    launches["mixtral"] = serve_phase(dev, "mixtral-8x22b", 8192,
+                                      long_prompts=(4600,),
+                                      key="serve_mixtral", layers=8)
+    phase("phase 10: paged serve with prefix cache, arctic-480b (full width, "
+        "2 layers, bf16, 2 replicas, DDS)")
+    launches["arctic"] = paged_serve_phase(dev, "arctic-480b",
+                                           key="arctic_paged", layers=2)
 
+    phase("all phases passed")
+    DETAILS["phase_s"] = phase_s
     meta = {
         "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:85"),

@@ -3,7 +3,9 @@
 ``params_from_numpy`` takes the JAX params pytree with every leaf already a
 numpy array (``jax.tree.map(np.asarray, params)``), unstacks the scanned
 ``periods`` into per-layer tensors, appends the ``tail`` layers, and
-returns the port's model on ``device``.  Pure numpy to torch: nothing here
+returns the port's model on ``device``.  An MoE layer's leaves (the
+router, the stacked experts and arctic's ``dense`` MLP) keep their JAX
+names and shapes.  Pure numpy to torch: nothing here
 imports JAX, so both packages run identical weights with nothing
 downloaded.
 """
@@ -64,8 +66,15 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> Model:
                 if cfg.use_qk_norm:
                     _set(layer.attn["q_norm"], lt["attn"]["q_norm"]["scale"])
                     _set(layer.attn["k_norm"], lt["attn"]["k_norm"]["scale"])
-            if layer.mlp is not None:
+            if layer.norm2 is not None:
                 _set(layer.norm2, lt["norm2"]["scale"])
+            if layer.mlp is not None:
                 for name in layer.mlp:
                     _set(layer.mlp[name], lt["mlp"][name])
+            if layer.moe is not None:
+                for name, param in layer.moe.named_parameters():
+                    leaf = lt["moe"]
+                    for part in name.split("."):    # "dense.w_up"
+                        leaf = leaf[part]
+                    _set(param, leaf)
     return model

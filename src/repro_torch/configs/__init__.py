@@ -12,12 +12,11 @@ from typing import Dict, List
 from repro_torch.common.config import ModelConfig
 
 ARCHS: List[str] = ["granite_8b", "qwen3_4b", "gemma3_27b", "mamba2_780m",
-                    "recurrentgemma_9b", "minicpm_2b"]
+                    "recurrentgemma_9b", "minicpm_2b", "mixtral_8x22b",
+                    "arctic_480b"]
 
 # archs of the JAX package not ported yet -> the ROADMAP item that ports them
 _LATER = {
-    "mixtral_8x22b": "section 2 item 2 (MoE)",
-    "arctic_480b": "section 2 item 2 (MoE)",
     "llama32_vision_90b": "section 2 item 3 (cross-attention)",
     "musicgen_medium": "section 2 item 3 (cross-attention)",
 }

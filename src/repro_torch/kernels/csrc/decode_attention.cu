@@ -10,9 +10,10 @@
 // be the limit.  bf16 design (decode_tc_kernel), all about keeping bytes in
 // flight and reading each once:
 //   * one block per (KV head, lane, split) holds all rep query heads of the
-//     GQA group (rep 1 to 16), so K and V are read exactly once at every
-//     ratio; the lane's slots [lo, min(len, n)) are cut into `splits`
-//     ranges (flash-decoding) and the launcher picks `splits` so that the
+//     GQA group (any rep from 1 to 16, in the first rep rows of a 16-row
+//     tile), so K and V are read exactly once at every ratio; the lane's
+//     slots [lo, min(len, n)) are cut into `splits` ranges
+//     (flash-decoding) and the launcher picks `splits` so that the
 //     blocks, counted per (lane, KV head), fill about two waves of the SMs;
 //   * the range passes through shared memory in tiles of 64 slots, two or
 //     three stages deep, each thread copying 16 bytes per cp.async; the
@@ -35,8 +36,9 @@
 // f32 inputs (the identity checks, held at 2e-5) take the CUDA-core body
 // decode_f32_kernel, selected by dtype: a warp owns whole rows (lane i holds
 // D/32 elements), a block takes up to 8 query heads of a group (4 at
-// D = 256), and masked slots are not loaded.  This is a dispatch by dtype,
-// not a fallback: both routes launch or fail.
+// D = 256; the largest divisor of the ratio within that), and masked slots
+// are not loaded.  This is a dispatch by dtype, not a fallback: both routes
+// launch or fail.
 #include "common.cuh"
 #include "tc.cuh"
 
@@ -438,12 +440,25 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, int REP>
-void launch_f32(const float* q, const float* k, const float* v, const int* cl, const int* pos,
-                float* out, float* ml, float* part, int B, int n, int hkv, int rep, int splits,
-                int window, float scale, float softcap, cudaStream_t st) {
+// Query heads per f32 block: at most 8, or 4 at D = 256 (see
+// decode_f32_kernel).  A group of `rep` heads runs as rep / REP blocks,
+// REP the largest divisor of rep within that limit, so the grid is exact
+// at every ratio: 6 -> 6 and 7 -> 7 at D <= 128, 6 -> 3 and 7 -> 1 at
+// D = 256.
+template <int D, int REP = (D >= 256 ? 4 : 8)>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const int* cl,
+                       const int* pos, float* out, float* ml, float* part, int B, int n,
+                       int hkv, int rep, int splits, int window, float scale, float softcap,
+                       cudaStream_t st) {
+  if (rep % REP != 0) {
+    if constexpr (REP > 1)
+      return launch_f32<D, REP - 1>(q, k, v, cl, pos, out, ml, part, B, n, hkv, rep, splits,
+                                    window, scale, softcap, st);
+    return cudaErrorInvalidValue;
+  }
   decode_f32_kernel<D, REP><<<dim3(hkv * (rep / REP), B, splits), kWarpsF * 32, 0, st>>>(
       q, k, v, cl, pos, out, ml, part, n, hkv, rep, window, scale, softcap);
+  return cudaSuccess;
 }
 
 template <typename T, int D>
@@ -463,20 +478,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* cl,
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         cl, pos, static_cast<bf16*>(out), ml, part, n, hkv, rep, window, scale, softcap);
   } else {
-    const float* qq = static_cast<const float*>(q);
-    const float* kk = static_cast<const float*>(k);
-    const float* vv = static_cast<const float*>(v);
-    float* oo = static_cast<float*>(out);
-    // query heads per block: 8, or 4 at D = 256 (see decode_f32_kernel)
-    constexpr int kMaxRep = D >= 256 ? 4 : 8;
-    switch (rep) {
-      case 1: launch_f32<D, 1>(qq, kk, vv, cl, pos, oo, ml, part, B, n, hkv, 1, splits, window, scale, softcap, st); break;
-      case 2: launch_f32<D, 2>(qq, kk, vv, cl, pos, oo, ml, part, B, n, hkv, 2, splits, window, scale, softcap, st); break;
-      case 4: launch_f32<D, 4>(qq, kk, vv, cl, pos, oo, ml, part, B, n, hkv, 4, splits, window, scale, softcap, st); break;
-      case 8: launch_f32<D, kMaxRep>(qq, kk, vv, cl, pos, oo, ml, part, B, n, hkv, 8, splits, window, scale, softcap, st); break;
-      case 16: launch_f32<D, kMaxRep>(qq, kk, vv, cl, pos, oo, ml, part, B, n, hkv, 16, splits, window, scale, softcap, st); break;
-      default: return cudaErrorInvalidValue;
-    }
+    const cudaError_t e = launch_f32<D>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        cl, pos, static_cast<float*>(out), ml, part, B, n, hkv, rep, splits, window, scale,
+        softcap, st);
+    if (e != cudaSuccess) return e;
   }
   if (splits > 1)
     rt::combine_splits<T, D><<<B * hq, D, 0, st>>>(ml, part, static_cast<T*>(out), splits);
@@ -509,8 +515,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        int window, float scale, float softcap,
                                        void* stream) {
   const int rep = hkv > 0 ? hq / hkv : 0;
-  if (B <= 0 || B > 65535 || n <= 0 || hkv <= 0 || hq % hkv != 0 || rep > 16 ||
-      (rep & (rep - 1)) != 0 || splits < 1 || splits > 65535 || (splits > 1 && work == nullptr))
+  if (B <= 0 || B > 65535 || n <= 0 || hkv <= 0 || hq % hkv != 0 || rep < 1 || rep > 16 ||
+      splits < 1 || splits > 65535 || (splits > 1 && work == nullptr))
     return cudaErrorInvalidValue;
   const int* cl = static_cast<const int*>(cache_len);
   const int* pp = static_cast<const int*>(pos);

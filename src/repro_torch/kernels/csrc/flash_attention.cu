@@ -17,9 +17,13 @@
 // bf16 design (flash_tc_kernel):
 //   * rows packed by KV head: a block owns (row tile, KV head, batch row,
 //     key split), where packed row r is query r / rep of query head
-//     kh * rep + r % rep.  A tile of 64 packed rows covers whole GQA groups
-//     (rep <= 16), so every K/V tile is read once per group, not once per
-//     query head.  Four warps, 16 packed rows each;
+//     kh * rep + r % rep.  A tile of 64 packed rows holds the heads of
+//     64 / rep queries, so every K/V tile is read once per row tile, not
+//     once per query head.  Where rep does not divide 64 (3, 5, 6, 7, ...)
+//     a tile ends part way through a query's heads and the next tile holds
+//     the rest: every row is indexed by r / rep and r % rep alone, and the
+//     live-tile masks read each row's own query position.  Four warps, 16
+//     packed rows each;
 //   * Q·Kᵀ and P·V run on the tensor cores (mma.sync.m16n8k16, bf16
 //     operands from shared memory through ldmatrix, f32 accumulators; at
 //     D <= 128 the Q fragments stay in registers across tiles); softcap,

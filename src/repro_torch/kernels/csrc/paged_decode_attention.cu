@@ -14,10 +14,11 @@
 // the limit.  bf16 design (paged_decode_tc_kernel), the ring-decode design
 // of decode_attention.cu with rows addressed through the table:
 //   * one block per (KV head, lane, split) holds all rep query heads of the
-//     GQA group (rep 1 to 16), so every K/V row is read exactly once per
-//     group at every ratio; the lane's pages up to ceil(cache_len / page)
-//     (from the window's first page) are cut into `splits` page-aligned
-//     ranges (flash-decoding), merged by rt::combine_splits;
+//     GQA group (any rep from 1 to 16), so every K/V row is read exactly
+//     once per group at every ratio; the lane's pages up to
+//     ceil(cache_len / page) (from the window's first page) are cut into
+//     `splits` page-aligned ranges (flash-decoding), merged by
+//     rt::combine_splits;
 //   * the split's slice of the lane's table is copied into shared memory
 //     once, at the block's start;
 //   * the range passes through shared memory in tiles of 64 slots, two or
@@ -39,9 +40,9 @@
 //     softmax state, and merge through shared memory at the end.
 // f32 inputs (the identity checks, held at 2e-5) take the CUDA-core body
 // paged_decode_f32_kernel, selected by dtype: 8 warps split the range row
-// by row, a block takes up to 8 query heads (4 at D = 256), a -1 entry is
-// skipped before any load and a row whose pos does not match before its
-// K/V load.  This is a dispatch by dtype, not a fallback: both routes
+// by row, a block takes up to 8 query heads (4 at D = 256; the largest
+// divisor of the ratio within that), a -1 entry is skipped before any load
+// and a row whose pos does not match before its K/V load.  This is a dispatch by dtype, not a fallback: both routes
 // launch or fail.
 //
 // A lane with no visible slot gets what the oracle gives it: the softmax of
@@ -585,13 +586,25 @@ paged_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int D, int REP>
-void launch_f32(const float* q, const float* k, const float* v, const int* pos,
-                const int* tables, const int* cl, float* out, float* ml, float* part, int B,
-                int maxp, int page, int hkv, int rep, int splits, int window, float scale,
-                float softcap, cudaStream_t st) {
+// Query heads per f32 block: at most 8, or 4 at D = 256 (see
+// paged_decode_f32_kernel).  A group of `rep` heads runs as rep / REP
+// blocks, REP the largest divisor of rep within that limit, so the grid is
+// exact at every ratio: 6 -> 6 and 7 -> 7 at D <= 128, 6 -> 3 and 7 -> 1
+// at D = 256.
+template <int D, int REP = (D >= 256 ? 4 : 8)>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const int* pos,
+                       const int* tables, const int* cl, float* out, float* ml, float* part,
+                       int B, int maxp, int page, int hkv, int rep, int splits, int window,
+                       float scale, float softcap, cudaStream_t st) {
+  if (rep % REP != 0) {
+    if constexpr (REP > 1)
+      return launch_f32<D, REP - 1>(q, k, v, pos, tables, cl, out, ml, part, B, maxp, page,
+                                    hkv, rep, splits, window, scale, softcap, st);
+    return cudaErrorInvalidValue;
+  }
   paged_decode_f32_kernel<D, REP><<<dim3(hkv * (rep / REP), B, splits), kWarpsF * 32, 0, st>>>(
       q, k, v, pos, tables, cl, out, ml, part, page, maxp, hkv, rep, window, scale, softcap);
+  return cudaSuccess;
 }
 
 template <typename T, int D>
@@ -615,20 +628,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* pos
         pos, tables, cl, static_cast<bf16*>(out), ml, part, page, maxp, hkv, rep, window, scale,
         softcap);
   } else {
-    const float* qq = static_cast<const float*>(q);
-    const float* kk = static_cast<const float*>(k);
-    const float* vv = static_cast<const float*>(v);
-    float* oo = static_cast<float*>(out);
-    // query heads per block: 8, or 4 at D = 256 (see paged_decode_f32_kernel)
-    constexpr int kMaxRep = D >= 256 ? 4 : 8;
-    switch (rep) {
-      case 1: launch_f32<D, 1>(qq, kk, vv, pos, tables, cl, oo, ml, part, B, maxp, page, hkv, 1, splits, window, scale, softcap, st); break;
-      case 2: launch_f32<D, 2>(qq, kk, vv, pos, tables, cl, oo, ml, part, B, maxp, page, hkv, 2, splits, window, scale, softcap, st); break;
-      case 4: launch_f32<D, 4>(qq, kk, vv, pos, tables, cl, oo, ml, part, B, maxp, page, hkv, 4, splits, window, scale, softcap, st); break;
-      case 8: launch_f32<D, kMaxRep>(qq, kk, vv, pos, tables, cl, oo, ml, part, B, maxp, page, hkv, 8, splits, window, scale, softcap, st); break;
-      case 16: launch_f32<D, kMaxRep>(qq, kk, vv, pos, tables, cl, oo, ml, part, B, maxp, page, hkv, 16, splits, window, scale, softcap, st); break;
-      default: return cudaErrorInvalidValue;
-    }
+    const cudaError_t e = launch_f32<D>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        pos, tables, cl, static_cast<float*>(out), ml, part, B, maxp, page, hkv, rep, splits,
+        window, scale, softcap, st);
+    if (e != cudaSuccess) return e;
   }
   if (splits > 1)
     rt::combine_splits<T, D><<<B * hq, D, 0, st>>>(ml, part, static_cast<T*>(out), splits);
@@ -662,7 +666,7 @@ extern "C" int paged_decode_attention_launch(
     int window, float scale, float softcap, void* stream) {
   const int rep = hkv > 0 ? hq / hkv : 0;
   if (B <= 0 || B > 65535 || maxp <= 0 || page <= 0 || hkv <= 0 || hq % hkv != 0 ||
-      rep > 16 || (rep & (rep - 1)) != 0 || splits < 1 || splits > 65535 ||
+      rep < 1 || rep > 16 || splits < 1 || splits > 65535 ||
       (splits > 1 && work == nullptr))
     return cudaErrorInvalidValue;
   const int* pp = static_cast<const int*>(pos);

@@ -8,7 +8,7 @@ CPU path runs and the kernel is held against.
 
 It is bound by the bytes of K and V it must read.  In bf16 one block per
 (KV head, lane, slot range) holds every query head of the GQA group, so
-K and V are read once at every ratio; tiles of 64 slots stream through two
+K and V are read once at every ratio (1 to 16); tiles of 64 slots stream through two
 or three shared-memory stages by ``cp.async`` with the ``pos`` entries
 beside them (no K/V copy waits on a ``pos`` load); scores and P·V run on
 the tensor cores (``mma.sync``, f32 accumulation, P rounded to bf16 where
@@ -61,7 +61,7 @@ def _check(q, k_cache, v_cache, cache_len, pos):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
     kb, n, hkv, kd = k_cache.shape
-    if kb != b or kd != d or hq % hkv or (hq // hkv) not in (1, 2, 4, 8, 16) \
+    if kb != b or kd != d or hq % hkv or not 1 <= hq // hkv <= 16 \
             or d not in (64, 128, 256):
         raise ValueError(f"decode_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, cache {tuple(k_cache.shape)}")

@@ -9,7 +9,9 @@ CPU path runs and the kernel is held against.
 It is bound by the bytes of q, K, V and out at the main path's shapes.  In
 bf16 a block owns 64 *packed rows* of one KV head (packed row r is query
 r // rep of query head ``kh * rep + r % rep``), so every K/V tile is read
-once per GQA group; Q·Kᵀ and P·V run on the tensor cores (``mma.sync``,
+once per row tile, not per query head (at a ratio that does not divide 64,
+such as mixtral's 6 or arctic's 7, a tile ends part way through a query's
+heads); Q·Kᵀ and P·V run on the tensor cores (``mma.sync``,
 f32 accumulation), with P split into ``hi = bf16(P)`` and ``lo = bf16(P -
 hi)`` so that it keeps about 16 mantissa bits of the oracle's f32 P; K/V
 tiles of 64 keys (32 at D 256) stream through shared-memory stages by

@@ -6,7 +6,7 @@ replacing the TPU kernel
 ``repro/kernels/decode_attention.py::paged_decode_attention``
 (``_paged_decode_kernel``).  It is bound by the bytes of the live pages'
 K and V.  In bf16 one block per (KV head, lane, page range) holds every
-query head of the GQA group, so each K/V row is read once at every ratio;
+query head of the GQA group, so each K/V row is read once at every ratio (1 to 16);
 the range's slice of the lane's table sits in shared memory, and tiles of
 64 slots, addressed row by row through it (a tile may span pages), stream
 through two or three shared-memory stages by ``cp.async`` with each slot's
@@ -68,7 +68,7 @@ def _check(q, k_pages, v_pages, pos_pages, tables, cache_len):
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")
     npool, page, hkv, kd = k_pages.shape
-    if kd != d or hq % hkv or (hq // hkv) not in (1, 2, 4, 8, 16) \
+    if kd != d or hq % hkv or not 1 <= hq // hkv <= 16 \
             or d not in (64, 128, 256):
         raise ValueError(f"paged_decode_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, pool {tuple(k_pages.shape)}")

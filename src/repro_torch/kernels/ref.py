@@ -14,12 +14,17 @@ Each function keeps the numerics of its JAX twin:
   RG-LRU (``rglru_reference``, ``rglru_chunked``, ``rglru_decode_step``)
   scans and the causal depthwise conv run in float32 and round once to
   the input dtype; ``rglru_chunked`` combines in the order of
-  ``jax.lax.associative_scan``.
+  ``jax.lax.associative_scan``;
+* ``moe_ffn_reference`` is the MoE FFN as a plain loop over tokens and
+  their choices (no JAX twin: it checks ``models.moe.moe_ffn``, which
+  follows ``repro.models.moe``).
 
 These are the CPU path of the port and the oracles its Hopper kernels are
 held against.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -349,3 +354,61 @@ def causal_conv1d_step(conv_state, x_t, w, b=None):
     if b is not None:
         out = out + b.to(torch.float32)
     return out.to(x_t.dtype), window[:, 1:]
+
+
+# ===================================================================== MoE
+def _swiglu(x, w_gate, w_up, w_down):
+    """SiLU-gated FFN in x's dtype, with the reference's rounding of the
+    SiLU: a = x @ w_gate, then 1 + exp(-a), its reciprocal, a times that
+    and times x @ w_up, each rounded to x's dtype."""
+    a = x @ w_gate
+    return (a * (1.0 / (1.0 + torch.exp(-a))) * (x @ w_up)) @ w_down
+
+
+def moe_ffn_reference(p, x, cfg, num_groups: int = 1):
+    """The MoE FFN token by token: a plain loop, independent of the
+    gather formulation of ``models.moe.moe_ffn``.  x: (B, S, D).
+
+    The router logits are one product ``x @ router`` in x's dtype, the
+    probabilities a float32 softmax.  Then, group by group and token by
+    token in order, each token takes its k most probable experts (ties to
+    the lower index), with weights renormalized over the k; a (token,
+    choice) is kept while its expert has served fewer than the capacity
+    ``min(max(4, ceil(k * Tg * factor / E) rounded up to a multiple of
+    4), Tg * k)`` in this group, and a kept one adds ``weight * FFN_e(x_t)``
+    (SwiGLU in x's dtype, ``_swiglu``, the weight rounded to it) to its
+    token's row.
+    Arctic's dense SwiGLU FFN (``moe_dense_ff``) is added on every row.
+    Returns (y (B, S, D), kept: the kept (token, choice) pairs in order)."""
+    bsz, s, d = x.shape
+    t = bsz * s
+    g = num_groups if t % num_groups == 0 else 1
+    tg = t // g
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    want = math.ceil(k * tg * cfg.moe_capacity_factor / e)
+    cap = min(max(4, -(-want // 4) * 4), tg * k)
+    x2 = x.reshape(t, d)
+    probs = torch.softmax((x2 @ p["router"]).float(), dim=-1).cpu()
+    out = torch.zeros_like(x2)
+    kept = []
+    for g0 in range(0, t, tg):
+        served = [0] * e
+        for i in range(g0, g0 + tg):
+            row = probs[i].tolist()
+            order = sorted(range(e), key=lambda j: (-row[j], j))[:k]
+            w = probs[i, order]
+            w = w / w.sum().clamp_min(1e-9)
+            for choice, j in enumerate(order):
+                if served[j] >= cap:
+                    continue
+                served[j] += 1
+                kept.append((i, choice))
+                y = _swiglu(x2[i:i + 1], p["w_gate"][j], p["w_up"][j],
+                            p["w_down"][j])
+                out[i] = out[i] + y[0] * w[choice].to(x.dtype).to(x.device)
+    if cfg.moe_dense_ff:
+        if cfg.mlp_kind != "swiglu":
+            raise ValueError(f"dense FFN kind {cfg.mlp_kind!r}")
+        dn = p["dense"]
+        out = out + _swiglu(x2, dn["w_gate"], dn["w_up"], dn["w_down"])
+    return out.reshape(bsz, s, d), kept

@@ -22,8 +22,10 @@ an SSD (Mamba2) block, ``{"conv", "h"}`` for an RG-LRU (Griffin) block,
 batch-major in ring and paged mode alike (block tables do not apply).
 
 Self-attention (global and sliding-window), SSD and RG-LRU blocks with an
-optional dense MLP are ported; cross-attention and MoE layers raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+optional dense MLP are ported, and attention blocks of a config with
+``num_experts`` take the mixture-of-experts FFN (``models.moe``) as their
+channel mixer; cross-attention layers raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from torch import nn
 from repro_torch.common.config import ATTN, CROSS, LOCAL, RGLRU, SSM, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp, rmsnorm
@@ -74,9 +77,6 @@ class Block(nn.Module):
         super().__init__()
         if kind not in (ATTN, SSM, RGLRU):
             raise _not_ported(kind)
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "MoE layers are not ported yet: ROADMAP.md section 2 item 2")
         self.kind, self.attn_kind = kind, attn_kind
         d, h, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)
@@ -98,26 +98,51 @@ class Block(nn.Module):
                 attn["q_norm"] = _param((hd,), f32, device, 0.0)
                 attn["k_norm"] = _param((hd,), f32, device, 0.0)
             self.attn = nn.ParameterDict(attn)
-        self.norm2 = None
-        self.mlp = None
-        if cfg.d_ff > 0:
-            f = cfg.d_ff
+        self.norm2 = self.mlp = self.moe = None
+        if cfg.num_experts and kind == ATTN:
             self.norm2 = _param((d,), f32, device, 0.0)
-            m = {"w_up": _param((d, f), dt, device),
-                 "w_down": _param((f, d), dt, device)}
-            if cfg.mlp_kind in ("swiglu", "geglu"):
-                m["w_gate"] = _param((d, f), dt, device)
-            self.mlp = nn.ParameterDict(m)
+            self.moe = Experts(cfg, device)
+        elif cfg.d_ff > 0:
+            self.norm2 = _param((d,), f32, device, 0.0)
+            self.mlp = _mlp_params(cfg, cfg.d_ff, device)
+
+
+def _mlp_params(cfg: ModelConfig, f: int, device) -> nn.ParameterDict:
+    d, dt = cfg.d_model, cfg.dtype
+    m = {"w_up": _param((d, f), dt, device),
+         "w_down": _param((f, d), dt, device)}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        m["w_gate"] = _param((d, f), dt, device)
+    return nn.ParameterDict(m)
+
+
+class Experts(nn.Module):
+    """An MoE layer's leaves in ``cfg.dtype``, read by name as a dict's
+    (``p["router"]``): ``router`` (d, E), ``w_gate``/``w_up`` (E, d, f),
+    ``w_down`` (E, f, d) and, with ``moe_dense_ff``, the ``dense`` MLP."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        for name, shape in moe_lib.param_shapes(cfg).items():
+            setattr(self, name, _param(shape, cfg.dtype, device))
+        self.dense = (_mlp_params(cfg, cfg.moe_dense_ff, device)
+                      if cfg.moe_dense_ff else None)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
 
 
 def _channel_mix(p: Block, x, y, cfg: ModelConfig):
-    """The mixer's residual ``x + y``, then the pre-norm dense MLP with its
-    residual.  The add and the norm are one launch on the card
-    (``add_rmsnorm``).  The aux (MoE balance) loss of a dense layer is
-    0.0."""
-    if p.mlp is None:
+    """The mixer's residual ``x + y``, then the pre-norm dense MLP or MoE
+    FFN with its residual.  The add and the norm are one launch on the card
+    (``add_rmsnorm``).  Returns (x, aux): the MoE balance loss, 0.0 for a
+    dense layer."""
+    if p.norm2 is None:
         return x + y, 0.0
     x, h = ops.add_rmsnorm(x, y, p.norm2, cfg.norm_eps)
+    if p.moe is not None:
+        out, aux = moe_lib.moe_ffn(p.moe, h, cfg)
+        return x + out, aux
     return x + mlp(p.mlp, h, cfg.mlp_kind), 0.0
 
 

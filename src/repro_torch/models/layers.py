@@ -41,6 +41,15 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
 
 
 # ----------------------------------------------------------------------- mlps
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference rounds it: the logistic as
+    ``1 / (1 + exp(-x))``, then the product, each operation rounded to x's
+    dtype (XLA's expansion of ``lax.logistic``; ``F.silu`` rounds once,
+    which moves a bf16 product by a spacing now and then).  The MoE FFNs
+    use it; ``mlp`` keeps ``F.silu`` (one launch in place of four)."""
+    return x * torch.reciprocal(torch.exp(-x) + 1.0)
+
+
 def mlp(p, x: torch.Tensor, kind: str = "swiglu"):
     up = x @ p["w_up"]
     if kind == "swiglu":

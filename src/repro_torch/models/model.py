@@ -79,12 +79,28 @@ def _init_rglru_(p, cfg: ModelConfig, gen: torch.Generator) -> None:
     p["lam"].copy_(rglru_lib.lam_init(cfg, p["lam"].device))
 
 
+def init_moe_(p, gen: torch.Generator) -> None:
+    """The reference's MoE initializers: the router with fan-in on axis 0
+    and the (E, d, f) / (E, f, d) expert tensors with fan-in on axis 1
+    (std 1/sqrt(d) for ``w_gate``/``w_up``, 1/sqrt(f) for ``w_down``),
+    drawn expert by expert so that the float32 draw holds one expert's
+    slice, never the whole tensor; arctic's dense MLP as a dense one."""
+    lyr.dense_init_(p["router"], 0, gen)
+    for name in ("w_gate", "w_up", "w_down"):
+        for w in p[name]:
+            lyr.dense_init_(w, 0, gen)
+    if p.dense is not None:
+        for name in p.dense:
+            lyr.dense_init_(p.dense[name], 0, gen)
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     """Random weights from ``seed``, drawn on ``device`` with a
     ``torch.Generator``: truncated-normal fan-in projections, a standard
     normal embedding, zero norm gains and the recurrent mixers' own
     initializers (the reference's distributions; the draws themselves
-    differ from JAX's)."""
+    differ from JAX's).  Each tensor is drawn into a float32 temporary of
+    its own shape (an MoE expert tensor: one expert's slice at a time)."""
     dev = resolve_device(device)
     model = Model(cfg, dev)
     gen = torch.Generator(device=dev)
@@ -102,6 +118,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
         if layer.mlp is not None:
             for name in layer.mlp:
                 lyr.dense_init_(layer.mlp[name], 0, gen)
+        if layer.moe is not None:
+            init_moe_(layer.moe, gen)
     lyr.embed_init_(model.embed, gen)
     if model.head is not None:
         lyr.dense_init_(model.head, 0, gen)

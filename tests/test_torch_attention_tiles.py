@@ -155,6 +155,8 @@ SERVING = {
     # arch: (Hq, Hkv, head_dim, ring slots)
     "qwen3-4b": (32, 8, 128, 2048),
     "recurrentgemma-9b": (16, 1, 256, 2048),
+    "mixtral-8x22b": (48, 8, 128, 4096),    # GQA ratio 6, window 4096
+    "arctic-480b": (56, 8, 128, 2048),      # GQA ratio 7
 }
 
 
@@ -209,3 +211,31 @@ def test_launch_geometry_fits_hopper_at_serving_shapes(monkeypatch, arch):
                 assert sp == 1 or -(-maxp // sp) * page >= 256
                 # about two waves of blocks on the 132 SMs, no more
                 assert sp == 1 or hkv * b * (sp - 1) < 2 * 132
+
+
+@pytest.mark.parametrize("rep", [3, 5, 6, 7])
+def test_decode_wrappers_accept_every_ratio_and_refuse_a_non_divisor(rep):
+    """The ring and paged decode wrappers' shape checks take any GQA ratio
+    from 1 to 16 (mixtral's 6, arctic's 7), at each head_dim, and still
+    refuse query heads that are not a multiple of the KV heads, and a
+    ratio over 16."""
+    hkv, b, n, page, maxp = 2, 2, 32, 8, 4
+
+    def calls(hq, d):
+        q = torch.zeros((b, 1, hq, d))
+        cache = torch.zeros((b, n, hkv, d))
+        pool = torch.zeros((b * maxp + 1, page, hkv, d))
+        cl = torch.ones(b, dtype=torch.int32)
+        pos = torch.zeros((b, n), dtype=torch.int32)
+        ppos = torch.zeros(pool.shape[:2], dtype=torch.int32)
+        tables = torch.zeros((b, maxp), dtype=torch.int32)
+        return (lambda: dk._check(q, cache, cache, cl, pos),
+                lambda: pk._check(q, pool, pool, ppos, tables, cl))
+
+    for d in (64, 128, 256):
+        for check in calls(hkv * rep, d):
+            check()
+        for hq in (hkv * rep + 1, hkv * 17):
+            for check in calls(hq, d):
+                with pytest.raises(ValueError, match="unsupported"):
+                    check()

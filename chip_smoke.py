@@ -25,7 +25,14 @@ success):
    and stale pages and an empty lane), flash chunks of 1, 17 and 32 over
    empty, partial, full and wrapped rings through both key sources and
    prompts of 64 and 1024, and a cross over ratios 3, 5, 6 and 7 at D
-   64/128/256; flash and ring
+   64/128/256; ring decode, paged decode and flash also at musicgen-medium's
+   D 64, 24 query heads over 24 (chunks of 1, 8 and 32, prompts of 64, 512
+   and 1024, pages of 16), and ring decode and whole prompts of 64 and 512
+   at llama-3.2-vision-90b's self-attention shapes, 64 over 8 at D 128;
+   that arch's cross-attention forms at 64 over 8 at D 128 over 1601 image
+   tokens, 8 lanes with distinct keys: flash not causal, 1, 17, 64 and 512
+   queries over all 1601 keys, and the contiguous decode kernel (no
+   ``pos``) with every slot visible; flash and ring
    decode also over GQA ratios 1-16 at D 64/128/256, chunks of 1, 17 and
    32 queries over empty, partial and wrapped rings passed as the ring
    arguments, window and softcap, prompts of 512 and 2304, and bf16 flash
@@ -38,8 +45,8 @@ success):
    32, 100 and 128 in one chunk and several, bf16 within 0.75 spacings of
    the f32 oracle, which holds its hi/lo splits; the norm kernel's four
    entry points (norm, qk pair, residual add, Mamba2's gated norm) over
-   widths 64 to 7168 (minicpm-2b's 2304, mixtral's 6144 and arctic's 7168
-   among them) and an odd one, 1 to 1280 rows, the residual sum
+   widths 64 to 8192 (musicgen-medium's 1536, minicpm-2b's 2304, mixtral's
+   6144, arctic's 7168 and llama-3.2-vision's 8192 among them) and an odd one, 1 to 1280 rows, the residual sum
    bit-equal to ``x + y``; ``rglru`` from one token to 2300 on both of its
    paths, 1 and 8 rows, width 4096 and an odd one), then timings (kernel,
    plain version, one PyTorch library call as a yardstick where one
@@ -51,6 +58,9 @@ success):
    by kernel; the norm and ``rglru`` at one row / one token (their fixed
    costs), each norm form beside the unfused expression it replaces, and
    the host issue cost of a call (N back-to-back calls between two syncs);
+   the cross-attention forms at llama-3.2-vision's shapes (flash, 8 lanes of
+   512 queries over 1601 keys, not causal; contiguous decode over 1601
+   slots) beside their bounds and SDPA over the same keys;
    (2b) the MoE FFN (``models.moe.moe_ffn``, plain PyTorch around the
    kernels) against ``ref.moe_ffn_reference``, a loop over tokens and
    choices, on one layer at full width (mixtral-8x22b in f32 and bf16,
@@ -83,6 +93,14 @@ success):
    decode steps, tokens equal and logits within 1e-3; whether the fleet's
    stream equals ``generate_sequential`` is logged, since MoE couples a
    batch's lanes once an expert overflows;
+   then (3g) llama-3.2-vision-90b at full width, one period (4 self + 1
+   cross layers, 25.5 GB of f32 weights on the card and again on the host)
+   through the model functions, since no replica serves a cross stack: 4
+   lanes with their own seeded stub encoder states (1601 x 8192) and
+   64-token prompts, ``prefill(enc=...)`` and 16 greedy decode steps, tokens
+   equal card against CPU and every step's logits within 1e-3; then (3h)
+   musicgen-medium at full width, 4 layers, as qwen3-4b's phase 3 (ring
+   and paged with the prefix cache, card against CPU);
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
@@ -126,7 +144,18 @@ success):
    ``rmsnorm`` launches, per chunk 8 ``flash_attention`` and 17;
 10. paged serve with the prefix cache, arctic-480b at full width, depth
    cut to 2 layers (bf16, 55 GB of weights) as in phase 5: per step 2
-   ``paged_decode_attention`` and 5 ``rmsnorm`` launches.
+   ``paged_decode_attention`` and 5 ``rmsnorm`` launches;
+11. serve musicgen-medium at full config (48 layers, bf16, 2.7 GB of
+   weights, capacity 2048) as in phase 4: per step 48
+   ``decode_attention`` and 97 ``rmsnorm`` launches, per chunk 48
+   ``flash_attention`` and 97;
+12. llama-3.2-vision-90b generation at full width, depth cut to 20 layers
+   (16 self + 4 cross, bf16, 38.4 GB of weights; 100 layers need about
+   176 GB): 8 lanes with their own stub encoder states, 512-token prompts,
+   one batched ``prefill(enc=...)`` and 32 greedy decode steps; per step 20
+   ``decode_attention`` launches (4 contiguous over the image tokens) and
+   41 ``rmsnorm``, per prefill 20 ``flash_attention`` (4 not causal) and
+   41; prefill ms, step wall and device-busy ms, tokens/s and peak memory.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary, the card
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -548,6 +577,7 @@ def check_kernels(dev):
 
     DETAILS["serve_shapes"] = check_attention_serve(dev, rng, t, record)
     DETAILS["gqa_cross"] = check_attention_gqa_cross(dev, rng, t, record)
+    DETAILS["enc_attention"] = check_attention_enc(dev, rng, t, record)
     spacings = {"flash_attention": check_attention_sweep(dev, rng, t, record),
                 "paged_decode_attention": check_paged_sweep(dev, rng, t,
                                                             record),
@@ -794,14 +824,15 @@ def check_paged_sweep(dev, rng, t, record) -> float:
 
 
 NORM_WIDTHS = (64, 128, 256, 999, 1000, 1536, 2304, 2560, 3072, 4096, 5376,
-               6144, 7168)
+               6144, 7168, 8192)
 NORM_ROWS = (1, 8, 32, 40, 320, 1280)
 
 
 def check_norm_sweep(dev, rng, t, record):
     """The four norm entry points over the widths the archs run (head_dim
-    64/128/256, d_model 1536-7168 with minicpm-2b's 2304, mixtral's 6144
-    and arctic's 7168, mamba2's d_inner 3072), an odd one (999:
+    64/128/256, d_model 1536-8192 with musicgen-medium's 1536, minicpm-2b's
+    2304, mixtral's 6144, arctic's 7168 and llama-3.2-vision's 8192,
+    mamba2's d_inner 3072), an odd one (999:
     element-wise loads) and 1000, at 1 to 1280 rows (8 decode lanes and a
     32-token chunk among them), both dtypes, nonzero gains: the norm; the qk pair (k with a quarter of q's rows); the
     residual add, whose sum must equal ``x + y`` bit for bit; the gated
@@ -944,7 +975,10 @@ def rglru_inputs(rng, shape, dtype, dev):
 # mixtral-8x22b (GQA 6) and arctic-480b (GQA 7) are the ratios where a
 # 64-row flash tile ends part way through a token's heads and the f32
 # decode bodies take a group in blocks of the ratio's largest divisor
-# within their limit.
+# within their limit.  musicgen-medium is MHA at D 64 over rings of its
+# serve phase; llama-3.2-vision-90b's self-attention layers decode over the
+# 1024-slot rings of its generation phase after a whole-prompt prefill
+# (its stack takes no chunked prefill: no chunk widths).
 SERVE_SHAPES = {
     "minicpm-2b": (36, 36, 64, 2048, 0, (1, 8, 32), (64, 512, 1024), None),
     "recurrentgemma-9b": (16, 1, 256, 2048, 2048, (32,), (512, 2304),
@@ -952,7 +986,59 @@ SERVE_SHAPES = {
     "mixtral-8x22b": (48, 8, 128, 4096, 4096, (1, 17, 32), (64, 1024), None),
     "arctic-480b": (56, 8, 128, 2048, 0, (1, 17, 32), (64, 1024),
                     (700, 900, 1, 2048)),
+    "musicgen-medium": (24, 24, 64, 2048, 0, (1, 8, 32), (64, 512, 1024),
+                        (700, 900, 1, 2048)),
+    "llama-3.2-vision-90b": (64, 8, 128, 1024, 0, (), (64, 512), None),
 }
+
+# llama-3.2-vision-90b's cross-attention layers: 64 query heads over 8 KV
+# heads of 128, over its 1601 image tokens (25 key tiles of 64 and one key
+# in a 26th).
+ENC_SHAPE = (64, 8, 128, 1601)
+
+
+def check_attention_enc(dev, rng, t, record) -> dict:
+    """The two kernel forms of a cross-attention layer at
+    llama-3.2-vision's shapes (``ENC_SHAPE``), 8 lanes with distinct keys:
+    flash with ``causal=False`` (the prefill), S of 1, 17, 64 and 512
+    queries over all 1601 keys at ``k_pos = arange(1601)``; and the
+    contiguous decode kernel (``pos=None``, the decode step), one query per
+    lane over n = 1601 slots with ``cache_len = 1601`` on every lane.  Both
+    dtypes, auto splits and one pass.  Returns (cases, max |err|) by kernel
+    and dtype."""
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    hq, hkv, d, n = ENC_SHAPE
+    b, scale = 8, d ** -0.5
+    summary = {}
+    kp = torch.arange(n, dtype=torch.int32, device=dev)
+    cl = torch.full((b,), n, dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        k = t(rng.standard_normal((b, n, hkv, d)), dtype)
+        v = t(rng.standard_normal((b, n, hkv, d)), dtype)
+        q = t(rng.standard_normal((b, 1, hq, d)), dtype)
+        kw = dict(cache_len=cl, pos=None, scale=scale)
+        exp = dk.decode_attention_plain(q, k, v, **kw)
+        for splits in (None, 1):
+            record("decode_attention",
+                   f"enc B8 n{n} all visible splits={splits or 'auto'}",
+                   dk.decode_attention(q, k, v, splits=splits, **kw), exp,
+                   dtype, quiet=summary)
+        for s_ in (1, 17, 64, 512):
+            qs = t(rng.standard_normal((b, s_, hq, d)), dtype)
+            qp = torch.zeros(s_, dtype=torch.int32, device=dev)
+            kw = dict(q_pos=qp, k_pos=kp, causal=False, window=0, scale=scale)
+            exp = fk.flash_attention_plain(qs, k, v, **kw)
+            for splits in (None, 1):
+                record("flash_attention",
+                       f"enc B8 S{s_} over C{n} not causal "
+                       f"splits={splits or 'auto'}",
+                       fk.flash_attention(qs, k, v, splits=splits, **kw), exp,
+                       dtype, quiet=summary)
+            del exp
+    return summarize("cross-attention (llama-3.2-vision)", summary)
 
 
 def summarize(what: str, summary: dict) -> dict:
@@ -1413,6 +1499,45 @@ def time_kernels(dev):
             qs, ks, vs, **dict(kw, causal=False)), flush),
         bound_ms=bms, bound_by=by)
 
+    # cross-attention at llama-3.2-vision's shapes (``ENC_SHAPE``), 8 lanes
+    # with their own image tokens: the prefill's flash, 512 queries a lane
+    # over all 1601 keys (not causal), and the decode step's contiguous
+    # decode, one query a lane with every slot visible.  The library row is
+    # SDPA over the same keys with no mask.
+    ehq, ehkv, ed, en = ENC_SHAPE
+    escale = ed ** -0.5
+    ke, ve = rnd((b, en, ehkv, ed)), rnd((b, en, ehkv, ed))
+    kv_bytes = 2 * ke.numel() * 2
+    qe = rnd((b, s, ehq, ed))
+    kw = dict(q_pos=torch.zeros(s, dtype=torch.int32, device=dev),
+              k_pos=torch.arange(en, dtype=torch.int32, device=dev),
+              causal=False, window=0, scale=escale)
+    bms, by = bound(2 * qe.numel() * 2 + kv_bytes + (s + en) * 4,
+                    4 * b * s * ehq * en * ed, PEAK_BF16_FLOPS)
+    rows["flash_attention"]["cross1601"] = dict(
+        shape=(f"B={b} S={s} over C={en} Hq={ehq} Hkv={ehkv} D={ed} bf16 not "
+               f"causal, {fk.auto_splits(b, s, ehq, ehkv, en, dev)} splits"),
+        **timings(lambda: fk.flash_attention(qe, ke, ve, **kw),
+                  lambda: fk.flash_attention_plain(qe, ke, ve, **kw),
+                  lambda: sdpa(qe, ke, ve, scale=escale)),
+        bound_ms=bms, bound_by=by)
+    q1 = rnd((b, 1, ehq, ed))
+    kw = dict(cache_len=torch.full((b,), en, dtype=torch.int32, device=dev),
+              pos=None, scale=escale)
+    bms, by = bound(kv_bytes + 2 * q1.numel() * 2 + b * 4,
+                    4 * b * ehq * en * ed, PEAK_BF16_FLOPS)
+    rows["decode_attention"]["cross1601"] = dict(
+        shape=(f"B={b} n={en} Hq={ehq} Hkv={ehkv} D={ed} bf16 contiguous, "
+               f"every slot visible, {dk.auto_splits(b, ehkv, en, dev)} "
+               f"splits"),
+        **timings(lambda: dk.decode_attention(q1, ke, ve, **kw),
+                  lambda: dk.decode_attention_plain(q1, ke, ve, **kw),
+                  lambda: sdpa(q1, ke, ve, scale=escale)),
+        single_pass_ms=device_ms(
+            lambda: dk.decode_attention(q1, ke, ve, splits=1, **kw), flush),
+        stream_ms=stream_ms(kv_bytes, dev, flush),
+        bound_ms=bms, bound_by=by)
+
     # rmsnorm: the decode step's d_model rows (8 lanes x 2560), its fixed
     # cost (one row), and each fused form at its decode shape beside what
     # it replaces (the plain version: the unfused expression)
@@ -1475,6 +1600,7 @@ def time_kernels(dev):
         row = rows[name]
         for key, at in (("ms", row), ("d256", row.get("d256")),
                         ("prompt512", row.get("prompt512")),
+                        ("cross1601", row.get("cross1601")),
                         ("prompt1024", row.get("prompt1024")),
                         ("prompt2300", row.get("prompt2300")),
                         ("pair", row.get("pair")), ("add", row.get("add")),
@@ -1906,9 +2032,10 @@ def paged_identity(cfg, model, cpu_model, ring):
     if not (got["card"] == want == got["cpu"]):
         raise AssertionError(f"paged identity: ring {want} card {got['card']} "
                              f"cpu {got['cpu']}")
-    DETAILS["paged_identity"] = dict(prompts=[len(p) for p in prompts],
-                                     new_tokens=new, prompt_tokens=total,
-                                     **stats)
+    key = ("paged_identity" if cfg.name == "qwen3-4b"
+           else f"paged_identity_{cfg.name}")
+    DETAILS[key] = dict(prompts=[len(p) for p in prompts], new_tokens=new,
+                        prompt_tokens=total, **stats)
 
 
 def recurrent_identity(dev, arch: str, layers: int, capacity: int,
@@ -2150,6 +2277,176 @@ def moe_identity(dev, arch: str, layers: int):
     torch.cuda.empty_cache()
 
 
+VISION = "llama-3.2-vision-90b"
+
+
+def vision_identity(dev, layers: int = 5):
+    """Phase 3g: llama-3.2-vision-90b at full width, one period (4 self +
+    1 cross layers), in f32 with TF32 off, through the model functions (no
+    replica serves a cross stack): 4 lanes with their own seeded stub
+    encoder states (1601 x 8192) and 64-token prompts, lanes 0 and 1 with
+    one prompt (so only ``enc`` tells them apart), ``prefill(enc=...)`` then
+    16 greedy ``decode_step``s on the card and on the CPU plain path.  The
+    tokens must be equal and every step's last logits within 1e-3, and
+    lanes 0 and 1 must differ.  The phase fails at once where the host
+    cannot hold the CPU copy (MemAvailable below its size plus 16 GB)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(VISION).replace(num_layers=layers, dtype=torch.float32)
+    t0 = time.perf_counter()
+    model = M.init_model(cfg, SEED, dev)
+    need_gb = sum(p.numel() * 4 for p in model.parameters()) / 1e9
+    avail_gb = host_mem_gb()
+    log(f"  {VISION}: {layers} layers ({cfg.layer_kinds().count('cross')} "
+        f"cross), {need_gb:.1f} GB of f32 weights; host MemAvailable "
+        f"{avail_gb:.1f} GB")
+    if avail_gb < need_gb + 16.0:
+        raise AssertionError(f"{VISION}: the CPU copy needs {need_gb:.1f} GB "
+                             f"and 16 GB beside it; the host has "
+                             f"{avail_gb:.1f} GB available")
+    rng = np.random.default_rng(SEED + 9)
+    b, plen, steps, cap = 4, 64, 16, 128
+    toks = rng.integers(2, cfg.vocab_size, size=(b, plen))
+    toks[1] = toks[0]
+    enc = rng.standard_normal((b, cfg.num_image_tokens, cfg.d_model),
+                              dtype=np.float32)
+
+    def run(m):
+        """Tokens (steps, b) and every step's last logits."""
+        logits, cache = M.prefill(
+            m, torch.as_tensor(toks, device=m.device), cfg, cap,
+            enc=torch.as_tensor(enc, device=m.device))
+        out, lgs = [], [logits[:, -1].float().cpu()]
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        for i in range(steps):
+            out.append(tok[:, 0].tolist())
+            logits, cache = M.decode_step(m, cache, tok, plen + i, cfg)
+            lgs.append(logits[:, -1].float().cpu())
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+        return out, torch.stack(lgs)
+
+    card_toks, card_lgs = run(model)
+    if not torch.isfinite(card_lgs).all():
+        raise AssertionError(f"{VISION} identity: non-finite logits")
+    apart = (card_lgs[0, 0] - card_lgs[0, 1]).abs().max().item()
+    if not apart > 1e-3:
+        raise AssertionError(f"{VISION} identity: lanes 0 and 1 share a "
+                             f"prompt and differ in enc, but their logits "
+                             f"differ by {apart}")
+    cpu_model = M.Model(cfg, "cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu_toks, cpu_lgs = run(cpu_model)
+    err = (card_lgs - cpu_lgs).abs().max().item()
+    log(f"  {VISION} 4 lanes, prompt {plen}, {steps} steps: tokens equal "
+        f"{card_toks == cpu_toks}, logits max|diff| {err:.3e} (every step); "
+        f"lanes 0/1 (one prompt, two enc) apart by {apart:.3e}")
+    # f32 throughout with TF32 off, as the other identity phases
+    if card_toks != cpu_toks or not err <= 1e-3:
+        raise AssertionError(f"{VISION} identity: card {card_toks} cpu "
+                             f"{cpu_toks}, logits {err}")
+    DETAILS["identity_vision"] = dict(
+        layers=layers, weights_gb=need_gb, host_mem_available_gb=avail_gb,
+        lanes=b, prompt=plen, steps=steps, logits_max_abs_diff=err,
+        enc_lanes_apart=apart, tol=1e-3, seconds=time.perf_counter() - t0)
+    del cpu_model
+    gc.collect()
+
+
+def vision_phase(dev, layers: int = 20) -> dict:
+    """Phase 12: llama-3.2-vision-90b generation at full width, depth cut
+    to ``layers`` (4 periods: 16 self + 4 cross), bf16, through the model
+    functions: 8 lanes with their own seeded stub encoder states and
+    512-token prompts, one batched ``prefill(enc=...)``, then 32 greedy
+    ``decode_step``s, each step's tokens read on the host.  The launches
+    of that run must equal ``expected_launches`` (per step 20
+    ``decode_attention``, 4 of them contiguous over the image tokens; per
+    prefill 20 ``flash_attention``, 4 not causal; 41 ``rmsnorm`` for each).
+    Then one decode step and the prefill are profiled.  Returns the
+    launches."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(VISION).replace(num_layers=layers)
+    t0 = time.perf_counter()
+    model = M.init_model(cfg, SEED, dev)
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(p.numel() * 2 for p in model.parameters()) / 1e9
+    b, plen, steps, cap = 8, 512, 32, 1024
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    enc = torch.randn((b, cfg.num_image_tokens, cfg.d_model), generator=gen,
+                      device=dev).to(cfg.dtype)
+    rng = np.random.default_rng(SEED + 10)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(b, plen)),
+                           device=dev)
+
+    ops.reset_kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(model, toks, cfg, cap, enc=enc)
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    out = [tok[:, 0].cpu()]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for i in range(steps):
+        t1 = time.perf_counter()
+        logits, cache = M.decode_step(model, cache, tok, plen + i, cfg)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        out.append(tok[:, 0].cpu())
+        walls.append((time.perf_counter() - t1) * 1e3)
+    launches = ops.kernel_launches()
+    expect = expected_launches(cfg, steps, 0, 1)
+    log(f"  launches {launches}; expected {expect} from {steps} decode "
+        f"steps and one whole prefill")
+    if launches != expect:
+        raise AssertionError(f"{VISION}: launches {launches}, expected "
+                             f"{expect}")
+    toks_out = torch.stack(out)
+    if not torch.isfinite(logits).all() or toks_out.min() < 0 \
+            or toks_out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{VISION}: bad logits or tokens {toks_out}")
+    step_ms = sorted(walls)[len(walls) // 2]
+    gen_s = (prefill_ms + sum(walls)) / 1e3
+    stats = dict(layers=layers, weights_gb=weights_gb, init_s=init_s,
+                 lanes=b, prompt=plen, steps=steps, prefill_ms=prefill_ms,
+                 step_wall_ms_median=step_ms,
+                 decode_tokens_per_s=b * steps / (sum(walls) / 1e3),
+                 tokens_per_s=b * (steps + 1) / gen_s, launches=launches,
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    log(f"  {layers} layers ({weights_gb:.1f} GB): prefill {prefill_ms:.1f} "
+        f"ms, decode step median {step_ms:.2f} ms, "
+        f"{stats['decode_tokens_per_s']:.1f} decode tokens/s, "
+        f"{stats['tokens_per_s']:.1f} tokens/s with the prefill, peak "
+        f"{stats['peak_mem_gb']:.1f} GB")
+    stats["decode_step"] = profile_call(
+        f"decode step at position {plen + steps}",
+        lambda: M.decode_step(model, cache, tok, plen + steps, cfg))
+    stats["prefill"] = profile_call(
+        f"prefill of {b} x {plen} tokens over {b} x {cfg.num_image_tokens} "
+        f"image tokens", lambda: M.prefill(model, toks, cfg, cap, enc=enc))
+    DETAILS["vision"] = stats
+    del model, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- phase 4
 def _kernel_class(name: str) -> str:
     for key, cls in (("paged_decode_tc_kernel", "paged_decode_attention"),
@@ -2174,6 +2471,38 @@ def _kernel_class(name: str) -> str:
     if "memcpy" in low or "memset" in low:
         return "copy"
     return "other"
+
+
+def profile_call(what: str, fn) -> dict:
+    """Host wall time (median of 5, synced) and device-busy time of one
+    call of ``fn``, with device time by kernel class and the top kernels;
+    logged as ``what``."""
+    import torch
+    for _ in range(2):
+        fn()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls)[len(walls) // 2]
+    evs = device_events(fn)
+    busy = sum(d for _, d in evs) / 1e3
+    by_class, by_name = {}, {}
+    for n_, d_ in evs:
+        c_ = _kernel_class(n_)
+        by_class[c_] = by_class.get(c_, 0.0) + d_ / 1e3
+        by_name[n_[:90]] = by_name.get(n_[:90], 0.0) + d_ / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
+        f"{100 * (1 - busy / wall):.0f}%), {len(evs)} device events; by "
+        f"class " + ", ".join(f"{k} {v:.2f}" for k, v in
+                              sorted(by_class.items())))
+    return dict(wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
+                device_events=len(evs), device_ms_by_class=by_class,
+                top_kernels_ms=top)
 
 
 def step_profile(rep, cfg, dev, at: int = 1024):
@@ -2215,33 +2544,8 @@ def step_profile(rep, cfg, dev, at: int = 1024):
         fns = (("decode_step", lambda: rep._step(rep.params, cache, tok, idx)),
                ("prefill_chunk", lambda: rep._prefill_chunk(rep.params, lane,
                                                             buf, at)))
-    out = {}
-    for name, fn in fns:
-        for _ in range(2):
-            fn()
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall = sorted(walls)[len(walls) // 2]
-        evs = device_events(fn)
-        busy = sum(d for _, d in evs) / 1e3
-        by_class, by_name = {}, {}
-        for n_, d_ in evs:
-            c_ = _kernel_class(n_)
-            by_class[c_] = by_class.get(c_, 0.0) + d_ / 1e3
-            by_name[n_[:90]] = by_name.get(n_[:90], 0.0) + d_ / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        out[name] = dict(wall_ms=wall, device_ms=busy,
-                         idle_share=1.0 - busy / wall, device_events=len(evs),
-                         device_ms_by_class=by_class, top_kernels_ms=top)
-        log(f"  {name} at position {at}: wall {wall:.2f} ms, device busy "
-            f"{busy:.2f} ms (idle {100 * (1 - busy / wall):.0f}%), "
-            f"{len(evs)} device events; by class "
-            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_class.items())))
+    out = {name: profile_call(f"{name} at position {at}", fn)
+           for name, fn in fns}
     if not rep.paged:
         # wall time of one chunk at each bucket width: the fixed and
         # per-token parts the profile's chunk-cost fit separates
@@ -2267,20 +2571,24 @@ def expected_launches(cfg, steps: int, chunks: int, wholes: int,
     """Launches of every kernel that a run of ``steps`` decode steps,
     ``chunks`` prefill chunks and ``wholes`` whole-prompt prefills must
     make, from the layer kinds: an attention layer launches the (paged)
-    decode kernel once per step and flash once per prefill, an SSD layer
-    ``ssd`` and an RG-LRU layer ``rglru`` once per prefill, and each call
-    of a norm entry point is one ``rmsnorm`` launch: every layer's
-    pre-norm, every MLP's residual add with its norm (``add_rmsnorm``),
-    every qk-norm pair (``rmsnorm_pair``, q and k in one launch), every
-    Mamba2 gated norm (``gated_rmsnorm``) and the final norm."""
+    decode kernel once per step and flash once per prefill, a
+    cross-attention layer the contiguous decode kernel once per step (its
+    cache is the encoder's, never paged) and flash once per whole prefill,
+    an SSD layer ``ssd`` and an RG-LRU layer ``rglru`` once per prefill,
+    and each call of a norm entry point is one ``rmsnorm`` launch: every
+    layer's pre-norm, every MLP's residual add with its norm
+    (``add_rmsnorm``), every qk-norm (``rmsnorm_pair``, q and k in one
+    launch; a cross layer's decode step norms q alone), every Mamba2 gated
+    norm (``gated_rmsnorm``) and the final norm."""
     kinds = cfg.layer_kinds()
-    attn = kinds.count("attn")
+    attn, cross = kinds.count("attn"), kinds.count("cross")
     prefills = chunks + wholes
     norms = 1 + len(kinds) * (1 + (cfg.d_ff > 0))
-    norms += attn * cfg.use_qk_norm + kinds.count("ssm")
-    return {"decode_attention": 0 if paged else attn * steps,
+    norms += (attn + cross) * cfg.use_qk_norm + kinds.count("ssm")
+    return {"decode_attention": (0 if paged else attn) * steps
+            + cross * steps,
             "paged_decode_attention": attn * steps if paged else 0,
-            "flash_attention": attn * prefills,
+            "flash_attention": attn * prefills + cross * wholes,
             "ssd": kinds.count("ssm") * prefills,
             "rglru": kinds.count("rglru") * prefills,
             "rmsnorm": norms * (steps + prefills)}
@@ -2915,6 +3223,14 @@ def main(argv=None) -> int:
         "7168 x 4864 and a dense FFN, GQA 56/8; 1 layer, f32, TF32 off)")
     moe_identity(dev, "arctic-480b", 1)
 
+    phase("phase 3g: identity of llama-3.2-vision-90b (full width, one "
+        "period: 4 self + 1 cross layers over 1601 image tokens; f32, TF32 "
+        "off; model functions)")
+    vision_identity(dev)
+    phase("phase 3h: identity of musicgen-medium (full width: head_dim 64, "
+        "24 heads over 24 KV heads, gelu MLP; 4 layers, f32, TF32 off)")
+    identity_phase(dev, "musicgen-medium", 4, paged=True)
+
     phase("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
     launches = {"ring": serve_phase(dev)}
 
@@ -2947,6 +3263,13 @@ def main(argv=None) -> int:
         "2 layers, bf16, 2 replicas, DDS)")
     launches["arctic"] = paged_serve_phase(dev, "arctic-480b",
                                            key="arctic_paged", layers=2)
+    phase("phase 11: serve musicgen-medium (full config: 48 layers, bf16, 2 "
+        "replicas, DDS, capacity 2048)")
+    launches["musicgen"] = serve_phase(dev, "musicgen-medium", 2048,
+                                       key="serve_musicgen")
+    phase("phase 12: llama-3.2-vision-90b generation (full width, 20 layers: "
+        "16 self + 4 cross; bf16; 8 lanes, prefill with enc, 32 steps)")
+    launches["vision"] = vision_phase(dev)
 
     phase("all phases passed")
     DETAILS["phase_s"] = phase_s
@@ -2980,7 +3303,8 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
         for extra in ("single_pass_ms", "empty_ms", "stream_ms",
-                      "library_note", "d256", "prompt512", "prompt1024",
+                      "library_note", "d256", "prompt512", "cross1601",
+                      "prompt1024",
                       "prompt2300", "one_token_ms", "one_slot_ms",
                       "read_flush_ms", "warm_ms", "fixed_ms", "issue_us",
                       "staged_ms", "pair", "add", "gated"):

@@ -1,8 +1,5 @@
-"""Registry of the archs this slice of the port serves (+ their smoke configs).
-
-The other archs of ``repro.configs`` need block kinds the port does not
-have yet; asking for one raises a ``KeyError`` naming the ROADMAP item
-that ports it.
+"""Registry of the port's archs (+ their smoke configs): every arch of the
+JAX package's registry, by the same public ids.
 """
 from __future__ import annotations
 
@@ -13,14 +10,7 @@ from repro_torch.common.config import ModelConfig
 
 ARCHS: List[str] = ["granite_8b", "qwen3_4b", "gemma3_27b", "mamba2_780m",
                     "recurrentgemma_9b", "minicpm_2b", "mixtral_8x22b",
-                    "arctic_480b"]
-
-# archs of the JAX package not ported yet -> the ROADMAP item that ports them
-_LATER = {
-    "llama32_vision_90b": "section 2 item 3 (cross-attention)",
-    "musicgen_medium": "section 2 item 3 (cross-attention)",
-}
-
+                    "arctic_480b", "musicgen_medium", "llama32_vision_90b"]
 
 # public ids whose module name is not the id with dashes as underscores
 _ALIASES = {"llama-3.2-vision-90b": "llama32_vision_90b"}
@@ -33,9 +23,6 @@ def canon(name: str) -> str:
 
 def _module(name: str):
     mod = canon(name)
-    if mod in _LATER:
-        raise KeyError(f"arch {name!r} is not ported yet: ROADMAP.md "
-                       f"{_LATER[mod]}")
     if mod not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")

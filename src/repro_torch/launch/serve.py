@@ -5,6 +5,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --paged --prefix-cache
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium --prefix-cache
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --chaos crash
 
 The path is the JAX CLI's: warm replicas -> profile pre-evaluation ->
@@ -21,6 +22,9 @@ weight tensors, drawn from seed 0.  ``--chaos crash|hang|slow|partition``
 injects that fault into ``replica0`` at ``--chaos-at-ms`` after the first
 request (``slow`` at 4x) and ends the run with a chaos summary: requests
 failed and failed over, the fleet's losses and the replicas it evicted.
+``--arch llama-3.2-vision-90b`` raises ``ValueError``: its cross-attention
+layers need per-request encoder states, which no request carries (the
+model functions take ``enc``).
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.policies import make_policy
 from repro_torch.ft import faults
 from repro_torch.models import model as model_lib
-from repro_torch.serving.engine import Replica, Request, ServingFleet
+from repro_torch.serving.engine import (Replica, Request, ServingFleet,
+                                       refuse_cross)
 from repro_torch.serving.overload import PRIORITIES, BrownoutConfig
 
 
@@ -51,7 +56,9 @@ def build_fleet(cfg, policy_name: str, replicas: int = 2,
                 seed: int = 0, device="cuda",
                 verbose: bool = True) -> ServingFleet:
     """A ``ServingFleet`` of ``replicas`` replicas that share one model
-    drawn from ``seed`` on ``device``."""
+    drawn from ``seed`` on ``device``.  A stack no replica can serve (one
+    with cross-attention layers) is refused before any weight is drawn."""
+    refuse_cross(cfg, "replica0")
     params = model_lib.init_model(cfg, seed, device)
     fleet = ServingFleet(make_policy(policy_name), source="replica0",
                          coordinator="replica1" if replicas > 1 else "replica0",

@@ -1,7 +1,7 @@
-"""Self-attention with GQA, qk-norm, rope and sliding windows.
+"""Self- and cross-attention with GQA, qk-norm, rope and sliding windows.
 
 The heavy math goes through ``repro_torch.kernels.ops``: the Hopper flash
-kernel on the card, its plain PyTorch version on the CPU.
+and decode kernels on the card, their plain PyTorch versions on the CPU.
 """
 from __future__ import annotations
 
@@ -85,3 +85,62 @@ def self_attention(p, x, cfg: ModelConfig, attn_kind: str = GLOBAL,
     if return_kv:
         return y, (k, v)
     return y
+
+
+# ------------------------------------------------------------------ cross-attn
+def _enc_proj(p, enc, cfg: ModelConfig):
+    """K and V projections of ``enc`` cast to ``cfg.dtype`` (no norm)."""
+    enc = enc.to(cfg.dtype)
+    return _proj(enc, p["wk"]), _proj(enc, p["wv"])
+
+
+def cross_kv(p, enc, cfg: ModelConfig):
+    """Encoder K/V (B, T, Hkv, hd) of ``enc`` (B, T, d) in ``cfg.dtype``,
+    k qk-normed where the config says so; no rope (llama-3.2-vision's
+    cross layers rotate nothing).  ``enc`` is cast to ``cfg.dtype`` first;
+    where the reference is handed a wider ``enc`` its einsum promotes."""
+    k, v = _enc_proj(p, enc, cfg)
+    if cfg.use_qk_norm:
+        k = ops.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def cross_attention(p, x, enc, cfg: ModelConfig, kv_cached=None, memo=None):
+    """Attention of x (B, S, d) over encoder states: every key is visible
+    to every query (no causal mask, no window, no rope).  K/V come from
+    ``enc`` (B, T, d), or from ``kv_cached`` ((B, T, Hkv, hd) each, as
+    ``cross_kv`` gives them).  Returns (y, (k, v)).
+
+    The keys go through the flash kernel with ``causal=False`` and
+    ``k_pos = arange(T)`` (``q_pos`` is read by no mask).  A one-token
+    query over cached K/V (the decode step) goes through the decode kernel
+    in its contiguous form instead (``pos=None``, ``cache_len = T`` on
+    every lane): the same softmax over all T keys, with one block holding
+    a whole GQA group where flash's 64-row tile would sit mostly empty."""
+    q = _proj(x, p["wq"])
+    if kv_cached is None:
+        k, v = _enc_proj(p, enc, cfg)
+        if cfg.use_qk_norm:
+            # q and k normed in one launch on the card
+            q, k = ops.rmsnorm_pair(q, k, p["q_norm"], p["k_norm"],
+                                    cfg.norm_eps)
+    else:
+        k, v = (t.to(x.dtype) for t in kv_cached)
+        if cfg.use_qk_norm:
+            q = ops.rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    b, s, t = x.shape[0], x.shape[1], k.shape[1]
+    if s == 1 and kv_cached is not None:
+        cl = shared(memo, ("enc_len", b, t), lambda: torch.full(
+            (b,), t, dtype=torch.int32, device=x.device))
+        out = ops.decode_attention(q, k, v, cache_len=cl, pos=None,
+                                   scale=_scale(cfg),
+                                   softcap=cfg.logit_softcap)
+    else:
+        kp = shared(memo, ("enc_pos", t), lambda: torch.arange(
+            t, dtype=torch.int32, device=x.device))
+        qp = shared(memo, ("enc_qpos", s), lambda: torch.zeros(
+            s, dtype=torch.int32, device=x.device))
+        out = ops.flash_attention(q, k, v, q_pos=qp, k_pos=kp, causal=False,
+                                  window=0, scale=_scale(cfg),
+                                  softcap=cfg.logit_softcap)
+    return _out_proj(out, p["wo"]), (k, v)

@@ -1,4 +1,6 @@
-"""Decoder blocks: pre-RMSNorm self-attention + dense MLP, with residuals.
+"""Decoder blocks: a pre-RMSNorm temporal mixer (self-attention,
+cross-attention, SSD or RG-LRU) and a pre-RMSNorm channel mixer (dense MLP
+or MoE FFN), with residuals.
 
 ``Block`` holds one layer's parameters.  Its entry points mirror the JAX
 package's ``models/blocks.py``:
@@ -20,12 +22,13 @@ copying every layer's KV.
 A recurrent layer's cache is its mixer's state: ``{"conv", "state"}`` for
 an SSD (Mamba2) block, ``{"conv", "h"}`` for an RG-LRU (Griffin) block,
 batch-major in ring and paged mode alike (block tables do not apply).
+A cross-attention layer's cache is the encoder's K/V, ``{"k", "v": (B, T,
+Hkv, D)}`` with no ``pos``: whole-prompt prefill fills it from ``enc``,
+and a decode step reads it without writing it.  Chunked prefill refuses
+cross layers, as the reference does (``model.chunked_prefill_caps``).
 
-Self-attention (global and sliding-window), SSD and RG-LRU blocks with an
-optional dense MLP are ported, and attention blocks of a config with
-``num_experts`` take the mixture-of-experts FFN (``models.moe``) as their
-channel mixer; cross-attention layers raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Attention and cross-attention blocks of a config with ``num_experts``
+take the mixture-of-experts FFN (``models.moe``) as their channel mixer.
 """
 from __future__ import annotations
 
@@ -42,14 +45,6 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp, rmsnorm
-
-_LATER = {CROSS: "ROADMAP.md section 2 item 3 (cross-attention)"}
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"{kind!r} blocks are not ported yet: {_LATER.get(kind, 'ROADMAP.md')}")
-
 
 def _param(shape, dtype, device, fill=None) -> nn.Parameter:
     t = torch.empty(shape, dtype=dtype, device=device)
@@ -71,12 +66,13 @@ def _mixer_params(shapes, f32_leaves, cfg: ModelConfig, device):
 class Block(nn.Module):
     """One decoder layer's parameters (stored in ``cfg.dtype``; the leaves
     the reference reads in float32, norm gains included, in float32).
-    ``attn``, ``ssm`` or ``rec`` holds the temporal mixer, by kind."""
+    ``attn`` (self- or cross-attention, the same leaves), ``ssm`` or
+    ``rec`` holds the temporal mixer, by kind."""
 
     def __init__(self, cfg: ModelConfig, kind: str, attn_kind: str, device):
         super().__init__()
-        if kind not in (ATTN, SSM, RGLRU):
-            raise _not_ported(kind)
+        if kind not in (ATTN, CROSS, SSM, RGLRU):
+            raise ValueError(kind)
         self.kind, self.attn_kind = kind, attn_kind
         d, h, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)
@@ -99,7 +95,7 @@ class Block(nn.Module):
                 attn["k_norm"] = _param((hd,), f32, device, 0.0)
             self.attn = nn.ParameterDict(attn)
         self.norm2 = self.mlp = self.moe = None
-        if cfg.num_experts and kind == ATTN:
+        if cfg.num_experts and kind in (ATTN, CROSS):
             self.norm2 = _param((d,), f32, device, 0.0)
             self.moe = Experts(cfg, device)
         elif cfg.d_ff > 0:
@@ -148,17 +144,19 @@ def _channel_mix(p: Block, x, y, cfg: ModelConfig):
 
 # -------------------------------------------------------------- train/prefill
 def apply_block(p: Block, x, cfg: ModelConfig, kind: str, attn_kind: str, *,
-                positions=None, memo=None):
+                positions=None, enc=None, memo=None):
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     if kind == ATTN:
         y = attn_lib.self_attention(p.attn, h, cfg, attn_kind, positions,
                                     memo=memo)
+    elif kind == CROSS:
+        y, _ = attn_lib.cross_attention(p.attn, h, enc, cfg, memo=memo)
     elif kind == SSM:
         y = ssm_lib.ssm_mixer(p.ssm, h, cfg)
     elif kind == RGLRU:
         y = rglru_lib.rglru_block(p.rec, h, cfg)
     else:
-        raise _not_ported(kind)
+        raise ValueError(kind)
     return _channel_mix(p, x, y, cfg)
 
 
@@ -175,9 +173,13 @@ def init_block_cache(cfg: ModelConfig, kind: str, attn_kind: str, batch: int,
         return ssm_lib.init_ssm_cache(cfg, batch, device)
     if kind == RGLRU:
         return rglru_lib.init_rglru_cache(cfg, batch, device)
-    if kind != ATTN:
-        raise _not_ported(kind)
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    if kind == CROSS:
+        shape = (batch, cfg.num_image_tokens, hkv, hd)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if kind != ATTN:
+        raise ValueError(kind)
     n = _attn_cache_len(cfg, attn_kind, capacity)
     return {
         "k": torch.zeros((batch, n, hkv, hd), dtype=cfg.dtype, device=device),
@@ -207,11 +209,19 @@ def apply_block_decode(p: Block, x, cache, cfg: ModelConfig, kind: str,
 
     A recurrent block advances every lane's state by one token (the tables
     do not apply); ``Replica._insert`` and ``paged_commit`` overwrite a
-    joining lane's state."""
+    joining lane's state.  A cross-attention block attends over its cached
+    encoder K/V, every slot visible, and writes nothing."""
     if kind in (SSM, RGLRU):
         return _recurrent(p, x, cfg, kind, "decode", cache=cache)
+    if kind == CROSS:
+        h = rmsnorm(p.norm1, x, cfg.norm_eps)
+        y, _ = attn_lib.cross_attention(p.attn, h, None, cfg,
+                                        kv_cached=(cache["k"], cache["v"]),
+                                        memo=memo)
+        x, aux = _channel_mix(p, x, y, cfg)
+        return x, cache, aux
     if kind != ATTN:
-        raise _not_ported(kind)
+        raise ValueError(kind)
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     b = x.shape[0]
     idx = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)
@@ -280,15 +290,23 @@ def _paged_slots(tables, idx, lanes, npool: int, page: int):
 
 # -------------------------------------------------------------------- prefill
 def apply_block_prefill(p: Block, x, cfg: ModelConfig, kind: str,
-                        attn_kind: str, *, positions=None, capacity: int = 0,
-                        memo=None):
+                        attn_kind: str, *, positions=None, enc=None,
+                        capacity: int = 0, memo=None):
     """Like ``apply_block`` but also returns a new decode cache holding the
     prompt's last ``min(S, n)`` keys in ring slots ``pos % n`` (a recurrent
-    block: its state after the prompt)."""
+    block: its state after the prompt; a cross-attention block: the K/V of
+    ``enc`` in ``cfg.dtype``)."""
     if kind in (SSM, RGLRU):
         return _recurrent(p, x, cfg, kind, "prefill")
+    if kind == CROSS:
+        h = rmsnorm(p.norm1, x, cfg.norm_eps)
+        y, (k, v) = attn_lib.cross_attention(p.attn, h, enc, cfg, memo=memo)
+        cache = {"k": k.to(cfg.dtype).contiguous(),
+                 "v": v.to(cfg.dtype).contiguous()}
+        x, aux = _channel_mix(p, x, y, cfg)
+        return x, cache, aux
     if kind != ATTN:
-        raise _not_ported(kind)
+        raise ValueError(kind)
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     b, s, _ = x.shape
     y, (k, v) = attn_lib.self_attention(p.attn, h, cfg, attn_kind, positions,
@@ -316,11 +334,15 @@ def apply_block_prefill_chunk(p: Block, x, cache, cfg: ModelConfig, kind: str,
     so a chunk that wraps the ring cannot overwrite keys its own queries
     still need.  The ring is updated in place.  A recurrent block threads
     its state through the chunk (``ssm_prefill_chunk`` /
-    ``rglru_prefill_chunk``)."""
+    ``rglru_prefill_chunk``).  A cross-attention block refuses, as the
+    reference's does: its cache is the encoder's, filled by whole-prompt
+    prefill with ``enc``."""
     if kind in (SSM, RGLRU):
         return _recurrent(p, x, cfg, kind, "chunk", cache=cache)
     if kind != ATTN:
-        raise _not_ported(kind)
+        raise NotImplementedError(
+            f"chunked prefill is not supported for {kind!r} blocks "
+            "(see model.chunked_prefill_caps)")
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     c = x.shape[1]
     n = cache["k"].shape[1]

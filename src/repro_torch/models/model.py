@@ -3,7 +3,8 @@
 ``Model`` is an ``nn.Module`` holding per-layer ``Block``s in a plain list
 (no scan over pattern periods); caches are a list of per-layer dicts with
 the JAX per-layer layout (attention: ``k``/``v`` (B, n, Hkv, D), ``pos``
-(B, n) int32, -1 = empty; SSD: ``conv``/``state``; RG-LRU: ``conv``/``h``).
+(B, n) int32, -1 = empty; SSD: ``conv``/``state``; RG-LRU: ``conv``/``h``;
+cross-attention: the encoder's ``k``/``v`` (B, T, Hkv, D)).
 The functions keep the JAX package's names and signatures:
 ``forward``, ``init_cache``, ``init_paged_cache``, ``prefill``,
 ``prefill_chunk``, ``decode_step``, ``paged_commit``, ``paged_restore``,
@@ -143,16 +144,28 @@ def _logits(params: Model, x, cfg: ModelConfig):
     return lyr.logits_head(params.embed, x, cfg, params.head)
 
 
-def forward(params: Model, tokens, cfg: ModelConfig
+def _need_enc(cfg: ModelConfig, enc) -> None:
+    """A stack with a cross-attention layer attends over encoder states:
+    refuse to run it without them."""
+    if enc is None and CROSS in cfg.layer_kinds():
+        raise ValueError(
+            f"{cfg.name} has cross-attention layers: pass the encoder "
+            f"states enc (B, {cfg.num_image_tokens}, {cfg.d_model})")
+
+
+def forward(params: Model, tokens, cfg: ModelConfig, *, enc=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int.  Returns (logits (B, S, V), aux loss scalar)."""
+    """tokens: (B, S) int (or (B, S, d_model) embeddings).  ``enc`` (B, T,
+    d_model): the encoder states a cross-attention layer attends over.
+    Returns (logits (B, S, V), aux loss scalar)."""
+    _need_enc(cfg, enc)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     memo = {}
     for layer in params.layers:
         x, a = blk.apply_block(layer, x, cfg, layer.kind, layer.attn_kind,
-                               positions=positions, memo=memo)
+                               positions=positions, enc=enc, memo=memo)
         aux = aux + a
     return _logits(params, x, cfg), aux
 
@@ -172,7 +185,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
     (num_pages + 1, page_size, Hkv, D), "pos": (num_pages + 1, page_size)}``
     (pos -1 = empty).  The extra last row is the write dump for lanes with
     no page mapped.  ``batch`` and ``capacity`` size the other layer kinds:
-    a recurrent layer keeps its per-lane state, as in ``init_cache``."""
+    a recurrent layer keeps its per-lane state and a cross-attention layer
+    its per-lane encoder K/V, lane-leading as in ``init_cache``."""
     dev = resolve_device(device)
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
     cache: Cache = []
@@ -343,11 +357,13 @@ def prefill_chunk(params: Model, cache: Cache, tokens, start: int,
 
 
 # --------------------------------------------------------------------- prefill
-def prefill(params: Model, tokens, cfg: ModelConfig, capacity: int
-            ) -> Tuple[torch.Tensor, Cache]:
+def prefill(params: Model, tokens, cfg: ModelConfig, capacity: int, *,
+            enc=None) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt through the stack: last-position logits (B, 1, V) and
     a new cache filled up to ``tokens.shape[1]`` (ready for decode at index
-    S, S+1, ...)."""
+    S, S+1, ...).  A cross-attention layer's cache holds the K/V of
+    ``enc`` (B, T, d_model), which such a stack requires."""
+    _need_enc(cfg, enc)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     cache: Cache = []
@@ -355,7 +371,7 @@ def prefill(params: Model, tokens, cfg: ModelConfig, capacity: int
     for layer in params.layers:
         x, c, _ = blk.apply_block_prefill(layer, x, cfg, layer.kind,
                                           layer.attn_kind,
-                                          positions=positions,
+                                          positions=positions, enc=enc,
                                           capacity=capacity, memo=memo)
         cache.append(c)
     return _logits(params, x[:, -1:], cfg), cache

@@ -36,7 +36,8 @@ eager calls (kernels are built at first use, during warmup); every timing
 sample synchronises the device first (``torch.cuda.synchronize``) so it
 measures the work and not its launch; the caches are updated in place.
 Sharded replicas (``serving_mesh``) are not ported yet and raise
-``NotImplementedError``.
+``NotImplementedError``.  A stack with cross-attention layers raises
+``ValueError`` (``refuse_cross``): a request carries no encoder states.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.config import ATTN, LOCAL, ModelConfig
+from repro_torch.common.config import ATTN, CROSS, LOCAL, ModelConfig
 from repro_torch.core.admission import admit
 from repro_torch.core.latency import (NodeState, Task, predict_process_ms,
                                       predict_queue_ms, predict_total_ms)
@@ -246,6 +247,21 @@ class _Job:
         return False
 
 
+def refuse_cross(cfg: ModelConfig, name: str) -> None:
+    """``ValueError`` for a stack with cross-attention layers.  Their keys
+    are per-request encoder states, and the reference engine passes none:
+    its prefill calls ``model.prefill`` without ``enc``
+    (``repro/serving/engine.py:444``), so it builds no replica of such a
+    stack either.  The model functions take ``enc``."""
+    if CROSS in cfg.layer_kinds():
+        raise ValueError(
+            f"replica {name}: {cfg.name} has cross-attention layers and a "
+            f"request carries no encoder states (the reference engine "
+            f"prefills without enc, repro/serving/engine.py:444); run it "
+            f"through model.forward / model.prefill(..., enc=...) and "
+            f"model.decode_step")
+
+
 class Replica:
     """One model replica: a persistent multi-lane batched decoder.
 
@@ -351,6 +367,7 @@ class Replica:
             self.num_pages = 0
             self._alloc = None
             self._prefix = None
+        refuse_cross(cfg, name)
         self.profile: Optional[AppProfile] = None
         self.device_profile: Optional[DeviceProfile] = None
 

@@ -22,7 +22,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import model as TM
 
 ARCHS = ["qwen3-4b", "granite-8b", "gemma3-27b", "mamba2-780m",
-         "recurrentgemma-9b", "minicpm-2b", "mixtral-8x22b", "arctic-480b"]
+         "recurrentgemma-9b", "minicpm-2b", "mixtral-8x22b", "arctic-480b",
+         "musicgen-medium"]
 TOL = 1e-4
 
 
@@ -99,6 +100,7 @@ def test_prefill_then_decode_token_identical_to_jax(stacks, arch):
     ("recurrentgemma-9b", 28, 32, 5),   # RG-LRU state and a 16-slot ring
     ("mixtral-8x22b", 40, 64, 8),   # MoE; local rings of 16 wrap
     ("arctic-480b", 30, 32, 8),     # MoE beside a dense FFN
+    ("musicgen-medium", 33, 64, 8),  # gelu MLP, untied head
 ])
 def test_chunked_prefill_matches_whole_and_jax(stacks, arch, plen, capacity,
                                                chunk):
@@ -155,13 +157,26 @@ def test_configs_match_jax_and_count_params():
     assert 4.0e9 < TM.count_params(get_config("qwen3-4b")) < 4.1e9
 
 
-def test_unported_archs_name_their_roadmap_item():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("llama-3.2-vision-90b")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_smoke_config("musicgen-medium")
+def test_every_jax_arch_resolves_in_the_port():
+    """Every public id of the JAX registry resolves in the port, to the
+    same config (dtypes aside) and parameter count, full widths included;
+    an unknown id still raises."""
+    from repro import configs as jconfigs
+    for arch in jconfigs._ALIASES:
+        for tget, jget in ((get_config, jget_config),
+                           (get_smoke_config, jget_smoke)):
+            t = dataclasses.asdict(tget(arch))
+            j = dataclasses.asdict(jget(arch))
+            for k in ("dtype", "param_dtype"):
+                t.pop(k), j.pop(k)
+            assert t == j, arch
+    for arch in ("llama-3.2-vision-90b", "musicgen-medium"):
+        assert TM.count_params(get_config(arch)) == \
+            JM.count_params(jget_config(arch))
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
+    with pytest.raises(KeyError, match="unknown"):
+        get_smoke_config("llama-3.2-vision")
 
 
 def test_default_device_entry_points_need_a_card():
@@ -192,3 +207,24 @@ def test_init_model_is_seeded_and_scaled():
     assert a.layers[0].attn["wq"].dtype == cfg.dtype
     assert float(a.layers[0].norm1.abs().max()) == 0.0
     assert a.final_norm.dtype == torch.float32
+
+
+def test_gelu_mlp_bf16_matches_jax():
+    """musicgen's gelu MLP in bf16 on the same weights and inputs: within
+    2^-7 x max(1, |ref|) of the reference (``F.gelu`` with the tanh
+    approximation rounds once; XLA may round each operation)."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+    rng = np.random.default_rng(9)
+    d, f = 256, 1024
+    w = {"w_up": rng.standard_normal((d, f)) / d ** 0.5,
+         "w_down": rng.standard_normal((f, d)) / f ** 0.5}
+    x = 2.0 * rng.standard_normal((32, d))
+    jw = {k: jnp.asarray(v, jnp.bfloat16) for k, v in w.items()}
+    tw = {k: torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+          for k, v in w.items()}
+    exp = np.asarray(jlayers.mlp(jw, jnp.asarray(x, jnp.bfloat16), "gelu")
+                     .astype(jnp.float32))
+    got = tlayers.mlp(tw, torch.from_numpy(x.astype(np.float32)).to(
+        torch.bfloat16), "gelu").float().numpy()
+    assert np.abs(got - exp).max() <= 2.0 ** -7 * max(1.0, np.abs(exp).max())

@@ -340,3 +340,52 @@ def test_minicpm_smoke_streams_match_jax_replica():
     finally:
         jrep.stop()
         trep.stop()
+
+
+@pytest.mark.parametrize("mode", ["ring", "paged", "prefix"])
+def test_musicgen_smoke_streams_match_jax_replica(mode):
+    """musicgen-medium (MHA, a gelu MLP, an untied head) through the port's
+    replica in ring mode, paged, and paged with the prefix cache (the
+    first request registers a page-aligned system prompt the second
+    reuses): greedy streams with mid-stream joins equal the JAX replica's
+    in the same mode on the same f32 smoke weights."""
+    jc = jget_smoke("musicgen-medium").replace(dtype=jnp.float32,
+                                               param_dtype=jnp.float32)
+    tc = get_smoke_config("musicgen-medium").replace(dtype=torch.float32)
+    assert tc.mlp_kind == "gelu" and not tc.tie_embeddings
+    jp = JM.init_model(jax.random.PRNGKey(2), jc)
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    kw = dict(slots=2, capacity=48, prefill_chunk_tokens=8)
+    if mode != "ring":
+        kw.update(paged=True, page_size=8, prefix_cache=mode == "prefix")
+    jrep = jeng.Replica("jax", jc, jp, **kw)
+    trep = teng.Replica("torch", tc, tp, **kw)
+    try:
+        rng = np.random.default_rng(29)
+        sysp = rng.integers(2, tc.vocab_size, 16)
+        prompts = [np.concatenate([sysp, rng.integers(2, tc.vocab_size, n)])
+                   .astype(np.int32) for n in (5, 9)]
+        prompts += _prompts(tc.vocab_size, (21, 6), 31)
+        new = [10, 7, 9, 5]
+        got, exp = [], []
+        for mod, rep, out in ((teng, trep, got), (jeng, jrep, exp)):
+            reqs = [mod.Request(i, p, n, 1e9)
+                    for i, (p, n) in enumerate(zip(prompts, new))]
+            out.append(rep.generate(reqs[0]).tolist())
+            out.extend(_run_staggered(rep.generate, reqs[1:]))
+        assert got == exp
+        assert [len(g) for g in got] == new
+        if mode == "prefix":
+            assert trep._prefix.hits > 0 and jrep._prefix.hits > 0
+    finally:
+        jrep.stop()
+        trep.stop()
+
+
+@pytest.mark.parametrize("extra", [[], ["--paged"], ["--prefix-cache"]])
+def test_serve_cli_runs_musicgen_on_cpu(capsys, extra):
+    tserve.main(["--device", "cpu", "--arch", "musicgen-medium", "--requests",
+                 "3", "--interval-ms", "1", "--new-tokens", "4",
+                 "--prompt-len", "20"] + extra)
+    out = capsys.readouterr().out
+    assert "outcomes: ok=3 rejected=0 shed=0 lost=0" in out

@@ -61,6 +61,19 @@ success):
    the cross-attention forms at llama-3.2-vision's shapes (flash, 8 lanes of
    512 queries over 1601 keys, not causal; contiguous decode over 1601
    slots) beside their bounds and SDPA over the same keys;
+   (2t) the two backward kernels against their plain versions: flash's
+   (dQ, dK, dV from the forward's log-sum-exp, which is held against the
+   plain version's too) at qwen3-4b's training shape (B 2, S 1024, 32
+   query heads over 8 of 128) in bf16 and f32, minicpm-2b's D 64 MHA, GQA
+   ratios 1-16 at D 64/128 with a window and empty key slots, S 77 and
+   1000, and 100 queries over 333 keys not causal; the norm's (the norm,
+   the qk pair and the residual add; dx and the gains' gradients) at
+   widths 128 (the pair at 2048 x 32 and 2048 x 8 rows), 2560 and 2304 at
+   2048 rows, 999, 64, 4096 and 8192; bf16 within one bf16 spacing of the
+   f32 oracle, f32 within 2e-5; then (phase 2c) their times at qwen3-4b's
+   training shapes beside their bounds, their plain versions and the
+   autograd backward of SDPA and of ``F.rms_norm`` as yardsticks, and the
+   flash forward with its log-sum-exp;
    (2b) the MoE FFN (``models.moe.moe_ffn``, plain PyTorch around the
    kernels) against ``ref.moe_ffn_reference``, a loop over tokens and
    choices, on one layer at full width (mixtral-8x22b in f32 and bf16,
@@ -100,7 +113,15 @@ success):
    64-token prompts, ``prefill(enc=...)`` and 16 greedy decode steps, tokens
    equal card against CPU and every step's logits within 1e-3; then (3h)
    musicgen-medium at full width, 4 layers, as qwen3-4b's phase 3 (ring
-   and paged with the prefix cache, card against CPU);
+   and paged with the prefix cache, card against CPU); then (3i) training:
+   qwen3-4b at full width, 2 layers, f32: every parameter's gradient of one
+   batch (2 x 256 tokens) on the card nonzero and within 1e-4 of its
+   largest on the CPU, then 3 ``make_train_step`` steps on both from the
+   same weights and ``SyntheticDataset`` batches (loss, ce, grad norm, lr;
+   parameters within 2 lr a step; launches equal to
+   ``expected_train_launches``), then in bf16 with f32 masters 4 straight
+   ``train_loop`` steps equal to 2 steps, a checkpoint, a restore and 2
+   more, bit for bit;
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
@@ -155,12 +176,22 @@ success):
    one batched ``prefill(enc=...)`` and 32 greedy decode steps; per step 20
    ``decode_attention`` launches (4 contiguous over the image tokens) and
    41 ``rmsnorm``, per prefill 20 ``flash_attention`` (4 not causal) and
-   41; prefill ms, step wall and device-busy ms, tokens/s and peak memory.
+   41; prefill ms, step wall and device-busy ms, tokens/s and peak memory;
+13. train qwen3-4b at its full config (36 layers, bf16 weights with f32
+   masters, remat, AdamW, cosine) through ``launch.train.train_loop``: 6
+   steps of 2 x 1024 tokens, finite losses, per step 72 ``flash_attention``,
+   36 ``flash_attention_bwd``, 217 ``rmsnorm`` and 109 ``rmsnorm_bwd``
+   launches (``expected_train_launches``); step wall ms, tokens/s, one
+   profiled step's device-busy ms and idle share, model operations against
+   989 TFLOP/s, peak memory.
 
-Standard output ends with the JSON ``{"kernels": ...}`` summary, the card
-line, and ``{"ok": true, "device": {...}}`` as the last line.
-``--details PATH`` also writes every measurement (step profiles, nvcc's
-register and shared-memory report) to PATH as JSON.
+Standard output ends with the JSON ``{"kernels": ...}`` summary (the six
+forward kernels and the two backward ones), the card line, and ``{"ok":
+true, "device": {...}}`` as the last line.  ``--details PATH`` also writes
+every measurement (step profiles, nvcc's register and shared-memory
+report) to PATH as JSON.  ``--only 2t,2c,3i,13`` builds and runs only
+those phases of the training slice, then stops without a summary: a quick
+check of a change on the card, not the smoke test.
 """
 from __future__ import annotations
 
@@ -2447,9 +2478,582 @@ def vision_phase(dev, layers: int = 20) -> dict:
     return launches
 
 
+# ------------------------------------------- backward kernels (phase 2t)
+def bwd_spacings(got, exp32) -> float:
+    """Largest |got - exp32| in bf16 spacings at |exp32|, floored at the
+    spacing of max|exp32| / 256 (a gradient near zero beside large ones is
+    held to the tensor's scale, not to its own)."""
+    import torch
+    mag = exp32.abs().clamp_min(exp32.abs().max().item() / 256 + 1e-30)
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - exp32).abs() / spacing).max().item()
+
+
+# A bf16 gradient is computed in f32 from the bf16 inputs and rounded once:
+# 0.5 spacings of the f32 oracle on the same inputs, plus f32 sums in
+# another order, far below.  f32: 2e-5 of max(1, max|ref|) (sums over up
+# to 16 x 1024 products in another order).  A gain's gradient (f32 both
+# ways): 1e-5 of the column's sum of |terms| (a sum over up to 65536 rows
+# in another order; dropping one block's partial errs by about 1/264 of
+# it).  lse: 2e-5 in f32; 1e-4 in bf16 (the forward's exp2.approx).
+BWD_SPACINGS = 1.0
+
+
+def flash_bwd_inputs(rng, b, s, t, hq, hkv, d, dtype, dev, holes=0.0):
+    import numpy as np
+    import torch
+
+    def rnd(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dev, dtype)
+    q, k, v = rnd((b, s, hq, d)), rnd((b, t, hkv, d)), rnd((b, t, hkv, d))
+    dout = rnd((b, s, hq, d))
+    kp = np.tile(np.arange(t, dtype=np.int32), (b, 1))
+    if holes:
+        kp[rng.random((b, t)) < holes] = -1
+    qp = torch.arange(t - s, t, dtype=torch.int32, device=dev)
+    return q, k, v, dout, qp, torch.from_numpy(kp).to(dev)
+
+
+def check_flash_bwd(dev, rng, label, b, s, t, hq, hkv, d, dtype, causal=True,
+                    window=0, holes=0.0) -> float:
+    """The forward kernel's lse against the plain version's, then the
+    backward kernel against ``flash_attention_bwd_plain`` on the kernel's
+    own out and lse (f32 oracle for bf16).  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    q, k, v, dout, qp, kp = flash_bwd_inputs(rng, b, s, t, hq, hkv, d, dtype,
+                                             dev, holes)
+    kw = dict(q_pos=qp, k_pos=kp, causal=causal, window=window,
+              scale=d ** -0.5)
+    out, lse = fk.flash_attention(q, k, v, splits=1, return_lse=True, **kw)
+    f = [x.float() for x in (q, k, v)]
+    out_p, lse_p = fk.flash_attention_plain(*f, return_lse=True, **kw)
+    lse_err = (lse - lse_p).abs().max().item()
+    lse_tol = 2e-5 if dtype == torch.float32 else 1e-4
+    got = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    exp = fk.flash_attention_bwd_plain(*f, out.float(), lse, dout.float(),
+                                       **kw)
+    torch.cuda.synchronize()
+    worst, err = 0.0, 0.0
+    for name, g, e in zip(("dq", "dk", "dv"), got, exp):
+        if g.dtype != dtype or g.shape != e.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"flash bwd {label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)} or not finite")
+        err = max(err, (g.float() - e).abs().max().item())
+        if dtype == torch.float32:
+            lim = 2e-5 * max(1.0, e.abs().max().item())
+            bad = (g - e).abs().max().item() > lim
+        else:
+            sp = bwd_spacings(g, e)
+            worst = max(worst, sp)
+            bad = sp > BWD_SPACINGS
+        if bad:
+            raise AssertionError(
+                f"flash bwd {label}: {name} off by "
+                f"{(g.float() - e).abs().max().item():.3e} (spacings "
+                f"{bwd_spacings(g, e):.2f})")
+    if lse_err > lse_tol:
+        raise AssertionError(f"flash bwd {label}: lse off by {lse_err:.3e}")
+    return err, worst, lse_err
+
+
+def check_norm_bwd(dev, rng, form, rows, d, dtype, krows=0) -> float:
+    """One norm form's backward kernel against its plain version (f32
+    oracle on the same inputs).  Returns the max abs error of dx."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import rmsnorm as rk
+
+    def rnd(shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s)
+                                .astype(np.float32)).to(dev, dtype)
+
+    def gain():
+        return torch.from_numpy((rng.standard_normal(d) * 0.1)
+                                .astype(np.float32)).to(dev)
+    x, dy, g0 = rnd((rows, d)), rnd((rows, d)), gain()
+    f = lambda t: t.float()
+    if form == "norm":
+        got = rk.rmsnorm_bwd(x, g0, dy)
+        exp = rk.rmsnorm_bwd_plain(f(x), g0, f(dy))
+        terms = [(f(dy) * f(x) * torch.rsqrt(f(x).square().mean(-1, True)
+                                              + 1e-6)).abs().sum(0)]
+        pairs = [(got[0], exp[0]), (got[1], exp[1])]
+    elif form == "add":
+        ds = rnd((rows, d), 0.5)
+        got = rk.add_rmsnorm_bwd(x, g0, ds, dy)
+        exp = rk.add_rmsnorm_bwd_plain(f(x), g0, f(ds), f(dy))
+        terms = [(f(dy) * f(x) * torch.rsqrt(f(x).square().mean(-1, True)
+                                              + 1e-6)).abs().sum(0)]
+        pairs = [(got[0], exp[0]), (got[1], exp[1])]
+    else:
+        kx, dk, g1 = rnd((krows, d)), rnd((krows, d)), gain()
+        got = rk.rmsnorm_pair_bwd(x, kx, g0, g1, dy, dk)
+        exp = rk.rmsnorm_pair_bwd_plain(f(x), f(kx), g0, g1, f(dy), f(dk))
+        terms = [(f(a) * f(b) * torch.rsqrt(f(b).square().mean(-1, True)
+                                             + 1e-6)).abs().sum(0)
+                 for a, b in ((dy, x), (dk, kx))]
+        pairs = [(got[0], exp[0]), (got[2], exp[2]), (got[1], exp[1]),
+                 (got[3], exp[3])]
+    torch.cuda.synchronize()
+    err, worst = 0.0, 0.0
+    for i, (g, e) in enumerate(pairs):
+        if i % 2 == 0:                                   # dx
+            if g.dtype != dtype or not torch.isfinite(g).all():
+                raise AssertionError(f"norm bwd {form} D {d}: dx {g.dtype}")
+            err = max(err, (g.float() - e).abs().max().item())
+            if dtype == torch.float32:
+                bad = (g - e).abs().max().item() > \
+                    2e-5 * max(1.0, e.abs().max().item())
+            else:
+                worst = max(worst, bwd_spacings(g, e))
+                bad = bwd_spacings(g, e) > BWD_SPACINGS
+        else:                                            # the gain's
+            bad = ((g - e).abs() > 1e-5 * terms[i // 2]).any().item()
+        if bad:
+            raise AssertionError(f"norm bwd {form} D {d} rows {rows} "
+                                 f"{dtype}: output {i} off by "
+                                 f"{(g.float() - e).abs().max().item():.3e}")
+    return err, worst
+
+
+def check_backward(dev) -> dict:
+    """Phase 2t: the two backward kernels against their plain versions on
+    the card.  Returns each one's max abs error."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 20)
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
+    spac = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
+    lse_worst = 0.0
+    cases = [("qwen3-4b train", 2, 1024, 1024, 32, 8, 128, bf, True, 0, 0.0),
+             ("qwen3-4b train", 2, 1024, 1024, 32, 8, 128, f32, True, 0, 0.0),
+             ("minicpm-2b D64 MHA", 1, 512, 512, 36, 36, 64, bf, True, 0, 0.0),
+             ("minicpm-2b D64 MHA", 1, 512, 512, 36, 36, 64, f32, True, 0,
+              0.0),
+             ("S 1000", 1, 1000, 1000, 32, 8, 128, bf, True, 0, 0.0),
+             ("S 77", 2, 77, 77, 8, 2, 64, f32, True, 0, 0.0),
+             ("not causal, 100 over 333 keys with holes", 2, 100, 333, 16, 4,
+              128, bf, False, 0, 0.1)]
+    for rep in (1, 2, 3, 4, 5, 6, 7, 8, 16):
+        for d in (64, 128):
+            for dt in (bf, f32):
+                cases.append((f"GQA {rep} D {d} window 100", 2, 300, 300,
+                              2 * rep, 2, d, dt, True, 100, 0.05))
+    for label, b, s, t, hq, hkv, d, dt, causal, window, holes in cases:
+        e, sp, le = check_flash_bwd(dev, rng, label, b, s, t, hq, hkv, d, dt,
+                                    causal, window, holes)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
+        spac["flash_attention_bwd"] = max(spac["flash_attention_bwd"], sp)
+        lse_worst = max(lse_worst, le)
+    norm_cases = [("norm", 2048, 2560, 0), ("add", 2048, 2560, 0),
+                  ("pair", 2048 * 32, 128, 2048 * 8), ("norm", 2048, 2304, 0),
+                  ("add", 2048, 2304, 0), ("norm", 300, 999, 0),
+                  ("add", 300, 999, 0), ("pair", 300, 999, 77),
+                  ("pair", 40, 64, 12), ("norm", 64, 8192, 0),
+                  ("add", 7, 4096, 0)]
+    for form, rows, d, krows in norm_cases:
+        for dt in (bf, f32):
+            e, sp = check_norm_bwd(dev, rng, form, rows, d, dt, krows)
+            errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], e)
+            spac["rmsnorm_bwd"] = max(spac["rmsnorm_bwd"], sp)
+    log(f"  flash bwd: {len(cases)} cases, max abs err "
+        f"{errs['flash_attention_bwd']:.3e}, bf16 {spac['flash_attention_bwd']:.3f} "
+        f"spacings (limit {BWD_SPACINGS}), lse {lse_worst:.2e}; norm bwd: "
+        f"{2 * len(norm_cases)} cases, max abs err {errs['rmsnorm_bwd']:.3e}, "
+        f"bf16 {spac['rmsnorm_bwd']:.3f} spacings")
+    DETAILS["backward_checks"] = dict(errs=errs, spacings=spac,
+                                      lse_err=lse_worst)
+    return errs
+
+
+def time_backward(dev) -> dict:
+    """Phase 2c's rows for the backward kernels at qwen3-4b's training
+    shapes (bf16; B 2, S 1024, 32 over 8 heads of 128; norms over 2048
+    rows), beside their bounds, their plain versions and one PyTorch
+    autograd backward as a yardstick (SDPA's over K/V expanded to the query
+    heads; ``F.rms_norm``'s), which the port never calls; and the flash
+    forward with and without its lse at the same shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+
+    rng = np.random.default_rng(SEED + 21)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    b, s, hq, hkv, d = 2, 1024, 32, 8, 128
+    for dt, peak, key in ((torch.bfloat16, PEAK_BF16_FLOPS, "ms"),
+                          (torch.float32, PEAK_F32_FLOPS, "f32")):
+        q, k, v, dout, qp, kp = flash_bwd_inputs(rng, b, s, s, hq, hkv, d, dt,
+                                                 dev)
+        kw = dict(q_pos=qp, k_pos=kp, causal=True, window=0, scale=d ** -0.5)
+        out, lse = fk.flash_attention(q, k, v, splits=1, return_lse=True,
+                                      **kw)
+        rep = hq // hkv
+        lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k.repeat_interleave(rep, 2),
+                                v.repeat_interleave(rep, 2)))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        ldo = dout.transpose(1, 2)
+        el = q.element_size()
+        # q, out, dout, k, v read; dq, dk, dv written; lse read
+        nbytes = (4 * q.numel() + 4 * k.numel()) * el + lse.numel() * 4
+        flops = 5 * 2 * b * hq * d * (s * (s + 1) // 2)
+        bms, by = bound(nbytes, flops, peak)
+        row = dict(
+            shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal {dt}",
+            ms=device_ms(lambda: fk.flash_attention_bwd(q, k, v, out, lse,
+                                                        dout, **kw), flush),
+            plain_ms=device_ms(lambda: fk.flash_attention_bwd_plain(
+                q, k, v, out, lse, dout, **kw), flush),
+            library_ms=device_ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), ldo, retain_graph=True), flush),
+            library_note="SDPA backward over K/V expanded to 32 heads",
+            bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
+        if key == "ms":
+            row["host_ms"] = host_ms(lambda: fk.flash_attention_bwd(
+                q, k, v, out, lse, dout, **kw), flush=flush)
+            rows["flash_attention_bwd"] = row
+            fwd_bytes = (2 * q.numel() + 2 * k.numel()) * el
+            fwd_flops = 2 * 2 * b * hq * d * (s * (s + 1) // 2)
+            fb, fby = bound(fwd_bytes + lse.numel() * 4, fwd_flops, peak)
+            rows["flash_attention_train"] = dict(
+                ms=device_ms(lambda: fk.flash_attention(
+                    q, k, v, splits=1, return_lse=True, **kw), flush),
+                no_lse_ms=device_ms(lambda: fk.flash_attention(
+                    q, k, v, splits=1, **kw), flush),
+                plain_ms=device_ms(lambda: fk.flash_attention_plain(
+                    q, k, v, **kw), flush),
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    lq.detach(), lk.detach(), lv.detach(), is_causal=True),
+                    flush),
+                bound_ms=fb, bound_by=fby,
+                shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal bf16, "
+                      "one split, with lse")
+        else:
+            rows["flash_attention_bwd"]["f32"] = row
+        del lo, lq, lk, lv
+
+    bf = torch.bfloat16
+
+    def rnd(shape, sc=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * sc)
+                                .astype(np.float32)).to(dev, bf)
+
+    def gain(dd):
+        return torch.from_numpy((rng.standard_normal(dd) * 0.1)
+                                .astype(np.float32)).to(dev)
+
+    def lib_rms(xs, dys):
+        """F.rms_norm's autograd backward over the same rows."""
+        outs = []
+        for x, dy in zip(xs, dys):
+            lx = x.detach().requires_grad_(True)
+            w = (1.0 + gain(x.shape[-1])).to(bf).requires_grad_(True)
+            outs.append((F.rms_norm(lx, (x.shape[-1],), w, 1e-6), lx, w, dy))
+        return lambda: [torch.autograd.grad(o, (lx, w), dy, retain_graph=True)
+                        for o, lx, w, dy in outs]
+
+    n, dm = 2048, 2560
+    x, dy, g = rnd((n, dm)), rnd((n, dm)), gain(dm)
+    ds = rnd((n, dm), 0.5)
+    qx, kx = rnd((n * 32, 128)), rnd((n * 8, 128))
+    dq, dk = rnd((n * 32, 128)), rnd((n * 8, 128))
+    gq, gk = gain(128), gain(128)
+    # (kernel, plain, library, elements, bytes: x and dy read and dx
+    # written in bf16, the sum's gradient read too for the add, the gains
+    # read and their gradients written in f32)
+    forms = {
+        "ms": (lambda: rk.rmsnorm_bwd(x, g, dy),
+               lambda: rk.rmsnorm_bwd_plain(x, g, dy),
+               lib_rms([x], [dy]), x.numel(), 3 * x.numel() * 2 + dm * 8,
+               f"{n} x {dm} bf16"),
+        "add": (lambda: rk.add_rmsnorm_bwd(x, g, ds, dy),
+                lambda: rk.add_rmsnorm_bwd_plain(x, g, ds, dy),
+                lib_rms([x], [dy]), x.numel(), 4 * x.numel() * 2 + dm * 8,
+                f"{n} x {dm} bf16, the sum's gradient added"),
+        "pair": (lambda: rk.rmsnorm_pair_bwd(qx, kx, gq, gk, dq, dk),
+                 lambda: rk.rmsnorm_pair_bwd_plain(qx, kx, gq, gk, dq, dk),
+                 lib_rms([qx, kx], [dq, dk]), qx.numel() + kx.numel(),
+                 3 * (qx.numel() + kx.numel()) * 2 + 128 * 16,
+                 f"q {n} x 32 x 128, k {n} x 8 x 128 bf16"),
+    }
+    norm_row = None
+    for key, (kern, plain, lib, elems, nbytes, shape) in forms.items():
+        # about ten f32 operations an element
+        bms, by = bound(nbytes, 10 * elems, PEAK_F32_FLOPS)
+        row = dict(ms=device_ms(kern, flush), plain_ms=device_ms(plain, flush),
+                   library_ms=device_ms(lib, flush), bound_ms=bms,
+                   bound_by=by, shape=shape, host_ms=host_ms(kern, flush=flush))
+        if key == "ms":
+            norm_row = row
+            row["library_note"] = "F.rms_norm autograd backward"
+        else:
+            norm_row[key] = row
+    rows["rmsnorm_bwd"] = norm_row
+    for name, row in rows.items():
+        for key, at in (("ms", row), ("f32", row.get("f32")),
+                        ("pair", row.get("pair")), ("add", row.get("add"))):
+            if at is None:
+                continue
+            extra = (f"; without lse {at['no_lse_ms']:.4f}"
+                     if "no_lse_ms" in at else "")
+            log(f"  {name:22s} {key:5s} {at['ms']:.4f} ms; bound "
+                f"{at['bound_ms']:.4f} ({at['bound_by']}), plain "
+                f"{at['plain_ms']:.4f}, library {at['library_ms']:.4f}"
+                + extra + f" [{at['shape']}]")
+    return rows
+
+
+# ------------------------------------------------ training (phases 3i, 13)
+def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
+                   steps: int = 3) -> dict:
+    """Phase 3i: qwen3-4b at full width, ``layers`` deep, f32 with TF32 off:
+    step 1's gradients of every parameter card against CPU (and nonzero on
+    the card), then ``steps`` ``make_train_step`` steps on both from the
+    same weights and batches; then, in bf16 with f32 masters, 4 straight
+    ``train_loop`` steps against 2, a checkpoint, a restore and 2 more, bit
+    for bit on the card."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(os.cpu_count() or 8)
+    cfg = get_config("qwen3-4b").replace(num_layers=layers,
+                                         dtype=torch.float32)
+    lr = 1e-4
+    tc = TrainConfig(learning_rate=lr, total_steps=10, warmup_steps=2)
+    gpu = M.init_model(cfg, SEED, dev)
+    cpu = M.Model(cfg, "cpu")
+    with torch.no_grad():
+        for a, b in zip(cpu.parameters(), gpu.parameters()):
+            a.copy_(b)
+    gs, cs = S.train_state(gpu, tc), S.train_state(cpu, tc)
+    ds = SyntheticDataset(cfg, DataConfig(global_batch=batch, seq_len=seq,
+                                          seed=SEED))
+    loss_fn = S.make_loss_fn(cfg, tc)
+    losses = []
+    for st in (gs, cs):
+        loss, _ = loss_fn(st["model"], S.to_device(ds.batch(0),
+                                                   st["model"].device))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    # per tensor, 1e-4 of its largest |gradient|: f32 sums over 512 tokens
+    # and widths up to 9728 in another order on each side (cuBLAS, the
+    # kernels' f32 bodies; the CPU's), through two layers and the 151936-
+    # way softmax
+    grad_err = 0.0
+    for (name, g), c in zip(gpu.named_parameters(), cpu.parameters()):
+        gg, cg = g.grad, c.grad
+        if gg is None or not (gg != 0).any():
+            raise AssertionError(f"train identity: {name} has no gradient "
+                                 "on the card")
+        rel = ((gg.cpu() - cg).abs().max() / cg.abs().max()).item()
+        grad_err = max(grad_err, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"train identity: {name} gradient off by "
+                                 f"{rel:.2e} of its max")
+        g.grad = c.grad = None
+    gstep, cstep = S.make_train_step(cfg, tc), S.make_train_step(cfg, tc)
+    ops.reset_kernel_launches()
+    metrics = []
+    for i in range(steps):
+        bt = ds.batch(i)
+        gs, gm = gstep(gs, bt)
+        cs, cm = cstep(cs, bt)
+        m = {k: (float(gm[k]), float(cm[k])) for k in
+             ("loss", "ce", "grad_norm", "lr")}
+        metrics.append(m)
+        # step 1 runs the same weights (f32 sums in another order); later
+        # steps weights that may differ by 2 lr at noise elements (below)
+        tol = 1e-5 if i == 0 else 1e-4
+        for k, (a, b) in m.items():
+            if abs(a - b) > tol * abs(b) + 1e-12:
+                raise AssertionError(f"train identity: step {i + 1} {k} "
+                                     f"card {a} CPU {b}")
+    launches = ops.kernel_launches()
+    expect = expected_train_launches(cfg, cfg.remat, steps)
+    if launches != expect:
+        raise AssertionError(f"train identity: launches {launches}, "
+                             f"expected {expect}")
+    # AdamW's first updates are lr * sign(g) wherever |g| >> eps, so an
+    # element whose gradient is summation noise near zero can move 2 lr the
+    # other way at each step
+    p_err, close = 0.0, 0
+    total = 0
+    for a, b in zip(gpu.parameters(), cpu.parameters()):
+        dlt = (a.detach().cpu() - b.detach()).abs()
+        p_err = max(p_err, dlt.max().item())
+        close += int((dlt <= 1e-6).sum())
+        total += dlt.numel()
+    if p_err > 2 * lr * steps:
+        raise AssertionError(f"train identity: parameters off by {p_err}")
+    log(f"  step-1 loss card {losses[0]:.6f} CPU {losses[1]:.6f}; every "
+        f"gradient nonzero, within {grad_err:.2e} of its max; {steps} steps "
+        + "; ".join(f"loss {m['loss'][0]:.6f}/{m['loss'][1]:.6f} gnorm "
+                    f"{m['grad_norm'][0]:.6f}/{m['grad_norm'][1]:.6f}"
+                    for m in metrics)
+        + f"; parameters within {p_err:.2e} ({close / total:.4%} within "
+        f"1e-6); launches {launches}")
+    out = dict(grad_rel_err=grad_err, param_err=p_err,
+               params_within_1e6=close / total, metrics=metrics,
+               launches=launches)
+    del gs, cs, gpu, cpu, gstep, cstep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resume, bit for bit, in bf16 with f32 masters
+    cfgb = cfg.replace(dtype=torch.bfloat16)
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(global_batch=batch, seq_len=seq, log_every=0, device=dev)
+    t0 = time.perf_counter()
+    straight = train_loop(cfgb, tc, steps=4, **kw)
+    first = train_loop(cfgb, tc, steps=2, ckpt_dir=ckpt, **kw)
+    del first
+    resumed = train_loop(cfgb, tc, steps=2, ckpt_dir=ckpt, resume=True,
+                         log_fn=log, **kw)
+    la = [h["loss"] for h in straight["history"]]
+    lb = [h["loss"] for h in resumed["history"]]
+    if la[2:] != lb:
+        raise AssertionError(f"resume: losses {la} against {lb}")
+    sa, sb = straight["state"], resumed["state"]
+    for (name, a), b in zip(sa["model"].named_parameters(),
+                            sb["model"].parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resume: {name} differs")
+    for part in ("master", "mu", "nu"):
+        for name, t in sa["opt"][part].items():
+            if not torch.equal(t, sb["opt"][part][name]):
+                raise AssertionError(f"resume: {part} {name} differs")
+    resume_s = time.perf_counter() - t0
+    log(f"  resume: 4 straight steps equal 2 + checkpoint + restore + 2, "
+        f"bit for bit (losses {la}; {resume_s:.1f} s with the checkpoints)")
+    out["resume_losses"], out["resume_s"] = la, resume_s
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del straight, resumed, sa, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    DETAILS["train_identity"] = out
+    return out
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model operations of one train step (forward and backward, remat's
+    recompute not counted): 6 per weight per token over every projection
+    and the tied head, and 6 S D per query head and layer per token for
+    causal attention's two products."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    per_layer = (d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+                 + cfg.num_heads * hd * d + 3 * d * cfg.d_ff)
+    weights = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn = cfg.num_layers * cfg.num_heads * 6 * seq * hd
+    return batch * seq * (6 * weights + attn)
+
+
+def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
+                layers: int = 0) -> dict:
+    """Phase 13: qwen3-4b at its full config (bf16 weights, f32 masters,
+    remat, AdamW, cosine) through ``launch.train.train_loop``: ``steps``
+    steps of ``batch`` x ``seq`` tokens, the launches of every kernel equal
+    to ``expected_train_launches``, finite losses; step wall ms (median
+    after the first), tokens/s, one profiled step's device-busy ms and idle
+    share, model operations over step time against 989 TFLOP/s, peak
+    memory."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.tree import tree_bytes, tree_count
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.training import steps as S
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    cfg = get_config("qwen3-4b")
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    tc = TrainConfig(total_steps=steps, warmup_steps=1)
+    ops.reset_kernel_launches()
+    out = train_loop(cfg, tc, global_batch=batch, seq_len=seq, steps=steps,
+                     log_every=1, device=dev, log_fn=lambda m: log("  " + m))
+    launches = ops.kernel_launches()
+    expect = expected_train_launches(cfg, cfg.remat, steps)
+    log(f"  launches {launches}; expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"train: launches {launches}, expected {expect}")
+    hist = out["history"]
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"train: losses {[h['loss'] for h in hist]}")
+    walls = sorted(h["ms"] for h in hist[1:])
+    step_ms = walls[len(walls) // 2]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    state = out["state"]
+    params, o = dict(state["model"].named_parameters()), state["opt"]
+    state_gb = {k: tree_bytes(v) / 1e9 for k, v in (
+        ("weights", params), ("masters", o["master"]),
+        ("moments", {"mu": o["mu"], "nu": o["nu"]}))}
+    fn = S.make_train_step(cfg, tc)
+    bt = SyntheticDataset(cfg, DataConfig(global_batch=batch, seq_len=seq,
+                                          seed=tc.seed)).batch(steps)
+    prof = profile_call("train step", lambda: fn(state, bt))
+    # the optimizer alone, on gradients of the step's shapes and dtypes
+    from repro_torch.training import optimizer as opt
+    grads = {k: torch.full_like(p, 1e-3) for k, p in params.items()}
+    prof_opt = profile_call("AdamW update", lambda: opt.adamw_update(
+        dict(grads), o, params, 0.0, tc, clip=tc.grad_clip))
+    del grads
+    flops = train_flops(cfg, batch, seq)
+    stats = dict(layers=cfg.num_layers, batch=batch, seq=seq,
+                 losses=[h["loss"] for h in hist],
+                 step_ms=[h["ms"] for h in hist], step_ms_median=step_ms,
+                 tokens_per_s=batch * seq / (step_ms / 1e3),
+                 model_flops=flops,
+                 flops_share=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+                 peak_mem_gb=peak, held_at_start_gb=held, profile=prof,
+                 launches=launches, params=tree_count(params),
+                 state_gb=state_gb, profile_adamw=prof_opt)
+    log(f"  {cfg.num_layers} layers, {batch} x {seq} tokens a step: step "
+        f"{step_ms:.1f} ms (median after the first; first "
+        f"{hist[0]['ms']:.0f}), {stats['tokens_per_s']:.0f} tokens/s, "
+        f"{flops / 1e12:.1f} TFLOP a step = "
+        f"{100 * stats['flops_share']:.1f}% of 989 TFLOP/s; profiled step "
+        f"wall {prof['wall_ms']:.1f} ms, busy {prof['device_ms']:.1f} ms, "
+        f"idle {100 * prof['idle_share']:.1f}%; peak {peak:.1f} GB "
+        f"(held at start {held:.1f}; state "
+        + ", ".join(f"{k} {v:.1f}" for k, v in state_gb.items())
+        + f" GB over {stats['params'] / 1e9:.2f} B parameters)")
+    DETAILS["train"] = stats
+    del out, state, fn, params, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- phase 4
 def _kernel_class(name: str) -> str:
-    for key, cls in (("paged_decode_tc_kernel", "paged_decode_attention"),
+    for key, cls in (("flash_bwd_", "flash_attention_bwd"),
+                     ("norm_bwd_kernel", "rmsnorm_bwd"),
+                     ("dscale_kernel", "rmsnorm_bwd"),
+                     ("paged_decode_tc_kernel", "paged_decode_attention"),
                      ("paged_decode_f32_kernel", "paged_decode_attention"),
                      ("decode_tc_kernel", "decode_attention"),
                      ("decode_f32_kernel", "decode_attention"),
@@ -2591,7 +3195,30 @@ def expected_launches(cfg, steps: int, chunks: int, wholes: int,
             "flash_attention": attn * prefills + cross * wholes,
             "ssd": kinds.count("ssm") * prefills,
             "rglru": kinds.count("rglru") * prefills,
-            "rmsnorm": norms * (steps + prefills)}
+            "rmsnorm": norms * (steps + prefills),
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+
+
+def expected_train_launches(cfg, remat: bool, steps: int = 1) -> dict:
+    """Launches of every kernel that ``steps`` train steps of a dense
+    attention stack must make (one microbatch).  The forward runs each
+    layer once, twice with remat (the checkpointed forward and its
+    recompute in the backward); the final norm sits outside the checkpoint
+    and runs once.  Per layer and forward: flash once, and the pre-norm,
+    the qk pair (with qk-norm) and the residual add with the MLP's norm
+    once each; the backward launches each one's backward kernel once."""
+    kinds = cfg.layer_kinds()
+    if set(kinds) != {"attn"}:
+        raise ValueError(f"{cfg.name}: a train step is counted for dense "
+                         "attention stacks only")
+    layers = len(kinds)
+    norms = layers * (1 + (cfg.d_ff > 0) + cfg.use_qk_norm)
+    fwd = 2 if remat else 1
+    return {"decode_attention": 0, "paged_decode_attention": 0, "ssd": 0,
+            "rglru": 0, "flash_attention": layers * fwd * steps,
+            "rmsnorm": (norms * fwd + 1) * steps,
+            "flash_attention_bwd": layers * steps,
+            "rmsnorm_bwd": (norms + 1) * steps}
 
 
 def serve_phase(dev, arch="qwen3-4b", capacity=2048, long_prompts=(),
@@ -3168,6 +3795,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", default="",
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--only", default="",
+                    help="build, run only these of the training slice's "
+                         "phases (comma-separated: 2t, 2c, 3i, 13) and "
+                         "stop, with no summary: a quick check of a change, "
+                         "not the smoke test")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3197,14 +3829,36 @@ def main(argv=None) -> int:
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
     DETAILS["build_logs"] = {k: build.build_log(k) for k in build.SOURCES}
+    if args.only:
+        only = {"2t": check_backward, "2c": time_backward,
+                "3i": train_identity, "13": train_phase}
+        for key in args.only.split(","):
+            phase(f"phase {key} (--only)")
+            only[key](dev)
+        phase("selected phases passed")
+        DETAILS["phase_s"] = phase_s
+        if args.details:
+            os.makedirs(os.path.dirname(os.path.abspath(args.details)),
+                        exist_ok=True)
+            with open(args.details, "w") as f:
+                json.dump(DETAILS, f, indent=1, default=str)
+        return 0
 
     phase("phase 2: kernels against their plain versions")
     errs = check_kernels(dev)
+    phase("phase 2t: the backward kernels against their plain versions "
+          "(flash at qwen3-4b's training shape, D 64 MHA, GQA 1-16 with a "
+          "window, ragged S; the norm forms at 128, 2304, 2560, 999, 8192)")
+    errs.update(check_backward(dev))
     phase("phase 2b: moe_ffn against the reference loop (one layer at full "
         "width: mixtral-8x22b f32 and bf16, arctic-480b bf16)")
     check_moe(dev)
     phase("phase 2c: kernel timings beside their bounds (bf16)")
     rows = time_kernels(dev)
+    train_rows = time_backward(dev)
+    rows["flash_attention"]["train_lse"] = train_rows.pop(
+        "flash_attention_train")
+    rows.update(train_rows)
 
     phase("phase 3: identity (qwen3-4b width, 4 layers, f32, TF32 off)")
     identity_phase(dev)
@@ -3230,6 +3884,10 @@ def main(argv=None) -> int:
     phase("phase 3h: identity of musicgen-medium (full width: head_dim 64, "
         "24 heads over 24 KV heads, gelu MLP; 4 layers, f32, TF32 off)")
     identity_phase(dev, "musicgen-medium", 4, paged=True)
+    phase("phase 3i: train identity (qwen3-4b width, 2 layers, f32, TF32 "
+          "off): gradients and 3 train steps card against CPU; resume bit "
+          "for bit (bf16, f32 masters)")
+    train_identity(dev)
 
     phase("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
     launches = {"ring": serve_phase(dev)}
@@ -3270,6 +3928,9 @@ def main(argv=None) -> int:
     phase("phase 12: llama-3.2-vision-90b generation (full width, 20 layers: "
         "16 self + 4 cross; bf16; 8 lanes, prefill with enc, 32 steps)")
     launches["vision"] = vision_phase(dev)
+    phase("phase 13: train qwen3-4b (full config: 36 layers, bf16, f32 "
+          "masters, remat, AdamW, cosine; 6 steps of 2 x 1024 tokens)")
+    launches["train"] = train_phase(dev)
 
     phase("all phases passed")
     DETAILS["phase_s"] = phase_s
@@ -3287,6 +3948,13 @@ def main(argv=None) -> int:
                 "src/repro/kernels/ssd_scan.py:73"),
         "rglru": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan.cu",
                   "src/repro/kernels/rglru_scan.py:53"),
+        # the backward of the TPU kernel's function (the JAX package
+        # differentiates its jnp path; there is no TPU backward kernel)
+        "flash_attention_bwd": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:75"),
+        "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                        "src/repro/kernels/rmsnorm.py:31"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -3307,7 +3975,8 @@ def main(argv=None) -> int:
                       "prompt1024",
                       "prompt2300", "one_token_ms", "one_slot_ms",
                       "read_flush_ms", "warm_ms", "fixed_ms", "issue_us",
-                      "staged_ms", "pair", "add", "gated"):
+                      "staged_ms", "pair", "add", "gated", "train_lse",
+                      "f32", "flops", "bytes"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     DETAILS["kernels"] = kernels

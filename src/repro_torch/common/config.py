@@ -1,6 +1,8 @@
-"""Model configuration (the port's copy of ``repro.common.config``).
+"""Model and training configuration (the port's copy of
+``repro.common.config``).
 
-A single ``ModelConfig`` describes every architecture family.  Fields,
+A single ``ModelConfig`` describes every architecture family;
+``TrainConfig`` holds the optimizer, schedule and step settings.  Fields,
 properties and the per-layer pattern helpers are those of the JAX package;
 only the dtypes differ: ``torch.bfloat16``/``torch.float32`` stand where the
 reference pins ``jnp`` dtypes.
@@ -167,3 +169,22 @@ class ModelConfig:
         """Analytic parameter count (embedding included once if tied)."""
         from repro_torch.models import model as _m
         return _m.count_params(self)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "cosine"           # cosine|wsd|linear|constant
+    wsd_decay_frac: float = 0.1        # minicpm-style WSD final decay fraction
+    microbatches: int = 1              # gradient accumulation steps
+    z_loss: float = 0.0
+    aux_loss_coef: float = 0.01        # MoE load-balance loss weight
+    grad_compression: str = "none"     # none|int8_ef
+    seed: int = 0

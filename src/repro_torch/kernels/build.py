@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "flash_attention", "paged_decode_attention",
-           "ssd_scan", "rglru_scan", "rmsnorm")
+           "ssd_scan", "rglru_scan", "rmsnorm", "flash_attention_bwd",
+           "rmsnorm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

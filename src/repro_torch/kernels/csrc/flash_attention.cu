@@ -116,8 +116,9 @@ struct TcLayout {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, Keys<bf16> keys, const int* __restrict__ q_pos,
-                bf16* __restrict__ out, float* __restrict__ ml, float* __restrict__ part, int S,
-                int hq, int causal, int window, float scale, float softcap, int splits) {
+                bf16* __restrict__ out, float* __restrict__ ml, float* __restrict__ part,
+                float* __restrict__ lse, int S, int hq, int causal, int window, float scale,
+                float softcap, int splits) {
   using L = TcLayout<D>;
   constexpr int BK = L::BK, LD = L::LD, STAGES = L::STAGES;
   constexpr int CPR = D / 8;                 // 16-byte chunks per row
@@ -389,6 +390,12 @@ flash_tc_kernel(const bf16* __restrict__ q, Keys<bf16> keys, const int* __restri
       for (int nt = 0; nt < D / 8; ++nt)
         *reinterpret_cast<uint32_t*>(out + head * D + nt * 8 + 2 * tq) =
             rt::pack_bf16(acc[nt][2 * half] * inv, acc[nt][2 * half + 1] * inv);
+      if (lse != nullptr && tq == 0) {
+        // natural-log units of the logits: max * mult * ln 2 + ln(sum)
+        const float m = half ? m1 : m0;
+        lse[((size_t)b * hq + kh * rep + R % rep) * S + R / rep] =
+            l > 0.f ? m * mult * rt::kLn2 + logf(l) : rt::kNegInf;
+      }
     } else {
       // (max, sum) in natural-log units of the logits, as combine_splits
       // reads them; a split with nothing visible keeps rt::kNegInf
@@ -416,7 +423,8 @@ template <int D>
 __global__ void __launch_bounds__(NT)
 flash_f32_kernel(const float* __restrict__ q, Keys<float> keys, const int* __restrict__ q_pos,
                  float* __restrict__ out, float* __restrict__ ml, float* __restrict__ part,
-                 int S, int hq, int causal, int window, float scale, float softcap, int splits) {
+                 float* __restrict__ lse, int S, int hq, int causal, int window, float scale,
+                 float softcap, int splits) {
   constexpr int CPT = D / TPR;   // output columns per thread
   constexpr int SPT = BKF / TPR; // scores per thread per key tile
   constexpr int VEC = 4;         // floats per 16-byte load
@@ -551,6 +559,8 @@ flash_f32_kernel(const float* __restrict__ q, Keys<float> keys, const int* __res
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int e = 0; e < CPT; ++e) out[head * D + c + TPR * e] = acc[e] * inv;
+    if (lse != nullptr && c == 0)
+      lse[((size_t)b * hq + h) * S + qt * BQ + i] = l > 0.f ? m + logf(l) : rt::kNegInf;
   } else {
     const size_t slot = head * splits + split;
 #pragma unroll
@@ -579,8 +589,8 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <typename T, int D>
 cudaError_t launch_d(const T* q, const Keys<T>& keys, const int* qp, T* out, float* work,
-                     int B, int S, int hq, int splits, int causal, int window, float scale,
-                     float softcap, cudaStream_t st) {
+                     float* lse, int B, int S, int hq, int splits, int causal, int window,
+                     float scale, float softcap, cudaStream_t st) {
   float* ml = work;
   float* part = work == nullptr ? nullptr : work + (size_t)B * S * hq * splits * 2;
   if constexpr (sizeof(T) == 2) {
@@ -589,13 +599,13 @@ cudaError_t launch_d(const T* q, const Keys<T>& keys, const int* qp, T* out, flo
     if (attr != cudaSuccess) return attr;
     const int rows = S * (hq / keys.hkv);
     flash_tc_kernel<D><<<dim3((rows + BM - 1) / BM, keys.hkv, B * splits), kThreads, bytes, st>>>(
-        q, keys, qp, out, ml, part, S, hq, causal, window, scale, softcap, splits);
+        q, keys, qp, out, ml, part, lse, S, hq, causal, window, scale, softcap, splits);
   } else {
     constexpr size_t bytes = f32_smem_bytes<D>();
     static const cudaError_t attr = allow_smem(flash_f32_kernel<D>, bytes);
     if (attr != cudaSuccess) return attr;
     flash_f32_kernel<D><<<dim3((S + BQ - 1) / BQ, hq, B * splits), NT, bytes, st>>>(
-        q, keys, qp, out, ml, part, S, hq, causal, window, scale, softcap, splits);
+        q, keys, qp, out, ml, part, lse, S, hq, causal, window, scale, softcap, splits);
   }
   if (splits > 1) rt::combine_splits<T, D><<<B * S * hq, D, 0, st>>>(ml, part, out, splits);
   return cudaGetLastError();
@@ -604,7 +614,7 @@ cudaError_t launch_d(const T* q, const Keys<T>& keys, const int* qp, T* out, flo
 template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, const void* kc,
                      const void* vc, const int* qp, const int* kp, const int* cp, void* out,
-                     float* work, int B, int S, int C, int n, int hq, int hkv, int d,
+                     float* work, float* lse, int B, int S, int C, int n, int hq, int hkv, int d,
                      int splits, int causal, int window, float scale, float softcap,
                      cudaStream_t st) {
   const Keys<T> keys{static_cast<const T*>(k), static_cast<const T*>(v), kp,
@@ -612,9 +622,9 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const void* kc
   const T* qq = static_cast<const T*>(q);
   T* oo = static_cast<T*>(out);
   switch (d) {
-    case 64: return launch_d<T, 64>(qq, keys, qp, oo, work, B, S, hq, splits, causal, window, scale, softcap, st);
-    case 128: return launch_d<T, 128>(qq, keys, qp, oo, work, B, S, hq, splits, causal, window, scale, softcap, st);
-    case 256: return launch_d<T, 256>(qq, keys, qp, oo, work, B, S, hq, splits, causal, window, scale, softcap, st);
+    case 64: return launch_d<T, 64>(qq, keys, qp, oo, work, lse, B, S, hq, splits, causal, window, scale, softcap, st);
+    case 128: return launch_d<T, 128>(qq, keys, qp, oo, work, lse, B, S, hq, splits, causal, window, scale, softcap, st);
+    case 256: return launch_d<T, 256>(qq, keys, qp, oo, work, lse, B, S, hq, splits, causal, window, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -626,17 +636,20 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const void* kc
 // v_cache (B,n,Hkv,D) of the same dtype and cache_pos (B,n) int32, whose
 // keys precede the chunk's; with n == 0 they may be null.  `work` holds
 // B * S * Hq * splits * (D + 2) floats when splits > 1 (unused otherwise).
-// Returns cudaGetLastError().
+// `lse`, null on the serving path, takes each row's log-sum-exp of its
+// visible logits, (B,Hq,S) f32 (rt::kNegInf where none is visible), for the
+// backward; it needs splits == 1.  Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* k_cache, const void* v_cache,
                                       const void* q_pos, const void* k_pos,
-                                      const void* cache_pos, void* out, void* work, int B,
+                                      const void* cache_pos, void* out, void* work, void* lse,
+                                      int B,
                                       int S, int C, int n, int hq, int hkv, int d, int dtype,
                                       int splits, int causal, int window, float scale,
                                       float softcap, void* stream) {
   if (B <= 0 || S <= 0 || C < 0 || n < 0 || C + n <= 0 || hkv <= 0 || hq % hkv != 0 ||
       hq > 65535 || splits < 1 || (long long)B * splits > 65535 ||
-      (splits > 1 && work == nullptr) ||
+      (splits > 1 && work == nullptr) || (splits > 1 && lse != nullptr) ||
       (n > 0 && (k_cache == nullptr || v_cache == nullptr || cache_pos == nullptr)))
     return cudaErrorInvalidValue;
   const int tk = dtype == rt::kBFloat16 ? (d >= 256 ? 32 : 64) : BKF;  // keys per tile
@@ -645,10 +658,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const int* kp = static_cast<const int*>(k_pos);
   const int* cp = static_cast<const int*>(cache_pos);
   float* ww = static_cast<float*>(work);
+  float* ll = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kFloat32)
-    return launch_t<float>(q, k, v, k_cache, v_cache, qp, kp, cp, out, ww, B, S, C, n, hq, hkv, d, splits, causal, window, scale, softcap, st);
+    return launch_t<float>(q, k, v, k_cache, v_cache, qp, kp, cp, out, ww, ll, B, S, C, n, hq, hkv, d, splits, causal, window, scale, softcap, st);
   if (dtype == rt::kBFloat16)
-    return launch_t<bf16>(q, k, v, k_cache, v_cache, qp, kp, cp, out, ww, B, S, C, n, hq, hkv, d, splits, causal, window, scale, softcap, st);
+    return launch_t<bf16>(q, k, v, k_cache, v_cache, qp, kp, cp, out, ww, ll, B, S, C, n, hq, hkv, d, splits, causal, window, scale, softcap, st);
   return cudaErrorInvalidValue;
 }

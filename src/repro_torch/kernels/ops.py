@@ -1,8 +1,20 @@
 """Kernel entry points the model calls, dispatched by tensor device only.
 
-A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the
-Hopper kernel, which launches or raises.  There is no environment switch
-and no fallback from a failed kernel to the plain version.
+A CPU tensor takes the plain PyTorch version, which autograd
+differentiates; a CUDA tensor takes the Hopper kernel, which launches or
+raises.  There is no environment switch and no fallback from a failed
+kernel to the plain version.
+
+Gradients on the card: a kernel's output is written through ctypes and
+carries no autograd graph, so when grad mode is on and a CUDA input
+requires a gradient, ``flash_attention``, ``rmsnorm``, ``rmsnorm_pair``
+and ``add_rmsnorm`` go through their ``torch.autograd.Function``s
+(forward kernel, then backward kernel: ``FlashAttentionFn``,
+``RMSNormFn``, ``RMSNormPairFn``, ``AddRMSNormFn``); otherwise, as on
+every serving call, they launch directly.  The kernels with no backward
+yet (``gated_rmsnorm``, ``ssd``, ``rglru``, the decode kernels) raise
+``NotImplementedError`` in that case: they never return an output cut
+from its inputs.
 """
 from __future__ import annotations
 
@@ -26,28 +38,53 @@ def _route(t: torch.Tensor) -> bool:
     raise RuntimeError(f"no kernel or plain path for device {t.device}")
 
 
+def _grad(*ts) -> bool:
+    """Whether autograd would record a call on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _no_backward(name: str, *ts) -> None:
+    """Raise where a kernel without a backward would be recorded."""
+    if _grad(*ts):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet (ROADMAP.md §3): its CUDA "
+            "output would carry no gradient")
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """(..., D) RMSNorm with (1 + scale) gain, f32 statistics."""
-    fn = _norm.rmsnorm if _route(x) else _norm.rmsnorm_plain
-    return fn(x, scale, eps)
+    if not _route(x):
+        return _norm.rmsnorm_plain(x, scale, eps)
+    if _grad(x, scale):
+        return _norm.RMSNormFn.apply(x, scale, eps)
+    return _norm.rmsnorm(x, scale, eps)
 
 
 def rmsnorm_pair(q, k, q_scale, k_scale, eps: float = 1e-6):
     """(rmsnorm(q, q_scale), rmsnorm(k, k_scale)): the qk-norm, one launch."""
-    fn = _norm.rmsnorm_pair if _route(q) else _norm.rmsnorm_pair_plain
-    return fn(q, k, q_scale, k_scale, eps)
+    if not _route(q):
+        return _norm.rmsnorm_pair_plain(q, k, q_scale, k_scale, eps)
+    if _grad(q, k, q_scale, k_scale):
+        return _norm.RMSNormPairFn.apply(q, k, q_scale, k_scale, eps)
+    return _norm.rmsnorm_pair(q, k, q_scale, k_scale, eps)
 
 
 def add_rmsnorm(x, y, scale, eps: float = 1e-6):
     """(x + y, rmsnorm(x + y, scale)): a residual add and the next norm."""
-    fn = _norm.add_rmsnorm if _route(x) else _norm.add_rmsnorm_plain
-    return fn(x, y, scale, eps)
+    if not _route(x):
+        return _norm.add_rmsnorm_plain(x, y, scale, eps)
+    if _grad(x, y, scale):
+        return _norm.AddRMSNormFn.apply(x, y, scale, eps)
+    return _norm.add_rmsnorm(x, y, scale, eps)
 
 
 def gated_rmsnorm(y, z, scale, eps: float = 1e-6):
     """rmsnorm(y * silu(z), scale): Mamba2's gated output norm."""
-    fn = _norm.gated_rmsnorm if _route(y) else _norm.gated_rmsnorm_plain
-    return fn(y, z, scale, eps)
+    if not _route(y):
+        return _norm.gated_rmsnorm_plain(y, z, scale, eps)
+    _no_backward("gated_rmsnorm", y, z, scale)
+    return _norm.gated_rmsnorm(y, z, scale, eps)
 
 
 def flash_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, scale,
@@ -55,17 +92,27 @@ def flash_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, scale,
     """(B,S,Hq,D) x (B,C,Hkv,D) -> (B,S,Hq,D) under position masks; with
     a ring (``k_cache``/``v_cache`` (B,n,Hkv,D), ``cache_pos`` (B,n)) its
     slots are keys ahead of the chunk's."""
-    fn = _flash.flash_attention if _route(q) else _flash.flash_attention_plain
-    return fn(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
-              window=window, scale=scale, softcap=softcap, k_cache=k_cache,
-              v_cache=v_cache, cache_pos=cache_pos)
+    kw = dict(q_pos=q_pos, k_pos=k_pos, causal=causal, window=window,
+              scale=scale)
+    ring = dict(softcap=softcap, k_cache=k_cache, v_cache=v_cache,
+                cache_pos=cache_pos)
+    if not _route(q):
+        return _flash.flash_attention_plain(q, k, v, **kw, **ring)
+    if _grad(q, k, v, k_cache, v_cache):
+        _flash._bwd_supported(q, k_cache, softcap)
+        return _flash.FlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal,
+                                             window, scale)
+    return _flash.flash_attention(q, k, v, **kw, **ring)
 
 
 def decode_attention(q, k_cache, v_cache, *, cache_len, pos=None, window=0,
                      scale, softcap=0.0):
     """(B,1,Hq,D) over (B,n,Hkv,D) caches with per-lane lengths."""
-    fn = (_decode.decode_attention if _route(q)
-          else _decode.decode_attention_plain)
+    if not _route(q):
+        fn = _decode.decode_attention_plain
+    else:
+        _no_backward("decode_attention", q, k_cache, v_cache)
+        fn = _decode.decode_attention
     return fn(q, k_cache, v_cache, cache_len=cache_len, pos=pos,
               window=window, scale=scale, softcap=softcap)
 
@@ -74,22 +121,29 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, tables, *,
                            cache_len, window=0, scale, softcap=0.0):
     """(B,1,Hq,D) over (P,page,Hkv,D) pools through (B,maxp) block tables
     with per-lane lengths."""
-    fn = (_paged.paged_decode_attention if _route(q)
-          else _paged.paged_decode_attention_plain)
+    if not _route(q):
+        fn = _paged.paged_decode_attention_plain
+    else:
+        _no_backward("paged_decode_attention", q, k_pages, v_pages)
+        fn = _paged.paged_decode_attention
     return fn(q, k_pages, v_pages, pos_pages, tables, cache_len=cache_len,
               window=window, scale=scale, softcap=softcap)
 
 
 def ssd(x, dt, a_log, b_mat, c_mat, d_skip=None, chunk=128):
     """Zero-state chunked SSD scan: (B,S,H,P) in x's dtype."""
-    fn = _ssd.ssd if _route(x) else _ssd.ssd_plain
-    return fn(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
+    if not _route(x):
+        return _ssd.ssd_plain(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
+    _no_backward("ssd", x, dt, a_log, b_mat, c_mat, d_skip)
+    return _ssd.ssd(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
 
 
 def rglru(x, log_a, gate_x):
     """Zero-state RG-LRU scan over (B,S,D), in x's dtype."""
-    fn = _rglru.rglru if _route(x) else _rglru.rglru_plain
-    return fn(x, log_a, gate_x)
+    if not _route(x):
+        return _rglru.rglru_plain(x, log_a, gate_x)
+    _no_backward("rglru", x, log_a, gate_x)
+    return _rglru.rglru(x, log_a, gate_x)
 
 
 # model functions, not TPU kernels (jnp in the JAX package too): plain
@@ -100,17 +154,24 @@ causal_conv1d = ref.causal_conv1d
 causal_conv1d_step = ref.causal_conv1d_step
 
 
-_COUNTED = {"decode_attention": _decode, "flash_attention": _flash,
-            "rmsnorm": _norm, "paged_decode_attention": _paged, "ssd": _ssd,
-            "rglru": _rglru}
+# kernel name -> (module, its counter)
+_COUNTED = {"decode_attention": (_decode, "launches"),
+            "flash_attention": (_flash, "launches"),
+            "rmsnorm": (_norm, "launches"),
+            "paged_decode_attention": (_paged, "launches"),
+            "ssd": (_ssd, "launches"), "rglru": (_rglru, "launches"),
+            "flash_attention_bwd": (_flash, "bwd_launches"),
+            "rmsnorm_bwd": (_norm, "bwd_launches")}
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the six kernels (plain-version calls excluded)."""
-    return {name: mod.launches for name, mod in _COUNTED.items()}
+    """Launch counts of the eight kernels, the six forward kernels and the
+    two backward ones (plain-version calls excluded)."""
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTED.items()}
 
 
 def reset_kernel_launches() -> None:
-    for mod in _COUNTED.values():
+    for mod, attr in _COUNTED.values():
         with mod._count_lock:
-            mod.launches = 0
+            setattr(mod, attr, 0)

@@ -20,6 +20,18 @@ expression the model ran before the fusion, which the CPU path runs and
 the kernel is held against.  A wrapper launches on CUDA tensors and raises
 on any other; it reads inputs through a row stride (a slice of a wider
 projection is not copied) and writes contiguous outputs.
+
+Backward: ``csrc/rmsnorm_bwd.cu``, one body for the three forms the
+training path calls (the norm, the pair, the add; the gated form has
+none yet, ROADMAP §3): ``dx = r (dy w - x r^2 mean(dy w x))`` from the
+saved input, plus the sum output's gradient for the add form, and the
+gain's gradient summed over rows in f32 by a second, deterministic pass.
+``rmsnorm_bwd``, ``rmsnorm_pair_bwd`` and ``add_rmsnorm_bwd`` launch it;
+each ``*_bwd_plain`` is the same arithmetic in plain PyTorch.  The TPU
+kernel has no backward (the JAX package differentiates its jnp norm).
+``RMSNormFn``, ``RMSNormPairFn`` and ``AddRMSNormFn`` are the
+``torch.autograd.Function``s ``ops`` routes a CUDA call through when an
+input needs a gradient: forward kernel, then backward kernel.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 launches = 0                 # kernel launches (plain-version calls excluded)
+bwd_launches = 0             # backward kernel launches
 _count_lock = threading.Lock()
 _launcher = None             # rmsnorm_launch, once built and loaded
 
@@ -42,12 +55,20 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # segment 1: a, sa, gain, out, rows; stream
 _ARGTYPES = [_I, _I, _I, ctypes.c_float, _P, _P, _L, _L, _P, _P, _P, _I,
              _P, _L, _P, _P, _I, _P]
+# dtype, D, eps; segment 0: x, dy, dres, gain, dx, rows; segment 1: x, dy,
+# gain, dx, rows; partial, blocks, dgain0, dgain1, stream
+_BWD_ARGTYPES = [_I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                 _P, _I, _P, _I, _P, _P, _P]
+_BWD_MAX_D = 8192
 
 
-def _counted() -> None:
-    global launches
+def _counted(bwd: bool = False) -> None:
+    global launches, bwd_launches
     with _count_lock:
-        launches += 1
+        if bwd:
+            bwd_launches += 1
+        else:
+            launches += 1
 
 
 def _rows(t: torch.Tensor, d: int):
@@ -199,3 +220,165 @@ def add_rmsnorm_plain(x, y, scale, eps: float = 1e-6):
 
 def gated_rmsnorm_plain(y, z, scale, eps: float = 1e-6):
     return rmsnorm_plain(y * F.silu(z), scale, eps)
+
+
+# ------------------------------------------------------------- backward
+def _bwd_launch(x0, dy0, scale0, dres0=None, x1=None, dy1=None, scale1=None,
+                eps: float = 1e-6):
+    """One backward launch (two kernels) over one or two segments of
+    contiguous rows.  Returns (dx0, dgain0, dx1, dgain1)."""
+    d = x0.shape[-1]
+    if d > _BWD_MAX_D:
+        raise NotImplementedError(f"rmsnorm backward: width {d} > "
+                                  f"{_BWD_MAX_D}")
+    segs = [(x0, dy0, dres0)] + ([] if x1 is None else [(x1, dy1, None)])
+    for x, dy, dres in segs:
+        for t in (dy,) + (() if dres is None else (dres,)):
+            if t.shape != x.shape or t.dtype != x.dtype \
+                    or t.device != x.device:
+                raise ValueError(f"rmsnorm backward: {tuple(t.shape)} "
+                                 f"{t.dtype} beside {tuple(x.shape)} "
+                                 f"{x.dtype}")
+    x0, dy0 = x0.contiguous(), dy0.contiguous()
+    dres0 = None if dres0 is None else dres0.contiguous()
+    dx0, dg0 = _empty(x0), torch.empty(d, dtype=torch.float32,
+                                       device=x0.device)
+    rows0, rows1 = x0.numel() // d, 0
+    dx1 = dg1 = None
+    if x1 is not None:
+        x1, dy1 = x1.contiguous(), dy1.contiguous()
+        dx1 = _empty(x1)
+        dg1 = torch.empty(d, dtype=torch.float32, device=x0.device)
+        rows1 = x1.numel() // d
+    # blocks of 256 threads: 8 rows at a time (a warp each) up to width
+    # 1024, one row at a time beyond; at most two blocks an SM
+    groups = 8 if d <= 1024 else 1
+    dev = x0.device
+    blocks = max(1, min(-(-max(rows0, rows1) // groups),
+                        2 * build.sm_count(dev.index or 0)))
+    partial = torch.empty(blocks * 2 * d, dtype=torch.float32, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    fn = build.library("rmsnorm_bwd", _BWD_ARGTYPES).rmsnorm_bwd_launch
+    with torch.cuda.device(dev):
+        err = fn(_DTYPES[x0.dtype], d, eps, x0.data_ptr(), dy0.data_ptr(),
+                 ptr(dres0), scale0.data_ptr(), dx0.data_ptr(), rows0,
+                 ptr(x1), ptr(dy1), ptr(scale1), ptr(dx1), rows1,
+                 partial.data_ptr(), blocks, dg0.data_ptr(), ptr(dg1),
+                 build.current_stream(dev))
+    if err:
+        raise RuntimeError(f"rmsnorm backward launch failed: CUDA error "
+                           f"{err} (D {d})")
+    _counted(bwd=True)
+    return dx0, dg0, dx1, dg1
+
+
+def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
+    """Launch the backward kernel: (dx in x's dtype, dscale f32) of
+    ``rmsnorm(x, scale)`` for the output gradient ``dy``."""
+    _check("rmsnorm_bwd", x, scale, dy)
+    dx, dg, _, _ = _bwd_launch(x, dy, scale, eps=eps)
+    return dx, dg
+
+
+def rmsnorm_pair_bwd(q, k, q_scale, k_scale, dq_out, dk_out,
+                     eps: float = 1e-6):
+    """Both segments of the qk-norm in one launch: (dq, dk, dq_scale,
+    dk_scale)."""
+    _check("rmsnorm_pair_bwd", q, q_scale, dq_out)
+    _check("rmsnorm_pair_bwd", k, k_scale, dk_out)
+    dq, dqs, dk, dks = _bwd_launch(q, dq_out, q_scale, x1=k, dy1=dk_out,
+                                   scale1=k_scale, eps=eps)
+    return dq, dk, dqs, dks
+
+
+def add_rmsnorm_bwd(s, scale, ds, dh, eps: float = 1e-6):
+    """Backward of ``(s, h) = add_rmsnorm(x, y, scale)`` from the saved sum
+    ``s`` and the gradients of both outputs: (dx = dy = ds + dnorm(dh) in
+    s's dtype, rounded once, and dscale f32)."""
+    _check("add_rmsnorm_bwd", s, scale, ds, dh)
+    dx, dg, _, _ = _bwd_launch(s, dh, scale, dres0=ds, eps=eps)
+    return dx, dg
+
+
+def _norm_bwd_f32(x, scale, dy, eps):
+    """(dx, dscale) of the norm in f32, dx not rounded."""
+    xf, dyf = x.float(), dy.float()
+    w = 1.0 + scale.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    dyw = dyf * w
+    dot = (dyw * xf).mean(dim=-1, keepdim=True)
+    dx = r * (dyw - xf * (r * r * dot))
+    dscale = (dyf * (xf * r)).reshape(-1, x.shape[-1]).sum(0)
+    return dx, dscale
+
+
+def rmsnorm_bwd_plain(x, scale, dy, eps: float = 1e-6):
+    """The backward kernel's arithmetic in plain PyTorch."""
+    dx, dscale = _norm_bwd_f32(x, scale, dy, eps)
+    return dx.to(x.dtype), dscale
+
+
+def rmsnorm_pair_bwd_plain(q, k, q_scale, k_scale, dq_out, dk_out,
+                           eps: float = 1e-6):
+    dq, dqs = rmsnorm_bwd_plain(q, q_scale, dq_out, eps)
+    dk, dks = rmsnorm_bwd_plain(k, k_scale, dk_out, eps)
+    return dq, dk, dqs, dks
+
+
+def add_rmsnorm_bwd_plain(s, scale, ds, dh, eps: float = 1e-6):
+    dx, dscale = _norm_bwd_f32(s, scale, dh, eps)
+    return (ds.float() + dx).to(s.dtype), dscale
+
+
+class RMSNormFn(torch.autograd.Function):
+    """``rmsnorm`` under autograd on the card: forward kernel, backward
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        out = rmsnorm(x, scale, eps)
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy, ctx.eps)
+        return dx, dscale, None
+
+
+class RMSNormPairFn(torch.autograd.Function):
+    """``rmsnorm_pair`` under autograd on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, q_scale, k_scale, eps):
+        q_out, k_out = rmsnorm_pair(q, k, q_scale, k_scale, eps)
+        ctx.save_for_backward(q, k, q_scale, k_scale)
+        ctx.eps = eps
+        return q_out, k_out
+
+    @staticmethod
+    def backward(ctx, dq_out, dk_out):
+        q, k, q_scale, k_scale = ctx.saved_tensors
+        dq, dk, dqs, dks = rmsnorm_pair_bwd(q, k, q_scale, k_scale, dq_out,
+                                            dk_out, ctx.eps)
+        return dq, dk, dqs, dks, None
+
+
+class AddRMSNormFn(torch.autograd.Function):
+    """``add_rmsnorm`` under autograd on the card: the backward needs only
+    the sum, which the forward wrote."""
+
+    @staticmethod
+    def forward(ctx, x, y, scale, eps):
+        s, out = add_rmsnorm(x, y, scale, eps)
+        ctx.save_for_backward(s, scale)
+        ctx.eps = eps
+        return s, out
+
+    @staticmethod
+    def backward(ctx, ds, dh):
+        s, scale = ctx.saved_tensors
+        dx, dscale = add_rmsnorm_bwd(s, scale, ds, dh, ctx.eps)
+        return dx, dx, dscale, None

@@ -128,23 +128,23 @@ class Experts(nn.Module):
         return getattr(self, name)
 
 
-def _channel_mix(p: Block, x, y, cfg: ModelConfig):
+def _channel_mix(p: Block, x, y, cfg: ModelConfig, num_groups: int = 1):
     """The mixer's residual ``x + y``, then the pre-norm dense MLP or MoE
-    FFN with its residual.  The add and the norm are one launch on the card
-    (``add_rmsnorm``).  Returns (x, aux): the MoE balance loss, 0.0 for a
-    dense layer."""
+    FFN (capacity in ``num_groups`` groups) with its residual.  The add and
+    the norm are one launch on the card (``add_rmsnorm``).  Returns (x,
+    aux): the MoE balance loss, 0.0 for a dense layer."""
     if p.norm2 is None:
         return x + y, 0.0
     x, h = ops.add_rmsnorm(x, y, p.norm2, cfg.norm_eps)
     if p.moe is not None:
-        out, aux = moe_lib.moe_ffn(p.moe, h, cfg)
+        out, aux = moe_lib.moe_ffn(p.moe, h, cfg, num_groups)
         return x + out, aux
     return x + mlp(p.mlp, h, cfg.mlp_kind), 0.0
 
 
 # -------------------------------------------------------------- train/prefill
 def apply_block(p: Block, x, cfg: ModelConfig, kind: str, attn_kind: str, *,
-                positions=None, enc=None, memo=None):
+                positions=None, enc=None, memo=None, num_groups: int = 1):
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     if kind == ATTN:
         y = attn_lib.self_attention(p.attn, h, cfg, attn_kind, positions,
@@ -157,7 +157,7 @@ def apply_block(p: Block, x, cfg: ModelConfig, kind: str, attn_kind: str, *,
         y = rglru_lib.rglru_block(p.rec, h, cfg)
     else:
         raise ValueError(kind)
-    return _channel_mix(p, x, y, cfg)
+    return _channel_mix(p, x, y, cfg, num_groups)
 
 
 # --------------------------------------------------------------------- caches

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ATTN, CROSS, ModelConfig
 from repro_torch.common.device import resolve_device
@@ -25,6 +26,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import layers as lyr
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rope as rope_lib
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -153,19 +155,43 @@ def _need_enc(cfg: ModelConfig, enc) -> None:
             f"states enc (B, {cfg.num_image_tokens}, {cfg.d_model})")
 
 
-def forward(params: Model, tokens, cfg: ModelConfig, *, enc=None
+def _rope_memo(cfg: ModelConfig, positions) -> dict:
+    """A call's memo with every attention layer's rope table built: under
+    remat each layer is recomputed, and a table first built inside a
+    checkpointed layer would be another tensor in its recompute."""
+    memo = {}
+    for kind, akind in zip(cfg.layer_kinds(), cfg.attn_kinds()):
+        if kind == ATTN:
+            theta = attn_lib._rope_theta_for(cfg, akind)
+            attn_lib.shared(memo, ("rope", theta), lambda: rope_lib.rope_freqs(
+                cfg.resolved_head_dim, theta, positions))
+    return memo
+
+
+def forward(params: Model, tokens, cfg: ModelConfig, *, enc=None,
+            num_groups: int = 1, training: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int (or (B, S, d_model) embeddings).  ``enc`` (B, T,
     d_model): the encoder states a cross-attention layer attends over.
-    Returns (logits (B, S, V), aux loss scalar)."""
+    ``num_groups``: the MoE FFN's capacity groups.  With ``training`` and
+    ``cfg.remat`` every layer is checkpointed (its activations recomputed
+    in the backward), as the reference checkpoints each period; the final
+    norm and the head stay outside.  Returns (logits (B, S, V), aux loss
+    scalar)."""
     _need_enc(cfg, enc)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    memo = {}
+    memo = _rope_memo(cfg, positions)
     for layer in params.layers:
-        x, a = blk.apply_block(layer, x, cfg, layer.kind, layer.attn_kind,
-                               positions=positions, enc=enc, memo=memo)
+        kw = dict(positions=positions, enc=enc, memo=memo,
+                  num_groups=num_groups)
+        args = (layer, x, cfg, layer.kind, layer.attn_kind)
+        if training and cfg.remat:
+            x, a = checkpoint(blk.apply_block, *args, use_reentrant=False,
+                              **kw)
+        else:
+            x, a = blk.apply_block(*args, **kw)
         aux = aux + a
     return _logits(params, x, cfg), aux
 

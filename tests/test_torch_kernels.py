@@ -221,7 +221,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     assert ops.kernel_launches() == {"decode_attention": 0,
                                      "flash_attention": 0, "rmsnorm": 0,
                                      "paged_decode_attention": 0, "ssd": 0,
-                                     "rglru": 0}
+                                     "rglru": 0, "flash_attention_bwd": 0,
+                                     "rmsnorm_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -70,10 +70,14 @@ success):
    the qk pair and the residual add; dx and the gains' gradients) at
    widths 128 (the pair at 2048 x 32 and 2048 x 8 rows), 2560 and 2304 at
    2048 rows, 999, 64, 4096 and 8192; bf16 within one bf16 spacing of the
-   f32 oracle, f32 within 2e-5; then (phase 2c) their times at qwen3-4b's
+   f32 oracle, f32 within 2e-5; two launches of each at the training
+   shapes bit-identical; then (phase 2c) their times at qwen3-4b's
    training shapes beside their bounds, their plain versions and the
-   autograd backward of SDPA and of ``F.rms_norm`` as yardsticks, and the
-   flash forward with its log-sum-exp;
+   autograd backward of SDPA and of ``F.rms_norm`` as yardsticks (the
+   add form's is the norm's alone: no PyTorch call adds the sum's
+   gradient), each launch of a call apart (flash: delta, dK/dV, dQ; the
+   norm: row pass, dscale pass), and the flash forward with its
+   log-sum-exp;
    (2b) the MoE FFN (``models.moe.moe_ffn``, plain PyTorch around the
    kernels) against ``ref.moe_ffn_reference``, a loop over tokens and
    choices, on one layer at full width (mixtral-8x22b in f32 and bf16,
@@ -191,7 +195,8 @@ true, "device": {...}}`` as the last line.  ``--details PATH`` also writes
 every measurement (step profiles, nvcc's register and shared-memory
 report) to PATH as JSON.  ``--only 2t,2c,3i,13`` builds and runs only
 those phases of the training slice, then stops without a summary: a quick
-check of a change on the card, not the smoke test.
+check of a change on the card, not the smoke test (``--only 2t,2c,13``
+for work on the backward kernels).
 """
 from __future__ import annotations
 
@@ -2664,9 +2669,64 @@ def check_backward(dev) -> dict:
         f"spacings (limit {BWD_SPACINGS}), lse {lse_worst:.2e}; norm bwd: "
         f"{2 * len(norm_cases)} cases, max abs err {errs['rmsnorm_bwd']:.3e}, "
         f"bf16 {spac['rmsnorm_bwd']:.3f} spacings")
+    repeated = check_bwd_repeat(dev, rng)
     DETAILS["backward_checks"] = dict(errs=errs, spacings=spac,
-                                      lse_err=lse_worst)
+                                      lse_err=lse_worst,
+                                      bit_identical=repeated)
     return errs
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def check_bwd_repeat(dev, rng) -> list:
+    """Two launches of each backward kernel at qwen3-4b's training shapes
+    (bf16; flash B 2, S 1024, 32 over 8 heads of 128, causal; the norm and
+    add forms over 2048 rows of 2560, the pair over q 2048 x 32 and k
+    2048 x 8 rows of 128) give bit-identical outputs: no float atomics,
+    sums in a fixed order (resume bit for bit rests on it)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+    bf = torch.bfloat16
+    q, k, v, dout, qp, kp = flash_bwd_inputs(rng, 2, 1024, 1024, 32, 8, 128,
+                                             bf, dev)
+    kw = dict(q_pos=qp, k_pos=kp, causal=True, window=0, scale=128 ** -0.5)
+    out, lse = fk.flash_attention(q, k, v, splits=1, return_lse=True, **kw)
+
+    def rnd(shape, sc=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * sc)
+                                .astype(np.float32)).to(dev, bf)
+
+    def gain(d):
+        return torch.from_numpy((rng.standard_normal(d) * 0.1)
+                                .astype(np.float32)).to(dev)
+    x, dy, ds, g = rnd((2048, 2560)), rnd((2048, 2560)), rnd((2048, 2560),
+                                                             0.5), gain(2560)
+    qx, kx, dq, dk = (rnd((2048 * 32, 128)), rnd((2048 * 8, 128)),
+                      rnd((2048 * 32, 128)), rnd((2048 * 8, 128)))
+    gq, gk = gain(128), gain(128)
+    runs = {
+        "flash_attention_bwd": lambda: fk.flash_attention_bwd(
+            q, k, v, out, lse, dout, **kw),
+        "rmsnorm_bwd norm": lambda: rk.rmsnorm_bwd(x, g, dy),
+        "rmsnorm_bwd add": lambda: rk.add_rmsnorm_bwd(x, g, ds, dy),
+        "rmsnorm_bwd pair": lambda: rk.rmsnorm_pair_bwd(qx, kx, gq, gk, dq,
+                                                        dk),
+    }
+    for name, fn in runs.items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(first, second)):
+            if not same_bits(a, b):
+                raise AssertionError(f"{name}: output {i} differs between "
+                                     "two launches")
+    log(f"  two launches bit-identical: {', '.join(runs)}")
+    return list(runs)
 
 
 def time_backward(dev) -> dict:
@@ -2714,6 +2774,9 @@ def time_backward(dev) -> dict:
                 lo, (lq, lk, lv), ldo, retain_graph=True), flush),
             library_note="SDPA backward over K/V expanded to 32 heads",
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
+        # the three launches apart: delta, dK/dV, dQ
+        row["split_ms"] = kernel_breakdown(lambda: fk.flash_attention_bwd(
+            q, k, v, out, lse, dout, **kw), flush)
         if key == "ms":
             row["host_ms"] = host_ms(lambda: fk.flash_attention_bwd(
                 q, k, v, out, lse, dout, **kw), flush=flush)
@@ -2772,6 +2835,8 @@ def time_backward(dev) -> dict:
                lambda: rk.rmsnorm_bwd_plain(x, g, dy),
                lib_rms([x], [dy]), x.numel(), 3 * x.numel() * 2 + dm * 8,
                f"{n} x {dm} bf16"),
+        # no single PyTorch call computes the add form: its yardstick is
+        # the norm's backward alone, without the sum's gradient added
         "add": (lambda: rk.add_rmsnorm_bwd(x, g, ds, dy),
                 lambda: rk.add_rmsnorm_bwd_plain(x, g, ds, dy),
                 lib_rms([x], [dy]), x.numel(), 4 * x.numel() * 2 + dm * 8,
@@ -2786,12 +2851,22 @@ def time_backward(dev) -> dict:
     for key, (kern, plain, lib, elems, nbytes, shape) in forms.items():
         # about ten f32 operations an element
         bms, by = bound(nbytes, 10 * elems, PEAK_F32_FLOPS)
+        # beside the usual protocol (a write flush leaves the L2 full of
+        # dirty lines, which these loads evict): a read flush that leaves it
+        # clean, and a PyTorch reduction over as many bytes
         row = dict(ms=device_ms(kern, flush), plain_ms=device_ms(plain, flush),
                    library_ms=device_ms(lib, flush), bound_ms=bms,
-                   bound_by=by, shape=shape, host_ms=host_ms(kern, flush=flush))
+                   bound_by=by, shape=shape, host_ms=host_ms(kern, flush=flush),
+                   split_ms=kernel_breakdown(kern, flush),
+                   read_flush_ms=device_ms(kern, flush, how="read"),
+                   library_read_flush_ms=device_ms(lib, flush, how="read"),
+                   stream_ms=stream_ms(nbytes, dev, flush))
+        row["library_note"] = (
+            "F.rms_norm autograd backward without the residual gradient's "
+            "add: no single PyTorch call computes the add form"
+            if key == "add" else "F.rms_norm autograd backward")
         if key == "ms":
             norm_row = row
-            row["library_note"] = "F.rms_norm autograd backward"
         else:
             norm_row[key] = row
     rows["rmsnorm_bwd"] = norm_row
@@ -2802,6 +2877,13 @@ def time_backward(dev) -> dict:
                 continue
             extra = (f"; without lse {at['no_lse_ms']:.4f}"
                      if "no_lse_ms" in at else "")
+            if "read_flush_ms" in at:
+                extra += (f"; clean L2 {at['read_flush_ms']:.4f} (library "
+                          f"{at['library_read_flush_ms']:.4f}), a reduction "
+                          f"over the bytes {at['stream_ms']:.4f}")
+            if "split_ms" in at:
+                extra += "; by launch " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in at["split_ms"].items())
             log(f"  {name:22s} {key:5s} {at['ms']:.4f} ms; bound "
                 f"{at['bound_ms']:.4f} ({at['bound_by']}), plain "
                 f"{at['plain_ms']:.4f}, library {at['library_ms']:.4f}"
@@ -3457,6 +3539,10 @@ def paged_serve_phase(dev, arch="qwen3-4b", key="paged", layers=0):
 CHAOS_HEARTBEAT_MS = 20.0
 CHAOS_STALENESS = 5.0
 CHAOS_PROGRESS_MS = 1000.0
+# the partition scenario's staleness alarm spans at least this many of the
+# victim's one-lane steps, so that the window in which its loop must be seen
+# to run on holds several steps whatever the host's speed
+CHAOS_PARTITION_STEPS = 8.0
 
 
 def wait_until(cond, what: str, timeout_s: float = 120.0) -> None:
@@ -3512,13 +3598,13 @@ def chaos_phase(dev):
         return Replica(name, cfg, params, slots=8, capacity=2048,
                        prefill_chunk_tokens=32)
 
-    def fleet_of(reps):
+    def fleet_of(reps, staleness):
         """A DDS fleet (source replica0, coordinator replica1) that records
         each eviction: its reason, when, and the victim's decode steps."""
         fleet = ServingFleet(make_policy("DDS"), source="replica0",
                              coordinator="replica1",
                              heartbeat_ms=CHAOS_HEARTBEAT_MS,
-                             staleness_factor=CHAOS_STALENESS,
+                             staleness_factor=staleness,
                              progress_timeout_ms=CHAOS_PROGRESS_MS,
                              admission_margin=0.0)
         deaths = []
@@ -3577,11 +3663,11 @@ def chaos_phase(dev):
                                  f"dead {fleet.dead}, {deaths}")
         return (deaths[0]["at"] - t_fault) * 1e3
 
-    def pair():
+    def pair(staleness=CHAOS_STALENESS):
         gc.collect()            # the last scenario's replicas and caches
         t0 = time.perf_counter()
         reps = [replica("replica0"), replica("replica1")]
-        fleet, deaths = fleet_of(reps)
+        fleet, deaths = fleet_of(reps, staleness)
         return reps, fleet, deaths, time.perf_counter() - t0
 
     # ---- crash: phase 4's prompt mix, one request sampled
@@ -3728,11 +3814,22 @@ def chaos_phase(dev):
     del reps, fleet, inj, prof
 
     # ---- partition, then heal: staleness evicts, the healed node rejoins
-    reps, fleet, deaths, build_s = pair()
     # the healed node comes back as a fresh process (the fleet stopped the
     # evicted one), built and profiled before the counted traffic
+    gc.collect()
     rejoin = replica("replica0")
     rejoin_prof = profile_replica(rejoin)
+    # the victim's loop must be seen to run on between the fault and its
+    # eviction.  A one-lane step takes 30-45 ms on an idle host and more on
+    # a loaded one, so the phase's 100 ms alarm held one or two steps, or
+    # none: here the alarm spans CHAOS_PARTITION_STEPS of the steps that
+    # the rejoining replica's profile measured on this card
+    step_ms = rejoin_prof.step_curve(1.0)
+    staleness = max(CHAOS_STALENESS,
+                    CHAOS_PARTITION_STEPS * step_ms / CHAOS_HEARTBEAT_MS)
+    reps, fleet, deaths, build_s = pair(staleness)
+    log(f"  partition: one-lane step {step_ms:.2f} ms, staleness alarm "
+        f"{staleness * CHAOS_HEARTBEAT_MS:.0f} ms")
     inj = faults.inject(fleet, "replica0")
     req = Request(40, prompt(128), 48, 600_000.0)
 
@@ -3768,6 +3865,9 @@ def chaos_phase(dev):
             f"partition: first {first.replica} {first.outcome}, rejoined "
             f"{again.replica} {again.outcome}, {ran} steps while partitioned")
     stats["partition"] = dict(fault_to_eviction_ms=evict_ms,
+                              staleness_alarm_ms=staleness
+                              * CHAOS_HEARTBEAT_MS,
+                              step_ms=step_ms,
                               reason=deaths[0]["reason"],
                               steps_while_partitioned=ran,
                               failed_over=first.replica,
@@ -3976,7 +4076,7 @@ def main(argv=None) -> int:
                       "prompt2300", "one_token_ms", "one_slot_ms",
                       "read_flush_ms", "warm_ms", "fixed_ms", "issue_us",
                       "staged_ms", "pair", "add", "gated", "train_lse",
-                      "f32", "flops", "bytes"):
+                      "f32", "flops", "bytes", "split_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     DETAILS["kernels"] = kernels

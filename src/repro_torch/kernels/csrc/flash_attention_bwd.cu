@@ -13,25 +13,555 @@
 // for bf16 and f32 inputs alike:
 //   delta_i = rowsum(dO_i * O_i)                       (flash_bwd_delta)
 //   P = exp(S * scale - lse),  dP = dO V^T,  dS = P * (dP - delta)
-//   dV = P^T dO,  dK = dS^T Q * scale                  (flash_bwd_dkdv)
-//   dQ = dS K * scale                                  (flash_bwd_dq)
+//   dV = P^T dO,  dK = dS^T Q * scale                  (flash_bwd_dkdv_*)
+//   dQ = dS K * scale                                  (flash_bwd_dq_*)
 // Deterministic, no float atomics: a dK/dV block owns one key tile of one
 // KV head and walks every query tile of every query head of its GQA group,
-// so the group's sum is taken in order inside the block; a dQ block owns
+// so the group's sum is taken in a fixed order inside the block; a dQ block owns
 // one query tile of one head and walks the key tiles.  A tile pair that no
 // (query, key) of it can see, by the positions, is skipped.
 //
-// Bound on the card: operations (about 8 S T D multiply-adds per head over
-// the visible pairs, two recomputed score products in each kernel).  This
-// first kernel runs them on the CUDA cores in f32 (64 x 64 tiles in shared
-// memory, a 4 x 4 register tile of scores a thread); the tensor cores
-// (mma.sync/wgmma) are ROADMAP work.
+// Bound on the card: operations (FA2's five products over the visible
+// pairs; the two recomputed score products make seven).  bf16 design
+// (flash_bwd_dkdv_tc, flash_bwd_dq_tc), on the tensor cores through
+// tc.cuh (mma.sync.m16n8k16, bf16 operands by ldmatrix, f32 sums):
+//   * dK/dV: a 64-key tile stays in shared memory; two sets of four
+//     warps, 16 keys a warp, take the even and the odd (query tile, head)
+//     pairs of the GQA group, and set 1's sums are added to set 0's at the
+//     end (a fixed order), so the key tile that every causal query sees
+//     takes half the time.  S^T = K Q^T and dP^T = V dO^T come out as f32
+//     C fragments whose rows are the warp's keys; P^T and dS^T are formed
+//     in place, and the C fragments of two neighbouring 8-query tiles are
+//     the A fragment of the next product (tc.cuh's note), so
+//     dV += P^T dO and dK += dS^T Q run from registers, dO and Q read as B
+//     through ldmatrix .trans.  The accumulators stay in registers across
+//     the pairs, which stream through cp.async stages (two a set): the
+//     next two are requested before the current two are computed.  32
+//     queries a pair at D 128 (the 128 f32 accumulators a thread leave
+//     room for 32 of scores), 64 at D 64;
+//   * dQ: four warps, 16 query rows each, of a 64-row tile (Q and dO stay
+//     in shared memory); K/V tiles of 64 keys stream through two cp.async
+//     stages; S = Q K^T, dP = dO V^T, then dQ += dS K with K read through
+//     ldmatrix .trans;
+//   * P and dS are f32 and the oracle keeps them so: each is split into
+//     hi = bf16(x) and lo = bf16(x - hi) and both halves are multiplied
+//     (dS = P (dP - delta) cancels, so it needs the split more than P):
+//     ten products in all, S, dP, dV twice and dK twice in one kernel, S,
+//     dP and dQ twice in the other;
+//   * a prologue turns the positions into a bitmask of the tiles that
+//     meet the block's own (query tiles for dK/dV, key tiles for dQ);
+//     only those are requested.  Masks are applied score by score;
+//   * grids are 1-D and ordered so that the heaviest causal blocks start
+//     first (low key tiles for dK/dV, late query tiles for dQ).
+// f32 inputs (the identity checks, held at 2e-5) take a CUDA-core body,
+// flash_bwd_dkdv_f32 / flash_bwd_dq_f32, selected by dtype: 64 x 64 f32
+// tiles in shared memory, a 4 x 4 register tile of scores a thread.  This
+// is a dispatch by dtype, not a fallback: both routes launch or fail.
 #include <climits>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ bool visible(int p, int qp, int causal, int window) {
+  return p >= 0 && (!causal || p <= qp) && (window <= 0 || p > qp - window);
+}
+
+// Whether some query in [qlo, qhi] can see some key in [klo, khi].
+__device__ __forceinline__ bool tiles_meet(int qlo, int qhi, int klo, int khi, int causal,
+                                           int window) {
+  if (klo > khi || qlo > qhi) return false;
+  return (!causal || klo <= qhi) && (window <= 0 || khi > qlo - window);
+}
+
+// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]: one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout, float* __restrict__ delta,
+                int B, int S, int hq, int D) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)B * S * hq) return;  // whole warps leave together
+  const T* o = out + row * D;
+  const T* g = dout + row * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(rt::to_f32(o[d]), rt::to_f32(g[d]), acc);
+  acc = rt::group_sum<32>(acc);
+  if (lane == 0) {
+    const int h = row % hq;
+    const long long bi = row / hq;  // b * S + i
+    const int i = bi % S, b = bi / S;
+    delta[((size_t)b * hq + h) * S + i] = acc;
+  }
+}
+
+// ---------------------------------------------------------------- bf16 route
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;   // a dQ block
+constexpr int kKvThreads = 2 * kThreads;  // a dK/dV block: two sets of kWarps
+constexpr int kRows = 16 * kWarps;   // keys of a dK/dV block, queries of a dQ block
+constexpr int kMaxTiles = 8192;      // tiles a bitmask covers
+
+template <int D>
+struct KvLayout {  // flash_bwd_dkdv_tc, bytes
+  static constexpr int BQ = D >= 128 ? 32 : 64;  // queries of a streamed pair
+  static constexpr int LD = D + 8;               // padded row, bf16
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + kRows * LD * sizeof(bf16);
+  static constexpr size_t stage0 = v + kRows * LD * sizeof(bf16);
+  // a stage: Q, dO (BQ rows), then lse, delta and positions (BQ each);
+  // four of them, two for each set of warps
+  static constexpr size_t s_do = BQ * LD * sizeof(bf16);
+  static constexpr size_t s_lse = 2 * s_do;
+  static constexpr size_t s_delta = s_lse + BQ * sizeof(float);
+  static constexpr size_t s_qpos = s_delta + BQ * sizeof(float);
+  static constexpr size_t stage = s_qpos + BQ * sizeof(int);
+  static constexpr size_t bits = stage0 + 4 * stage;
+  static constexpr size_t bytes = bits + kMaxTiles / 8;
+  static_assert(stage % 16 == 0 && s_do % 16 == 0, "16-byte rows");
+  // at the end the second set's dK and dV (f32) pass through the stages
+  static_assert(2 * kRows * D * sizeof(float) <= 4 * stage, "dK/dV exchange fits the stages");
+  static_assert(bytes + 1024 <= 233472, "a dK/dV block within the SM");
+};
+
+template <int D>
+struct QLayout {  // flash_bwd_dq_tc, bytes
+  static constexpr int BK = 64;                  // keys of a streamed tile
+  static constexpr int LD = D + 8;
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = q + kRows * LD * sizeof(bf16);
+  static constexpr size_t stage0 = dout + kRows * LD * sizeof(bf16);
+  // a stage: K, V (BK rows), then the keys' positions
+  static constexpr size_t s_v = BK * LD * sizeof(bf16);
+  static constexpr size_t s_kpos = 2 * s_v;
+  static constexpr size_t stage = s_kpos + BK * sizeof(int);
+  static constexpr size_t bits = stage0 + 2 * stage;
+  static constexpr size_t bytes = bits + kMaxTiles / 8;
+  static_assert(stage % 16 == 0 && s_v % 16 == 0, "16-byte rows");
+  static_assert(2 * (bytes + 1024) <= 233472, "two dQ blocks per SM");
+};
+
+// min and max over the warp of the live positions lo/hi (INT_MAX / INT_MIN
+// where none).
+__device__ __forceinline__ void warp_range(int& lo, int& hi) {
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+}
+
+// Bitmask (smem, kMaxTiles bits) of the n tiles of `len` positions each,
+// starting at pos, that meet [olo, ohi] on the other side: warp w takes
+// tiles w, w + warps, ...  keys: positions < 0 are holes.  The block
+// synchronises before and after.  Returns the number of live tiles.
+__device__ int live_tiles(uint32_t* bits, const int* __restrict__ pos, int total, int len,
+                          int n, bool keys, int olo, int ohi, int causal, int window) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  for (int w = threadIdx.x; w < (n + 31) / 32; w += blockDim.x) bits[w] = 0;
+  __syncthreads();
+  for (int t = warp; t < n; t += warps) {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int r = lane; r < len; r += 32) {
+      const int i = t * len + r;
+      if (i < total) {
+        const int p = pos[i];
+        if (!keys || p >= 0) {
+          lo = min(lo, p);
+          hi = max(hi, p);
+        }
+      }
+    }
+    warp_range(lo, hi);
+    const bool meet = keys ? tiles_meet(olo, ohi, lo, hi, causal, window)
+                           : tiles_meet(lo, hi, olo, ohi, causal, window);
+    if (lane == 0 && meet) atomicOr(&bits[t / 32], 1u << (t % 32));
+  }
+  __syncthreads();
+  int live = 0;
+  for (int w = 0; w < (n + 31) / 32; ++w) live += __popc(bits[w]);
+  return live;
+}
+
+// The first live tile at or after `from` (n when none).
+__device__ __forceinline__ int next_live(const uint32_t* bits, int from, int n) {
+  for (int w = from / 32; w * 32 < n; ++w) {
+    const uint32_t m = bits[w] & (w == from / 32 ? ~0u << (from % 32) : ~0u);
+    if (m) return w * 32 + __ffs(m) - 1;
+  }
+  return n;
+}
+
+// c += A·B over a 16 x NB tile: A rows from `a` (row-major, LD), B^T rows
+// (n) from `bt` (row-major [n][k], LD), depth D; the warp's scores of Q·Kᵀ.
+template <int D, int NB, int LD>
+__device__ __forceinline__ void scores16(float (&c)[NB / 8][4], const bf16* a, const bf16* bt) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < NB / 8; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    rt::ldmatrix_x4(af, a + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int nn = 0; nn < NB / 16; ++nn) {
+      uint32_t bf[4];
+      rt::ldmatrix_x4(bf, bt + (nn * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                              ((lane / 8) % 2) * 8);
+      rt::mma_bf16(c[2 * nn], af, bf[0], bf[1]);
+      rt::mma_bf16(c[2 * nn + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D) += X·M, X the warp's f32 C fragments (16 x NK), split into
+// bf16 hi + lo; M rows (k) from `m` (row-major [k][d], LD) through
+// ldmatrix .trans.
+template <int D, int NK, int LD>
+__device__ __forceinline__ void accumulate_split(float (&acc)[D / 8][4], const float (&x)[NK / 8][4],
+                                                 const bf16* m) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    uint32_t hi[4], lo[4];
+    rt::split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+    rt::split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+    rt::split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+    rt::split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t bm[4];
+      rt::ldmatrix_x4_trans(bm, m + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + dn * 16 +
+                                    (lane / 16) * 8);
+      rt::mma_bf16(acc[2 * dn], hi, bm[0], bm[1]);
+      rt::mma_bf16(acc[2 * dn], lo, bm[0], bm[1]);
+      rt::mma_bf16(acc[2 * dn + 1], hi, bm[2], bm[3]);
+      rt::mma_bf16(acc[2 * dn + 1], lo, bm[2], bm[3]);
+    }
+  }
+}
+
+// The warp's 16 rows of acc * mult as bf16 into rows row0.. of dst (row r
+// at dst + r * stride), rows >= nrows skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, size_t stride,
+                                           const float (&acc)[D / 8][4], int row0, int nrows,
+                                           float mult) {
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + g + 8 * half;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(dst + r * stride + nt * 8 + 2 * tq) =
+          rt::pack_bf16(acc[nt][2 * half] * mult, acc[nt][2 * half + 1] * mult);
+  }
+}
+
+// dK, dV of one 64-key tile of KV head kh, batch row b.  Block index:
+// (key tile, batch row, KV head), the key tile slowest, so that the low
+// tiles, which the most causal queries see, start first.  Two sets of
+// four warps (16 keys a warp each) share the K/V tile: set 0 takes the
+// even (query tile, head) pairs and set 1 the odd ones, so a key tile
+// that every query sees takes half as long; at the end set 1's sums are
+// added to set 0's, a fixed order.
+template <int D>
+__global__ void __launch_bounds__(kKvThreads)
+flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int T_, int hq,
+                  int hkv, int causal, int window, float scale) {
+  using L = KvLayout<D>;
+  constexpr int BQ = L::BQ, LD = L::LD, CPR = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bf16* Ks = reinterpret_cast<const bf16*>(smem + L::k);
+  const bf16* Vs = reinterpret_cast<const bf16*>(smem + L::v);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::bits);
+
+  const int per_tile = B * hkv;
+  const int kt = blockIdx.x / per_tile, b = (blockIdx.x % per_tile) / hkv, kh = blockIdx.x % hkv;
+  const int rep = hq / hkv, k0 = kt * kRows, nk = min(kRows, T_ - k0);
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, tq = lane % 4;
+  const int set = tid / kThreads, kw = (tid / 32) % kWarps;  // the warp's keys: kw * 16..
+
+  // the resident K and V tiles (rows >= nk zero)
+  const size_t kbase = (((size_t)b * T_ + k0) * hkv + kh) * D;
+  for (int idx = tid; idx < kRows * CPR; idx += kKvThreads) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = r < nk;
+    const size_t off = ok ? kbase + (size_t)r * hkv * D + c * 8 : 0;
+    rt::cp_async16(smem + L::k + (r * LD + c * 8) * sizeof(bf16), k + off, ok);
+    rt::cp_async16(smem + L::v + (r * LD + c * 8) * sizeof(bf16), v + off, ok);
+  }
+  rt::cp_async_commit();
+
+  // positions of this thread's two keys, and the tile's live range
+  const int kr = kw * 16 + g;
+  const int* kpb = k_pos + (size_t)b * T_ + k0;
+  const int kp0 = kr < nk ? kpb[kr] : -1, kp1 = kr + 8 < nk ? kpb[kr + 8] : -1;
+  int klo = INT_MAX, khi = INT_MIN;
+  for (int c = lane; c < nk; c += 32) {
+    const int p = kpb[c];
+    if (p >= 0) {
+      klo = min(klo, p);
+      khi = max(khi, p);
+    }
+  }
+  warp_range(klo, khi);
+  const int ntq = (S + BQ - 1) / BQ;
+  const int nlive = live_tiles(bits, q_pos + (size_t)b * S, S, BQ, ntq, false, klo, khi, causal,
+                               window);
+
+  // pair (query tile t, head kh * rep + hh) into stage s (0..3)
+  auto request = [&](int t, int hh, int s) {
+    unsigned char* st = smem + L::stage0 + s * L::stage;
+    const int q0 = t * BQ, h = kh * rep + hh;
+    for (int idx = tid; idx < BQ * CPR; idx += kKvThreads) {
+      const int r = idx / CPR, c = idx % CPR;
+      const bool ok = q0 + r < S;
+      const size_t off = ok ? (((size_t)b * S + q0 + r) * hq + h) * D + c * 8 : 0;
+      rt::cp_async16(st + (r * LD + c * 8) * sizeof(bf16), q + off, ok);
+      rt::cp_async16(st + L::s_do + (r * LD + c * 8) * sizeof(bf16), dout + off, ok);
+    }
+    float* ls = reinterpret_cast<float*>(st + L::s_lse);
+    float* dl = reinterpret_cast<float*>(st + L::s_delta);
+    int* qp = reinterpret_cast<int*>(st + L::s_qpos);
+    for (int r = tid; r < BQ; r += kKvThreads) {
+      const int i = q0 + r;
+      if (i < S) {
+        const size_t at = ((size_t)b * hq + h) * S + i;
+        rt::cp_async4(ls + r, lse + at);
+        rt::cp_async4(dl + r, delta + at);
+        rt::cp_async4(qp + r, q_pos + (size_t)b * S + i);
+      } else {  // a row past S: P = exp2(-inf) = 0
+        ls[r] = INFINITY;
+        dl[r] = 0.f;
+        qp[r] = 0;
+      }
+    }
+  };
+  // the pairs in order, query tile by query tile, head by head: pairs
+  // 2i and 2i + 1 go to stages 2 (i % 2) and 2 (i % 2) + 1
+  int rt_ = next_live(bits, 0, ntq), rh = 0;  // the next pair to request
+  auto request_two = [&](int parity) {
+#pragma unroll
+    for (int s2 = 0; s2 < 2; ++s2) {
+      if (rt_ >= ntq) break;
+      request(rt_, rh, 2 * parity + s2);
+      if (++rh == rep) rh = 0, rt_ = next_live(bits, rt_ + 1, ntq);
+    }
+  };
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  const float c2 = scale * rt::kLog2e;
+
+  const int pairs = nlive * rep;
+  request_two(0);
+  rt::cp_async_commit();
+  for (int it = 0; 2 * it < pairs; ++it) {
+    rt::cp_async_wait<0>();
+    __syncthreads();  // pairs 2 it, 2 it + 1 have landed; the stages read at it - 1 are free
+    request_two((it + 1) % 2);
+    rt::cp_async_commit();
+    if (2 * it + set >= pairs) continue;  // set 1 past an odd count (warp-uniform)
+
+    const unsigned char* st = smem + L::stage0 + (2 * (it % 2) + set) * L::stage;
+    const bf16* Qs = reinterpret_cast<const bf16*>(st);
+    const bf16* Os = reinterpret_cast<const bf16*>(st + L::s_do);
+    const float* ls = reinterpret_cast<const float*>(st + L::s_lse);
+    const float* dl = reinterpret_cast<const float*>(st + L::s_delta);
+    const int* qp = reinterpret_cast<const int*>(st + L::s_qpos);
+
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x BQ queries
+    float sc[BQ / 8][4], dp[BQ / 8][4];
+    scores16<D, BQ, LD>(sc, Ks + kw * 16 * LD, Qs);
+    scores16<D, BQ, LD>(dp, Vs + kw * 16 * LD, Os);
+    // P^T and dS^T = P^T * (dP^T - delta) in place; query column c
+#pragma unroll
+    for (int nt = 0; nt < BQ / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * tq + e;
+        const int qq = qp[c];
+        const float l2 = ls[c] * rt::kLog2e, d = dl[c];
+        const float p0 = visible(kp0, qq, causal, window)
+                             ? rt::exp2_approx(fmaf(sc[nt][e], c2, -l2)) : 0.f;
+        const float p1 = visible(kp1, qq, causal, window)
+                             ? rt::exp2_approx(fmaf(sc[nt][e + 2], c2, -l2)) : 0.f;
+        sc[nt][e] = p0;
+        sc[nt][e + 2] = p1;
+        dp[nt][e] = p0 * (dp[nt][e] - d);
+        dp[nt][e + 2] = p1 * (dp[nt][e + 2] - d);
+      }
+    }
+    accumulate_split<D, BQ, LD>(dva, sc, Os);  // dV += P^T dO
+    accumulate_split<D, BQ, LD>(dka, dp, Qs);  // dK += dS^T Q
+  }
+  rt::cp_async_wait<0>();
+  __syncthreads();  // every stage is consumed: they carry set 1's sums
+
+  // set 1 hands its fragments to the set-0 thread of the same (warp,
+  // lane), which holds the same elements; lanes on consecutive words
+  float* xk = reinterpret_cast<float*>(smem + L::stage0);
+  float* xv = xk + kRows * D;
+  auto at = [&](int nt, int e) { return ((kw * (D / 8) + nt) * 4 + e) * 32 + lane; };
+  if (set == 1) {
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xk[at(nt, e)] = dka[nt][e];
+        xv[at(nt, e)] = dva[nt][e];
+      }
+  }
+  __syncthreads();
+  if (set == 0) {
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dka[nt][e] += xk[at(nt, e)];
+        dva[nt][e] += xv[at(nt, e)];
+      }
+    const size_t stride = (size_t)hkv * D;
+    store_rows<D>(dk + kbase, stride, dka, kw * 16, nk, scale);
+    store_rows<D>(dv + kbase, stride, dva, kw * 16, nk, 1.f);
+  }
+}
+
+// dQ of one 64-query tile of head h, batch row b.  Block index: (query
+// tile, batch row, head), the tile slowest and, when causal, last first:
+// the late queries see the most keys.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                bf16* __restrict__ dq, int B, int S, int T_, int hq, int hkv, int causal,
+                int window, float scale) {
+  using L = QLayout<D>;
+  constexpr int BK = L::BK, LD = L::LD, CPR = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bf16* Qs = reinterpret_cast<const bf16*>(smem + L::q);
+  const bf16* Os = reinterpret_cast<const bf16*>(smem + L::dout);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::bits);
+
+  const int per_tile = B * hq, ntq = (S + kRows - 1) / kRows;
+  const int ti = blockIdx.x / per_tile;
+  const int qt = causal ? ntq - 1 - ti : ti;
+  const int b = (blockIdx.x % per_tile) / hq, h = blockIdx.x % hq;
+  const int kh = h / (hq / hkv), q0 = qt * kRows, nq = min(kRows, S - q0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
+
+  // the resident Q and dO tiles (rows >= nq zero)
+  const size_t base = (((size_t)b * S + q0) * hq + h) * D;
+  for (int idx = tid; idx < kRows * CPR; idx += kThreads) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = r < nq;
+    const size_t off = ok ? base + (size_t)r * hq * D + c * 8 : 0;
+    rt::cp_async16(smem + L::q + (r * LD + c * 8) * sizeof(bf16), q + off, ok);
+    rt::cp_async16(smem + L::dout + (r * LD + c * 8) * sizeof(bf16), dout + off, ok);
+  }
+  rt::cp_async_commit();
+
+  // this thread's two query rows: position, lse (log2 units; +inf past S,
+  // so P = 0 there), delta; and the tile's range
+  const int qr = warp * 16 + g;
+  const int* qpb = q_pos + (size_t)b * S + q0;
+  const float* lsb = lse + ((size_t)b * hq + h) * S + q0;
+  const float* dlb = delta + ((size_t)b * hq + h) * S + q0;
+  const int qp0 = qr < nq ? qpb[qr] : 0, qp1 = qr + 8 < nq ? qpb[qr + 8] : 0;
+  const float l20 = qr < nq ? lsb[qr] * rt::kLog2e : INFINITY;
+  const float l21 = qr + 8 < nq ? lsb[qr + 8] * rt::kLog2e : INFINITY;
+  const float dl0 = qr < nq ? dlb[qr] : 0.f, dl1 = qr + 8 < nq ? dlb[qr + 8] : 0.f;
+  int qlo = INT_MAX, qhi = INT_MIN;
+  for (int r = lane; r < nq; r += 32) {
+    qlo = min(qlo, qpb[r]);
+    qhi = max(qhi, qpb[r]);
+  }
+  warp_range(qlo, qhi);
+  const int ntk = (T_ + BK - 1) / BK;
+  const int nlive = live_tiles(bits, k_pos + (size_t)b * T_, T_, BK, ntk, true, qlo, qhi, causal,
+                               window);
+
+  const int* kpg = k_pos + (size_t)b * T_;
+  auto request = [&](int t, int s) {
+    unsigned char* st = smem + L::stage0 + s * L::stage;
+    const int j0 = t * BK;
+    for (int idx = tid; idx < BK * CPR; idx += kThreads) {
+      const int r = idx / CPR, c = idx % CPR;
+      const bool ok = j0 + r < T_;
+      const size_t off = ok ? (((size_t)b * T_ + j0 + r) * hkv + kh) * D + c * 8 : 0;
+      rt::cp_async16(st + (r * LD + c * 8) * sizeof(bf16), k + off, ok);
+      rt::cp_async16(st + L::s_v + (r * LD + c * 8) * sizeof(bf16), v + off, ok);
+    }
+    int* kp = reinterpret_cast<int*>(st + L::s_kpos);
+    for (int r = tid; r < BK; r += kThreads) {
+      if (j0 + r < T_)
+        rt::cp_async4(kp + r, kpg + j0 + r);
+      else
+        kp[r] = -1;
+    }
+  };
+
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+  const float c2 = scale * rt::kLog2e;
+
+  int req = next_live(bits, 0, ntk);
+  if (req < ntk) {
+    request(req, 0);
+    req = next_live(bits, req + 1, ntk);
+  }
+  rt::cp_async_commit();
+  for (int it = 0; it < nlive; ++it) {
+    rt::cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed; the stage read at it - 1 is free
+    if (req < ntk) {
+      request(req, (it + 1) % 2);
+      req = next_live(bits, req + 1, ntk);
+    }
+    rt::cp_async_commit();
+
+    const unsigned char* st = smem + L::stage0 + (it % 2) * L::stage;
+    const bf16* Ks = reinterpret_cast<const bf16*>(st);
+    const bf16* Vs = reinterpret_cast<const bf16*>(st + L::s_v);
+    const int* kp = reinterpret_cast<const int*>(st + L::s_kpos);
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 queries x BK keys
+    float sc[BK / 8][4], dp[BK / 8][4];
+    scores16<D, BK, LD>(sc, Qs + warp * 16 * LD, Ks);
+    scores16<D, BK, LD>(dp, Os + warp * 16 * LD, Vs);
+    // dS = P * (dP - delta) into dp; key column c
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = kp[nt * 8 + 2 * tq + e];
+        const float p0 = visible(p, qp0, causal, window)
+                             ? rt::exp2_approx(fmaf(sc[nt][e], c2, -l20)) : 0.f;
+        const float p1 = visible(p, qp1, causal, window)
+                             ? rt::exp2_approx(fmaf(sc[nt][e + 2], c2, -l21)) : 0.f;
+        dp[nt][e] = p0 * (dp[nt][e] - dl0);
+        dp[nt][e + 2] = p1 * (dp[nt][e + 2] - dl1);
+      }
+    }
+    accumulate_split<D, BK, LD>(dqa, dp, Ks);  // dQ += dS K
+  }
+  rt::cp_async_wait<0>();
+  store_rows<D>(dq + base, (size_t)hq * D, dqa, warp * 16, nq, scale);
+}
+
+// ----------------------------------------------------------------- f32 route
 constexpr int BQ = 64;      // query rows per tile
 constexpr int BKV = 64;     // keys per tile
 constexpr int NT = 256;     // threads per block
@@ -54,39 +584,29 @@ struct Layout {  // shared memory, in floats (ints after)
   static_assert(bytes <= 232448, "flash backward block within 227 KB");
 };
 
-__device__ __forceinline__ bool visible(int p, int qp, int causal, int window) {
-  return p >= 0 && (!causal || p <= qp) && (window <= 0 || p > qp - window);
-}
-
-// rows x D elements of T at src (row r at src + r * stride) into the f32
-// shared tile dst (row length LD); rows >= nrows are zero.  16-byte loads.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, size_t stride,
-                                          int nrows, int rows) {
-  constexpr int V = 16 / sizeof(T);
+// rows x D floats at src (row r at src + r * stride) into the shared tile
+// dst (row length LD); rows >= nrows are zero.  16-byte loads.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
+                                          size_t stride, int nrows, int rows) {
   constexpr int LD = D + 1;
-  for (int idx = threadIdx.x * V; idx < rows * D; idx += NT * V) {
+  for (int idx = threadIdx.x * 4; idx < rows * D; idx += NT * 4) {
     const int r = idx / D, d = idx % D;
-    float x[V];
-    if (r < nrows) {
-      rt::load_f32<T, V>(src + r * stride + d, x);
-    } else {
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < nrows) rt::load_f32<float, 4>(src + r * stride + d, x);
 #pragma unroll
-      for (int e = 0; e < V; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) dst[r * LD + d + e] = x[e];
+    for (int e = 0; e < 4; ++e) dst[r * LD + d + e] = x[e];
   }
 }
 
-// f32 shared tile (row length D + 1) to rows of T at dst, times mult.
-template <typename T, int D>
-__device__ __forceinline__ void store_tile(T* __restrict__ dst, const float* src, size_t stride,
-                                           int nrows, float mult) {
+// shared tile (row length D + 1) to rows at dst, times mult.
+template <int D>
+__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float* src,
+                                           size_t stride, int nrows, float mult) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < nrows * D; idx += NT) {
     const int r = idx / D, d = idx % D;
-    dst[r * stride + d] = rt::from_f32<T>(src[r * LD + d] * mult);
+    dst[r * stride + d] = src[r * LD + d] * mult;
   }
 }
 
@@ -101,13 +621,6 @@ __device__ __forceinline__ void pos_range(const int* p, int n, bool keys, int& l
     lo = min(lo, x);
     hi = max(hi, x);
   }
-}
-
-// Whether some query in [qlo, qhi] can see some key in [klo, khi].
-__device__ __forceinline__ bool tiles_meet(int qlo, int qhi, int klo, int khi, int causal,
-                                           int window) {
-  if (klo > khi || qlo > qhi) return false;
-  return (!causal || klo <= qhi) && (window <= 0 || khi > qlo - window);
 }
 
 // The warp-synchronous score tile: rows tr + 16 i and keys tc + 16 j of the
@@ -166,38 +679,17 @@ __device__ __forceinline__ void probs(float* sm, int q0, int k0, int S, int T, i
   }
 }
 
-// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]: one warp a row.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout, float* __restrict__ delta,
-                int B, int S, int hq, int D) {
-  const long long row = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * S * hq) return;  // whole warps leave together
-  const T* o = out + row * D;
-  const T* g = dout + row * D;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(rt::to_f32(o[d]), rt::to_f32(g[d]), acc);
-  acc = rt::group_sum<32>(acc);
-  if (lane == 0) {
-    const int h = row % hq;
-    const long long bi = row / hq;  // b * S + i
-    const int i = bi % S, b = bi / S;
-    delta[((size_t)b * hq + h) * S + i] = acc;
-  }
-}
-
 // Loads of one (query tile, head) into shared memory: Q, dO, lse, delta,
 // the query positions.
-template <typename T, int D>
-__device__ __forceinline__ void load_queries(float* sm, const T* q, const T* dout,
+template <int D>
+__device__ __forceinline__ void load_queries(float* sm, const float* q, const float* dout,
                                              const float* lse, const float* delta, const int* qp,
                                              int b, int h, int q0, int S, int hq) {
   using L = Layout<D>;
   const int nq = min(BQ, S - q0);
   const size_t base = (((size_t)b * S + q0) * hq + h) * D;
-  load_tile<T, D>(sm + L::q, q + base, (size_t)hq * D, nq, BQ);
-  load_tile<T, D>(sm + L::dout, dout + base, (size_t)hq * D, nq, BQ);
+  load_tile<D>(sm + L::q, q + base, (size_t)hq * D, nq, BQ);
+  load_tile<D>(sm + L::dout, dout + base, (size_t)hq * D, nq, BQ);
   for (int r = threadIdx.x; r < BQ; r += NT) {
     const bool ok = r < nq;
     const size_t at = ((size_t)b * hq + h) * S + q0 + r;
@@ -208,13 +700,14 @@ __device__ __forceinline__ void load_queries(float* sm, const T* q, const T* dou
 }
 
 // dK, dV of one key tile of KV head kh, batch row b: block (key tile, kh, b).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, const int* __restrict__ q_pos,
-               const int* __restrict__ k_pos, T* __restrict__ dk, T* __restrict__ dv, int S,
-               int T_, int hq, int hkv, int causal, int window, float scale) {
+flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                   float* __restrict__ dk, float* __restrict__ dv, int S, int T_, int hq, int hkv,
+                   int causal, int window, float scale) {
   using L = Layout<D>;
   constexpr int LD = L::LD, E = D / 16;
   extern __shared__ float sm[];
@@ -223,8 +716,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int k0 = blockIdx.x * BKV, kh = blockIdx.y, b = blockIdx.z;
   const int rep = hq / hkv, nk = min(BKV, T_ - k0);
   const size_t kbase = (((size_t)b * T_ + k0) * hkv + kh) * D;
-  load_tile<T, D>(sm + L::k, k + kbase, (size_t)hkv * D, nk, BKV);
-  load_tile<T, D>(sm + L::v, v + kbase, (size_t)hkv * D, nk, BKV);
+  load_tile<D>(sm + L::k, k + kbase, (size_t)hkv * D, nk, BKV);
+  load_tile<D>(sm + L::v, v + kbase, (size_t)hkv * D, nk, BKV);
   for (int c = threadIdx.x; c < BKV; c += NT) kps[c] = c < nk ? k_pos[(size_t)b * T_ + k0 + c] : -1;
   __syncthreads();
   int klo, khi;
@@ -249,7 +742,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     for (int hh = 0; hh < rep; ++hh) {
       const int h = kh * rep + hh;
       __syncthreads();
-      load_queries<T, D>(sm, q, dout, lse, delta, q_pos, b, h, q0, S, hq);
+      load_queries<D>(sm, q, dout, lse, delta, q_pos, b, h, q0, S, hq);
       __syncthreads();
       probs<D>(sm, q0, k0, S, T_, causal, window, scale, true);
       __syncthreads();
@@ -286,18 +779,19 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       sm[L::v + (kc + 16 * j) * LD + dc + 16 * e] = av[j][e];
     }
   __syncthreads();
-  store_tile<T, D>(dk + kbase, sm + L::k, (size_t)hkv * D, nk, scale);
-  store_tile<T, D>(dv + kbase, sm + L::v, (size_t)hkv * D, nk, 1.f);
+  store_tile<D>(dk + kbase, sm + L::k, (size_t)hkv * D, nk, scale);
+  store_tile<D>(dv + kbase, sm + L::v, (size_t)hkv * D, nk, 1.f);
 }
 
 // dQ of one query tile of head h, batch row b: block (query tile, h, b).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ dout, const float* __restrict__ lse,
-             const float* __restrict__ delta, const int* __restrict__ q_pos,
-             const int* __restrict__ k_pos, T* __restrict__ dq, int S, int T_, int hq, int hkv,
-             int causal, int window, float scale) {
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                 float* __restrict__ dq, int S, int T_, int hq, int hkv, int causal, int window,
+                 float scale) {
   using L = Layout<D>;
   constexpr int LD = L::LD, E = D / 16;
   extern __shared__ float sm[];
@@ -305,7 +799,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   int* kps = reinterpret_cast<int*>(sm + L::kpos);
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (hq / hkv), nq = min(BQ, S - q0);
-  load_queries<T, D>(sm, q, dout, lse, delta, q_pos, b, h, q0, S, hq);
+  load_queries<D>(sm, q, dout, lse, delta, q_pos, b, h, q0, S, hq);
   __syncthreads();
   int qlo, qhi;
   pos_range(qps, nq, false, qlo, qhi);
@@ -328,8 +822,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     pos_range(kps, BKV, true, klo, khi);
     if (!tiles_meet(qlo, qhi, klo, khi, causal, window)) continue;  // uniform
     const size_t kbase = (((size_t)b * T_ + k0) * hkv + kh) * D;
-    load_tile<T, D>(sm + L::k, k + kbase, (size_t)hkv * D, nk, BKV);
-    load_tile<T, D>(sm + L::v, v + kbase, (size_t)hkv * D, nk, BKV);
+    load_tile<D>(sm + L::k, k + kbase, (size_t)hkv * D, nk, BKV);
+    load_tile<D>(sm + L::v, v + kbase, (size_t)hkv * D, nk, BKV);
     __syncthreads();
     probs<D>(sm, q0, k0, S, T_, causal, window, scale, false);
     __syncthreads();
@@ -353,7 +847,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int e = 0; e < E; ++e) sm[L::q + (rq + 16 * i) * LD + dc + 16 * e] = aq[i][e];
   __syncthreads();
   const size_t base = (((size_t)b * S + q0) * hq + h) * D;
-  store_tile<T, D>(dq + base, sm + L::q, (size_t)hq * D, nq, scale);
+  store_tile<D>(dq + base, sm + L::q, (size_t)hq * D, nq, scale);
 }
 
 template <typename K>
@@ -362,43 +856,53 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
-cudaError_t launch_d(const T* q, const T* k, const T* v, const T* out, const T* dout,
-                     const float* lse, const int* qp, const int* kp, float* delta, T* dq, T* dk,
-                     T* dv, int B, int S, int T_, int hq, int hkv, int causal, int window,
-                     float scale, cudaStream_t st) {
-  constexpr size_t bytes = Layout<D>::bytes;
-  static const cudaError_t a1 = allow_smem(flash_bwd_dkdv<T, D>, bytes);
-  static const cudaError_t a2 = allow_smem(flash_bwd_dq<T, D>, bytes);
+template <typename T>
+void launch_delta(const T* out, const T* dout, float* delta, int B, int S, int hq, int D,
+                  cudaStream_t st) {
+  const long long rows = (long long)B * S * hq;
+  flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(out, dout, delta, B, S, hq, D);
+}
+
+template <int D>
+cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
+                      const bf16* dout, const float* lse, const int* qp, const int* kp,
+                      float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int S, int T_, int hq,
+                      int hkv, int causal, int window, float scale, cudaStream_t st) {
+  using LK = KvLayout<D>;
+  using LQ = QLayout<D>;
+  if ((S + LK::BQ - 1) / LK::BQ > kMaxTiles || (T_ + LQ::BK - 1) / LQ::BK > kMaxTiles)
+    return cudaErrorInvalidValue;
+  static const cudaError_t a1 = allow_smem(flash_bwd_dkdv_tc<D>, LK::bytes);
+  static const cudaError_t a2 = allow_smem(flash_bwd_dq_tc<D>, LQ::bytes);
   if (a1 != cudaSuccess) return a1;
   if (a2 != cudaSuccess) return a2;
-  const long long rows = (long long)B * S * hq;
-  flash_bwd_delta<T><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, st>>>(
-      out, dout, delta, B, S, hq, D);
-  flash_bwd_dkdv<T, D><<<dim3((T_ + BKV - 1) / BKV, hkv, B), NT, bytes, st>>>(
-      q, k, v, dout, lse, delta, qp, kp, dk, dv, S, T_, hq, hkv, causal, window, scale);
-  flash_bwd_dq<T, D><<<dim3((S + BQ - 1) / BQ, hq, B), NT, bytes, st>>>(
-      q, k, v, dout, lse, delta, qp, kp, dq, S, T_, hq, hkv, causal, window, scale);
+  launch_delta<bf16>(out, dout, delta, B, S, hq, D, st);
+  const long long kv_blocks = (long long)((T_ + kRows - 1) / kRows) * B * hkv;
+  const long long q_blocks = (long long)((S + kRows - 1) / kRows) * B * hq;
+  if (kv_blocks > INT_MAX || q_blocks > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dkdv_tc<D><<<(unsigned)kv_blocks, kKvThreads, LK::bytes, st>>>(
+      q, k, v, dout, lse, delta, qp, kp, dk, dv, B, S, T_, hq, hkv, causal, window, scale);
+  flash_bwd_dq_tc<D><<<(unsigned)q_blocks, kThreads, LQ::bytes, st>>>(
+      q, k, v, dout, lse, delta, qp, kp, dq, B, S, T_, hq, hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_t(const void* q, const void* k, const void* v, const void* out,
-                     const void* dout, const float* lse, const int* qp, const int* kp,
-                     float* delta, void* dq, void* dk, void* dv, int B, int S, int T_, int hq,
-                     int hkv, int d, int causal, int window, float scale, cudaStream_t st) {
-  auto c = [](const void* p) { return static_cast<const T*>(p); };
-  auto m = [](void* p) { return static_cast<T*>(p); };
-  switch (d) {
-    case 64:
-      return launch_d<T, 64>(c(q), c(k), c(v), c(out), c(dout), lse, qp, kp, delta, m(dq), m(dk),
-                             m(dv), B, S, T_, hq, hkv, causal, window, scale, st);
-    case 128:
-      return launch_d<T, 128>(c(q), c(k), c(v), c(out), c(dout), lse, qp, kp, delta, m(dq),
-                              m(dk), m(dv), B, S, T_, hq, hkv, causal, window, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* out,
+                       const float* dout, const float* lse, const int* qp, const int* kp,
+                       float* delta, float* dq, float* dk, float* dv, int B, int S, int T_,
+                       int hq, int hkv, int causal, int window, float scale, cudaStream_t st) {
+  constexpr size_t bytes = Layout<D>::bytes;
+  static const cudaError_t a1 = allow_smem(flash_bwd_dkdv_f32<D>, bytes);
+  static const cudaError_t a2 = allow_smem(flash_bwd_dq_f32<D>, bytes);
+  if (a1 != cudaSuccess) return a1;
+  if (a2 != cudaSuccess) return a2;
+  launch_delta<float>(out, dout, delta, B, S, hq, D, st);
+  flash_bwd_dkdv_f32<D><<<dim3((T_ + BKV - 1) / BKV, hkv, B), NT, bytes, st>>>(
+      q, k, v, dout, lse, delta, qp, kp, dk, dv, S, T_, hq, hkv, causal, window, scale);
+  flash_bwd_dq_f32<D><<<dim3((S + BQ - 1) / BQ, hq, B), NT, bytes, st>>>(
+      q, k, v, dout, lse, delta, qp, kp, dq, S, T_, hq, hkv, causal, window, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -420,11 +924,27 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   const int* kp = static_cast<const int*>(k_pos);
   float* dl = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kFloat32)
-    return launch_t<float>(q, k, v, out, dout, l, qp, kp, dl, dq, dk, dv, B, S, T, hq, hkv, d,
-                           causal, window, scale, st);
-  if (dtype == rt::kBFloat16)
-    return launch_t<__nv_bfloat16>(q, k, v, out, dout, l, qp, kp, dl, dq, dk, dv, B, S, T, hq,
-                                   hkv, d, causal, window, scale, st);
+  if (dtype == rt::kFloat32) {
+    auto c = [](const void* p) { return static_cast<const float*>(p); };
+    auto m = [](void* p) { return static_cast<float*>(p); };
+    if (d == 64)
+      return launch_f32<64>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                            m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+    if (d == 128)
+      return launch_f32<128>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                             m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == rt::kBFloat16) {
+    auto c = [](const void* p) { return static_cast<const bf16*>(p); };
+    auto m = [](void* p) { return static_cast<bf16*>(p); };
+    if (d == 64)
+      return launch_tc<64>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                           m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+    if (d == 128)
+      return launch_tc<128>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                            m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+    return cudaErrorInvalidValue;
+  }
   return cudaErrorInvalidValue;
 }

@@ -12,7 +12,10 @@ the serving path never asks for it, and the kernel then writes none.
 Backward: ``csrc/flash_attention_bwd.cu``, FlashAttention-2's recompute
 from the log-sum-exp (dQ, dK, dV; deterministic, no atomics), launched by
 ``flash_attention_bwd``; ``flash_attention_bwd_plain`` is the same
-algorithm in plain PyTorch.  The TPU kernel has no backward (the JAX
+algorithm in plain PyTorch.  In bf16 its products run on the tensor cores
+(``mma.sync``), P and dS split into bf16 hi + lo as the forward splits P;
+f32 inputs take a CUDA-core body, selected by dtype.  The TPU kernel has
+no backward (the JAX
 package differentiates its jnp path); the port's forward is the kernel,
 so its gradient is one too.  ``FlashAttentionFn`` is the
 ``torch.autograd.Function`` that ``ops.flash_attention`` routes a CUDA

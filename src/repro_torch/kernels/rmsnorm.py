@@ -26,6 +26,9 @@ training path calls (the norm, the pair, the add; the gated form has
 none yet, ROADMAP §3): ``dx = r (dy w - x r^2 mean(dy w x))`` from the
 saved input, plus the sum output's gradient for the add form, and the
 gain's gradient summed over rows in f32 by a second, deterministic pass.
+Rows go to groups of 8 to 128 threads, several rows in flight a block
+with 16-byte loads, all issued before the row's reduction (the source's
+header has the design).
 ``rmsnorm_bwd``, ``rmsnorm_pair_bwd`` and ``add_rmsnorm_bwd`` launch it;
 each ``*_bwd_plain`` is the same arithmetic in plain PyTorch.  The TPU
 kernel has no backward (the JAX package differentiates its jnp norm).
@@ -250,12 +253,10 @@ def _bwd_launch(x0, dy0, scale0, dres0=None, x1=None, dy1=None, scale1=None,
         dx1 = _empty(x1)
         dg1 = torch.empty(d, dtype=torch.float32, device=x0.device)
         rows1 = x1.numel() // d
-    # blocks of 256 threads: 8 rows at a time (a warp each) up to width
-    # 1024, one row at a time beyond; at most two blocks an SM
-    groups = 8 if d <= 1024 else 1
+    # at most two blocks of 256 threads an SM; the launcher takes fewer
+    # where the rows run out, and its partials fill the first ones
     dev = x0.device
-    blocks = max(1, min(-(-max(rows0, rows1) // groups),
-                        2 * build.sm_count(dev.index or 0)))
+    blocks = 2 * build.sm_count(dev.index or 0)
     partial = torch.empty(blocks * 2 * d, dtype=torch.float32, device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
     fn = build.library("rmsnorm_bwd", _BWD_ARGTYPES).rmsnorm_bwd_launch

@@ -84,6 +84,20 @@ success):
    arctic-480b in bf16): an 8-row decode batch and a 32-token chunk, of
    normal and of identical rows, the identical ones dropping choices at
    the published capacity factor;
+   (2m, about 26 s) the serving mesh, (1, 4): four sequence shards on the
+   one card: ``spmd_decode_attention`` at qwen3-4b's decode (8 lanes
+   ragged up to 8192 slots, 32 over 8 heads of 128, the longest lanes'
+   slots over three and four shards) and at recurrentgemma-9b's local
+   layer (16 over 1 of 256, window 2048 over a 4096 ring that wraps), and
+   ``spmd_paged_decode_attention`` (pages of 16, a pool of 4100 rows with
+   the dump row, shared, absent and stale pages, a lane with no page),
+   f32 and bf16, against the plain decode over ``gather_cache`` (f32
+   2e-5, bf16 2^-7, of max(1, max|ref|); the empty lane zeros), the
+   written K/V and pos equal to the unsharded write; the partials and
+   combine launches on one shard against their plain versions, and
+   combined bit for bit the ordinary launch at the same splits; then the
+   sharded call's device time (the writes, four partials launches and the
+   combine), its attention alone, the unsharded kernel's and the bound;
 3. identity: qwen3-4b at full width, depth cut to 4 layers, in f32 with
    TF32 off, serves 3 greedy prompts through a ``ServingFleet``; every
    stream must equal the replica's ``generate_sequential`` and the port's
@@ -125,7 +139,14 @@ success):
    parameters within 2 lr a step; launches equal to
    ``expected_train_launches``), then in bf16 with f32 masters 4 straight
    ``train_loop`` steps equal to 2 steps, a checkpoint, a restore and 2
-   more, bit for bit;
+   more, bit for bit; then (3m, about 23 s) a sharded replica: qwen3-4b
+   at full width, 4 layers, f32, on a (1, 4) mesh of the card, capacity
+   1024 (256 slots a shard), ring with a lane joining mid-stream and a
+   700-token prompt over three shards, then paged with the prefix cache
+   (a restore and a copy-on-write across shards): greedy streams equal to
+   the unsharded replica's and the CPU plain path's, the plain path's
+   steps under the mesh on the card within 1e-3 of the CPU's last logits,
+   launches as ``expected_launches`` states for the mesh;
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
@@ -187,7 +208,17 @@ success):
    36 ``flash_attention_bwd``, 217 ``rmsnorm`` and 109 ``rmsnorm_bwd``
    launches (``expected_train_launches``); step wall ms, tokens/s, one
    profiled step's device-busy ms and idle share, model operations against
-   989 TFLOP/s, peak memory.
+   989 TFLOP/s, peak memory;
+14. (about 73 s) serve qwen3-4b at full config (bf16) from a DDS fleet of
+   two replicas sharing weights: ``replica0`` sharded on a (1, 4) mesh of
+   the card, ``replica1`` unsharded, both 8 lanes at capacity 8192 (2048
+   slots a shard); 12 requests of 64-6000 prompt tokens, 32 new tokens
+   each, one sampled: all ``ok``, every lane free after, launches as
+   ``expected_launches`` states for each replica (per decode step of the
+   sharded one, 4 partials launches and a combine per attention layer);
+   tokens/s, TTFT, each replica's step curve, ``step_profile`` of the
+   sharded step at positions 1024 and 6000 and of the unsharded one at
+   6000, peak memory.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary (the six
 forward kernels and the two backward ones), the card line, and ``{"ok":
@@ -196,7 +227,10 @@ every measurement (step profiles, nvcc's register and shared-memory
 report) to PATH as JSON.  ``--only 2t,2c,3i,13`` builds and runs only
 those phases of the training slice, then stops without a summary: a quick
 check of a change on the card, not the smoke test (``--only 2t,2c,13``
-for work on the backward kernels).
+for work on the backward kernels, ``--only 2m,3m,14`` for the serving
+mesh).  The summary's decode rows count the partials launches of a mesh
+path with the kernel's (the same kernel, unmerged) and list them, the
+combine's and the sharded call's times under ``mesh``.
 """
 from __future__ import annotations
 
@@ -3131,6 +3165,532 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
 
 
 # ---------------------------------------------------------------- phase 4
+# ------------------------------------------------ the serving mesh (PR 22)
+# The one-card mesh: four sequence shards on cuda:0, so the partials and
+# combine launches run for real (shards on distinct cards take the same
+# code with cross-device copies; no run here has tested that).
+MESH_SHAPE = (1, 4)
+MESH_SHAPES = {
+    # qwen3-4b's decode: 8 lanes ragged up to 8192 slots (2048 a shard; the
+    # longest lanes' slots span three and four shards)
+    "qwen3-4b": dict(hq=32, hkv=8, d=128, n=8192, window=0,
+                     lens=(1, 300, 2047, 2048, 4097, 6000, 7999, 8191)),
+    # recurrentgemma-9b's local layer: window 2048 over a 4096 ring that
+    # wraps, so window edges fall inside every shard
+    "recurrentgemma-9b local": dict(hq=16, hkv=1, d=256, n=4096, window=2048,
+                                    lens=(5, 1000, 2049, 4095, 4096, 5000,
+                                          7000, 9000)),
+}
+
+
+def card_mesh(dev):
+    from repro_torch.sharding.mesh import make_mesh
+    return make_mesh(MESH_SHAPE, ("data", "model"),
+                     [dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+
+
+def mesh_tol(dtype, ref) -> float:
+    """f32 2e-5, bf16 2^-7, of max(1, max|ref|)."""
+    import torch
+    base = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    return base * max(1.0, float(ref.float().abs().max()))
+
+
+def check_mesh_kernels(dev, timing: bool = True) -> dict:
+    """Phase 2m: ``spmd_decode_attention`` and
+    ``spmd_paged_decode_attention`` on a (1, 4) mesh of one card against
+    the plain decode over ``gather_cache`` (f32 2e-5, bf16 2^-7 of max(1,
+    max|ref|)), the written K/V and pos equal to the unsharded write; the
+    partials and combine launches against their plain versions, and one
+    shard's partials, combined, bit for bit the ordinary launch at the
+    same splits; then (``timing``) the sharded call's device time beside
+    the unsharded kernel's and its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import paged_decode_attention as pk
+    from repro_torch.kernels import ref
+    from repro_torch.serving import spmd_decode as spmd
+
+    rng = np.random.default_rng(SEED + 22)
+    mesh = card_mesh(dev)
+    n_seq = MESH_SHAPE[1]
+    out = {"errs": {}, "bit_equal": [], "rows": {}}
+
+    def rnd(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dev, dtype)
+
+    def hold(name, got, exp, dtype):
+        err = float((got.float() - exp.float()).abs().max())
+        tol = mesh_tol(dtype, exp)
+        out["errs"][f"{name} {str(dtype)[6:]}"] = err
+        if not err <= tol:
+            raise AssertionError(f"mesh {name}: max|diff| {err} > {tol}")
+        return err
+
+    def same(name, a, b):
+        if not torch.equal(a, b):
+            raise AssertionError(f"mesh {name}: not bit-equal")
+        out["bit_equal"].append(name)
+
+    def ring_case(label, sh, dtype):
+        b, hq, hkv, d, n, window = (8, sh["hq"], sh["hkv"], sh["d"], sh["n"],
+                                    sh["window"])
+        lens = np.asarray(sh["lens"])
+        q = rnd((b, 1, hq, d), dtype)
+        kc, vc = rnd((b, n, hkv, d), dtype), rnd((b, n, hkv, d), dtype)
+        nk, nv = rnd((b, 1, hkv, d), dtype), rnd((b, 1, hkv, d), dtype)
+        pos = torch.from_numpy(ring_positions(rng, b, n, lens)).to(dev)
+        idx = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        scale = d ** -0.5
+        # the unsharded write
+        lanes, slots = torch.arange(b, device=dev), (idx % n).long()
+        kw_, vw_, pw_ = kc.clone(), vc.clone(), pos.clone()
+        kw_[lanes, slots], vw_[lanes, slots] = nk[:, 0], nv[:, 0]
+        pw_[lanes, slots] = idx
+        got, ks, vs, ps = spmd.spmd_decode_attention(
+            mesh, q, kc, vc, nk, nv, pos, idx, window=window, scale=scale)
+        for name_, a, b_ in (("k", ks, kw_), ("v", vs, vw_), ("pos", ps, pw_)):
+            same(f"{label} written {name_}", a.gather(), b_)
+        kw = dict(cache_len=idx + 1, window=window, scale=scale)
+        exp = dk.decode_attention_plain(q, ks.gather(), vs.gather(),
+                                        pos=ps.gather(), **kw)
+        err = hold(f"{label} spmd", got, exp, dtype)
+        unsh = dk.decode_attention(q, kw_, vw_, pos=pw_, **kw)
+        # one shard (rank 1): partials and combine against their plain
+        # versions, and bit for bit the ordinary launch
+        k1, v1, p1 = ks.parts[0][1], vs.parts[0][1], ps.parts[0][1]
+        auto = dk.auto_splits(b, hkv, n // n_seq, dev)
+        for splits in sorted({1, auto}):
+            ml, part = dk.decode_attention_partials(q, k1, v1, pos=p1,
+                                                    splits=splits, **kw)
+            pml, ppart = dk.decode_attention_partials_plain(
+                q, k1, v1, pos=p1, splits=splits, **kw)
+            m, pm = ml[..., 0], pml[..., 0]
+            if not torch.allclose(m, pm, atol=1e-4, rtol=1e-5) or \
+                    not torch.allclose(ml[..., 1], pml[..., 1], rtol=1e-3,
+                                       atol=1e-6):
+                raise AssertionError(f"mesh {label}: partial (m, l) differ "
+                                     f"by {float((m - pm).abs().max())}")
+            comb = dk.attention_combine(ml, part, dtype)
+            hold(f"{label} partials s{splits}", comb,
+                 dk.attention_combine_plain(pml, ppart, dtype), dtype)
+            hold(f"{label} combine s{splits}", comb,
+                 dk.attention_combine_plain(ml, part, dtype), dtype)
+            same(f"{label} combined s{splits} == ordinary launch",
+                 comb.reshape(q.shape),
+                 dk.decode_attention(q, k1, v1, pos=p1, splits=splits, **kw))
+        log(f"  {label} {str(dtype)[6:]}: spmd max|diff| {err:.3e} (tol "
+            f"{mesh_tol(dtype, exp):.1e}), vs the unsharded kernel "
+            f"{float((got.float() - unsh.float()).abs().max()):.3e}; writes "
+            f"exact; partials/combine held at splits {sorted({1, auto})}, "
+            f"bit-equal to the ordinary launch")
+        return q, ks, vs, ps, nk, nv, idx, kw, (kw_, vw_, pw_)
+
+    def paged_case(dtype):
+        sh = MESH_SHAPES["qwen3-4b"]
+        b, hq, hkv, d, n = 8, sh["hq"], sh["hkv"], sh["d"], sh["n"]
+        page, maxp = 16, n // 16
+        lens = np.asarray(sh["lens"])
+        tables, ppos = paged_layout(rng, lens[:-1].tolist() + [0], page, maxp,
+                                    share=4, holes=0.02, stale=0.02,
+                                    empty=(b - 1,))
+        lens[-1] = 0                # lane 7: no page, nothing visible
+        # 4 * maxp rows: the layout's b * maxp pages, 3 spare rows and the
+        # dump row last, so the pool splits into 4 shards
+        rows_all = b * maxp + 4
+        pp = np.full((rows_all, page), -1, np.int32)
+        pp[:b * maxp] = ppos[:-1]
+        tab = torch.from_numpy(tables).to(dev)
+        ppt = torch.from_numpy(pp).to(dev)
+        kp, vp = (rnd((rows_all, page, hkv, d), dtype) for _ in range(2))
+        q = rnd((b, 1, hq, d), dtype)
+        nk, nv = rnd((b, 1, hkv, d), dtype), rnd((b, 1, hkv, d), dtype)
+        idx = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        entry = tab[torch.arange(b, device=dev),
+                    (idx // page).clamp_max(maxp - 1).long()]
+        rows = torch.where(entry >= 0, entry, rows_all - 1).long()
+        within = (idx % page).long()
+        kw_, vw_, pw_ = kp.clone(), vp.clone(), ppt.clone()
+        kw_[rows, within], vw_[rows, within] = nk[:, 0], nv[:, 0]
+        pw_[rows, within] = idx
+        scale = d ** -0.5
+        got, ks, vs, ps = spmd.spmd_paged_decode_attention(
+            mesh, q, kp, vp, ppt, tab, nk, nv, rows, within, idx,
+            scale=scale)
+        # the dump row takes several lanes' writes in no fixed order
+        for name_, a, b_ in (("k", ks, kw_), ("v", vs, vw_), ("pos", ps, pw_)):
+            same(f"paged written {name_}", a.gather()[:-1], b_[:-1])
+        kw = dict(cache_len=idx + 1, window=0, scale=scale)
+        exp = ref.combine_partials(*pk.paged_decode_attention_partials_plain(
+            q, ks.gather(), vs.gather(), ps.gather(), tab, **kw), dtype
+            ).reshape(q.shape)
+        err = hold("paged spmd", got, exp, dtype)
+        if got[b - 1].abs().max() != 0:
+            raise AssertionError("mesh paged: the empty lane is not zeros")
+        # shard 2's partials against the plain version, and bit for bit the
+        # ordinary launch on the lanes that see something there
+        p_loc = rows_all // n_seq
+        e_off = tab - 2 * p_loc
+        tbl = torch.where((tab >= 0) & (e_off >= 0) & (e_off < p_loc), e_off,
+                          -1).to(torch.int32).contiguous()
+        k2, v2, p2 = ks.parts[0][2], vs.parts[0][2], ps.parts[0][2]
+        auto = pk.auto_splits(b, hkv, maxp, page, dev)
+        for splits in sorted({1, auto}):
+            ml, part = pk.paged_decode_attention_partials(
+                q, k2, v2, p2, tbl, splits=splits, **kw)
+            pml, ppart = pk.paged_decode_attention_partials_plain(
+                q, k2, v2, p2, tbl, splits=splits, **kw)
+            comb = dk.attention_combine(ml, part, dtype)
+            hold(f"paged partials s{splits}", comb,
+                 dk.attention_combine_plain(pml, ppart, dtype), dtype)
+            seen = (pml[..., 0].amax(1) > -1e29).reshape(b, hq).all(1)
+            ordinary = pk.paged_decode_attention(q, k2, v2, p2, tbl,
+                                                 splits=splits, **kw)
+            same(f"paged combined s{splits} == ordinary launch",
+                 comb.reshape(q.shape)[seen], ordinary[seen])
+        log(f"  paged {str(dtype)[6:]}: spmd max|diff| {err:.3e}; writes "
+            f"exact; the empty lane zeros; partials held at splits "
+            f"{sorted({1, auto})}, bit-equal to the ordinary launch on the "
+            f"{int(seen.sum())} lanes shard 2 sees")
+        return q, ks, vs, ps, tab, nk, nv, rows, within, idx, kw, \
+            (kw_, vw_, pw_)
+
+    kept = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, sh in MESH_SHAPES.items():
+            kept[(label, dtype)] = ring_case(label, sh, dtype)
+        kept[("paged", dtype)] = paged_case(dtype)
+    DETAILS["mesh_kernels"] = dict(errs=out["errs"],
+                                   bit_equal=out["bit_equal"])
+    if not timing:
+        return out
+
+    # timing, bf16, qwen3-4b's shapes: the sharded call (the writes, four
+    # partials launches and the combine) and its attention alone (the
+    # partials and the combine), beside the unsharded kernel and its bound
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    bf = torch.bfloat16
+    q, ks, vs, ps, nk, nv, idx, kw, (kw_, vw_, pw_) = kept[("qwen3-4b", bf)]
+    sh = MESH_SHAPES["qwen3-4b"]
+    hkv, d = sh["hkv"], sh["d"]
+
+    def ring_attn():
+        parts = [[dk.decode_attention_partials(q, ks.parts[0][r],
+                                               vs.parts[0][r],
+                                               pos=ps.parts[0][r], **kw)
+                  for r in range(n_seq)]]
+        return spmd._combine(parts, q)
+
+    def ring_call():
+        return spmd.spmd_decode_attention(
+            mesh, q, ks, vs, nk, nv, ps, idx, window=0,
+            scale=kw["scale"])[0]
+
+    vis = (pw_ >= 0) & (pw_ < (idx + 1)[:, None])
+    nbytes = (int(vis.sum()) * hkv * d * 2 * 2
+              + int(np.minimum(np.asarray(sh["lens"]) + 1, sh["n"]).sum()) * 4
+              + 2 * q.numel() * 2 + q.shape[0] * 4)
+    bms, by = bound(nbytes, 4 * sh["hq"] * d * int(vis.sum()),
+                    PEAK_BF16_FLOPS)
+    out["rows"]["decode_attention"] = dict(
+        shape=(f"B=8 n=8192 Hq=32 Hkv=8 D=128 bf16 ragged to 8192, mesh "
+               f"{MESH_SHAPE} on one card, "
+               f"{dk.auto_splits(8, hkv, sh['n'] // n_seq, dev)} splits a "
+               "shard"),
+        mesh_ms=device_ms(ring_call, flush),
+        mesh_host_ms=host_ms(ring_call, flush=flush),
+        mesh_attn_ms=device_ms(ring_attn, flush),
+        unsharded_ms=device_ms(lambda: dk.decode_attention(
+            q, kw_, vw_, pos=pw_, **kw), flush),
+        bound_ms=bms, bound_by=by)
+
+    q, ks, vs, ps, tab, nk, nv, rows, within, idx, kw, (kw_, vw_, pw_) = \
+        kept[("paged", bf)]
+
+    def paged_call():
+        return spmd.spmd_paged_decode_attention(
+            mesh, q, ks, vs, ps, tab, nk, nv, rows, within, idx,
+            scale=kw["scale"])[0]
+
+    p_loc = ks.chunk
+    local = [torch.where((tab >= r * p_loc) & (tab < (r + 1) * p_loc),
+                         tab - r * p_loc, -1).to(torch.int32).contiguous()
+             for r in range(n_seq)]
+
+    def paged_attn():
+        parts = [[pk.paged_decode_attention_partials(
+            q, ks.parts[0][r], vs.parts[0][r], ps.parts[0][r], local[r], **kw)
+            for r in range(n_seq)]]
+        return spmd._combine(parts, q)
+
+    page = 16
+    pvis = paged_visible(pw_, tab, idx + 1, page)
+    live = int(((tab >= 0) & (torch.arange(tab.shape[1], device=dev)[None]
+                              * page < (idx + 1)[:, None])).sum())
+    nbytes = (live * page * (hkv * d * 2 * 2 + 4) + 2 * q.numel() * 2
+              + tab.numel() * 4 + q.shape[0] * 4)
+    bms, by = bound(nbytes, 4 * sh["hq"] * d * int(pvis.sum()),
+                    PEAK_BF16_FLOPS)
+    out["rows"]["paged_decode_attention"] = dict(
+        shape=("B=8 pages of 16, 512 per lane, Hq=32 Hkv=8 D=128 bf16, "
+               f"pool of 4100 rows over mesh {MESH_SHAPE} on one card"),
+        mesh_ms=device_ms(paged_call, flush),
+        mesh_host_ms=host_ms(paged_call, flush=flush),
+        mesh_attn_ms=device_ms(paged_attn, flush),
+        unsharded_ms=device_ms(lambda: pk.paged_decode_attention(
+            q, kw_, vw_, pw_, tab, **kw), flush),
+        bound_ms=bms, bound_by=by)
+    for name, r in out["rows"].items():
+        log(f"  {name} mesh: sharded call {r['mesh_ms']:.4f} ms (host "
+            f"{r['mesh_host_ms']:.3f}), its attention {r['mesh_attn_ms']:.4f}"
+            f"; unsharded kernel {r['unsharded_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    DETAILS["mesh_kernels"]["rows"] = out["rows"]
+    return out
+
+
+def mesh_identity(dev) -> dict:
+    """Phase 3m: qwen3-4b at full width, 4 layers, f32, TF32 off.  A
+    replica on a (1, 4) mesh of the card, ring, then paged with the prefix
+    cache: greedy streams (a lane joining mid-stream, a 700-token prompt
+    whose ring spans three of the four 256-slot shards) equal to the
+    unsharded replica's on the card and to the plain path on the CPU; the
+    plain path's decode steps under the mesh on the card give the CPU's
+    tokens and last logits within identity_phase's 1e-3; launches as
+    ``expected_launches`` states for the mesh.  Returns the paged
+    replica's launches (the ``mesh_paged`` path)."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Replica, Request
+    from repro_torch.sharding import context as shctx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen3-4b").replace(num_layers=4, dtype=torch.float32)
+    model = M.init_model(cfg, SEED, dev)
+    cpu_model = M.Model(cfg, "cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    mesh = card_mesh(dev)
+    n_seq = MESH_SHAPE[1]
+    cap, new = 1024, 16
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(2, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (40, 200, 700)]
+
+    def staggered(rep, reqs):
+        """Streams of ``reqs``, the last joining once the others decode."""
+        res = [None] * len(reqs)
+
+        def go(i):
+            res[i] = rep.generate(reqs[i]).tolist()
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads[:-1]:
+            t.start()
+        wait_until(lambda: rep.decode_steps > 0, "a decode step")
+        threads[-1].start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"{rep.name}: a request did not finish")
+        return res
+
+    def counted(rep, drive, paged):
+        before = (rep.decode_steps, rep.prefill_chunks, rep.whole_prefills)
+        ops.reset_kernel_launches()
+        res = drive()
+        launches = ops.kernel_launches()
+        steps, chunks, wholes = (getattr(rep, k) - b for k, b in zip(
+            ("decode_steps", "prefill_chunks", "whole_prefills"), before))
+        expect = expected_launches(cfg, steps, chunks, wholes, paged=paged,
+                                   n_seq=n_seq)
+        if launches != expect or not steps:
+            raise AssertionError(f"mesh identity (paged {paged}): launches "
+                                 f"{launches}, expected {expect}")
+        return res, launches
+
+    plain = Replica("plain0", cfg, model, slots=4, capacity=cap,
+                    prefill_chunk_tokens=32)
+    want = [plain.generate(Request(i, p, new, 1e9)).tolist()
+            for i, p in enumerate(prompts)]
+    ring = Replica("mesh0", cfg, model, slots=4, capacity=cap,
+                   prefill_chunk_tokens=32, serving_mesh=mesh)
+    got, ring_launches = counted(ring, lambda: staggered(
+        ring, [Request(10 + i, p, new, 1e9) for i, p in enumerate(prompts)]),
+        False)
+    seq = ring.generate_sequential(Request(20, prompts[2], new, 1e9)).tolist()
+    ring.stop()
+    worst = 0.0
+    for p, g, w in zip(prompts, got, want):
+        cpu_toks, cpu_last = cpu_plain_stream(cpu_model, cfg, p, new, 32, cap)
+        with shctx.serving_mesh(mesh):
+            card_toks, card_last = cpu_plain_stream(model, cfg, p, new, 32,
+                                                    cap)
+        err = float((card_last - cpu_last).abs().max())
+        worst = max(worst, err)
+        log(f"  ring prompt {len(p):4d}: mesh == unsharded {g == w}, mesh == "
+            f"cpu plain {g == cpu_toks}, card mesh plain == cpu "
+            f"{card_toks == cpu_toks}, last logits max|diff| {err:.3e}")
+        if not (g == w == cpu_toks == card_toks) or not err <= 1e-3:
+            raise AssertionError(f"mesh identity prompt {len(p)}: mesh {g} "
+                                 f"unsharded {w} cpu {cpu_toks} card "
+                                 f"{card_toks} logits {err}")
+    if seq != want[2]:
+        raise AssertionError(f"mesh generate_sequential {seq} != {want[2]}")
+
+    # paged with the prefix cache: a page-aligned system prompt, a full hit
+    # (copy-on-write), the 700-token prompt and a sharer joining mid-stream,
+    # against the unsharded ring replica
+    page = 16
+    sysp = rng.integers(2, cfg.vocab_size, size=4 * page)
+    pp = [np.concatenate([sysp, rng.integers(2, cfg.vocab_size, 40)]),
+          sysp.copy(), prompts[2],
+          np.concatenate([sysp, rng.integers(2, cfg.vocab_size, 20)])]
+    pp = [p.astype(np.int32) for p in pp]
+    pwant = [plain.generate(Request(30 + i, p, new, 1e9)).tolist()
+             for i, p in enumerate(pp)]
+    plain.stop()
+    paged = Replica("mesh-paged0", cfg, model, slots=4, capacity=cap,
+                    prefill_chunk_tokens=32, paged=True, page_size=page,
+                    num_pages=255, prefix_cache=True, serving_mesh=mesh)
+    pgot, paged_launches = counted(paged, lambda: serve_paged(
+        paged, [Request(40 + i, p, new, 1e9) for i, p in enumerate(pp)],
+        True), True)
+    paged.stop()
+    pstats = dict(cow_copies=paged.cow_copies,
+                  hit_rate=paged._prefix.hit_rate(), **drained(paged))
+    log(f"  paged+prefix on the mesh == unsharded ring {pgot == pwant}; "
+        f"{pstats}; launches {paged_launches}")
+    if pgot != pwant or paged.cow_copies < 1:
+        raise AssertionError(f"mesh paged identity: {pgot} != {pwant} or no "
+                             "COW")
+    DETAILS["mesh_identity"] = dict(
+        layers=4, capacity=cap, prompts=[len(p) for p in prompts],
+        paged_prompts=[len(p) for p in pp], new_tokens=new,
+        last_logits_max_abs_diff=worst, tol=1e-3, ring_launches=ring_launches,
+        paged_launches=paged_launches, paged=pstats)
+    del model, ring, paged
+    torch.cuda.empty_cache()
+    return paged_launches
+
+
+def mesh_serve_phase(dev) -> dict:
+    """Phase 14: qwen3-4b at its full config (bf16) in a DDS fleet of two
+    replicas sharing weights: ``replica0`` sharded on a (1, 4) mesh of the
+    card, ``replica1`` unsharded, both 8 lanes at capacity 8192 (2048 slots
+    a shard); 12 requests of 64-6000 prompt tokens (the longest spans three
+    shards), 32 new tokens each, one sampled.  All ``ok``, every lane free
+    after, launches as ``expected_launches`` states for each replica (per
+    decode step of replica0, 4 partials launches and a combine per
+    attention layer).  Reports tokens/s, TTFT, each replica's step curve,
+    the sharded and unsharded step's device-busy ms and idle share
+    (``step_profile``) and peak memory."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policies import make_policy
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Replica, Request, ServingFleet
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config("qwen3-4b")
+    cap = 8192
+    t0 = time.perf_counter()
+    model = M.init_model(cfg, SEED, dev)
+    fleet = ServingFleet(make_policy("DDS"), source="replica0",
+                         coordinator="replica1")
+    reps = [Replica("replica0", cfg, model, slots=8, capacity=cap,
+                    prefill_chunk_tokens=32, serving_mesh=card_mesh(dev)),
+            Replica("replica1", cfg, model, slots=8, capacity=cap,
+                    prefill_chunk_tokens=32)]
+    for r in reps:
+        fleet.add_replica(r)
+    build_s = time.perf_counter() - t0
+    curves = {r.name: dict(zip((int(x) for x in r.profile.step_curve.xs),
+                               r.profile.step_curve.ys)) for r in reps}
+    for r in reps:
+        log(f"  {r.name}{' (mesh)' if r.serving_mesh else ''}: warmup "
+            f"{r.warmup_s:.2f} s; step ms by occupancy "
+            + ", ".join(f"{x}:{y:.2f}" for x, y in curves[r.name].items()))
+
+    rng = np.random.default_rng(SEED + 24)
+    lens = rng.integers(64, 1025, size=12)
+    lens[-2:] = (4600, 6000)
+    reqs = [Request(i, rng.integers(2, cfg.vocab_size, size=(int(n),))
+                    .astype(np.int32), 32, 600_000.0)
+            for i, n in enumerate(lens)]
+    reqs[5].temperature, reqs[5].top_p, reqs[5].seed = 0.8, 0.95, 1234
+    before = {r.name: (r.decode_steps, r.prefill_chunks, r.whole_prefills)
+              for r in reps}
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(reqs)) as ex:
+        res = list(ex.map(fleet.submit, reqs))
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    expect, counts = {}, {}
+    for r in reps:
+        c = [getattr(r, k) - b for k, b in zip(
+            ("decode_steps", "prefill_chunks", "whole_prefills"),
+            before[r.name])]
+        counts[r.name] = c
+        for k, v in expected_launches(cfg, *c, n_seq=(
+                MESH_SHAPE[1] if r.serving_mesh is not None else 0)).items():
+            expect[k] = expect.get(k, 0) + v
+    for i, r in enumerate(res):
+        if r.outcome != "ok":
+            raise AssertionError(f"mesh serve request {i}: {r.outcome} "
+                                 f"{r.error}")
+        toks = np.asarray(r.tokens)
+        if len(toks) != 32 or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"mesh serve request {i}: bad tokens {toks}")
+    log(f"  launches {launches}; expected {expect} from (steps, chunks, "
+        f"wholes) {counts}")
+    if launches != expect or not counts["replica0"][0]:
+        raise AssertionError(f"mesh serve: launches {launches}, expected "
+                             f"{expect}")
+    wait_until(lambda: all(j is None for r in reps for j in r._lanes),
+               "every lane free")
+    profiles = {"replica0_at_1024": step_profile(reps[0], cfg, dev),
+                "replica0_at_6000": step_profile(reps[0], cfg, dev, at=6000,
+                                                 chunks=False),
+                "replica1_at_6000": step_profile(reps[1], cfg, dev, at=6000,
+                                                 chunks=False)}
+    gen = sum(len(r.tokens) for r in res)
+    ttft = sorted(r.ttft_ms for r in res)
+    stats = dict(requests=len(res), ok=sum(r.ok for r in res),
+                 placements=dict(fleet.stats), wall_s=wall,
+                 tokens_per_s=gen / wall, generated_tokens=gen,
+                 prompt_tokens=int(lens.sum()),
+                 ttft_p50_ms=ttft[len(ttft) // 2],
+                 ttft_p99_ms=ttft[min(int(len(ttft) * 0.99), len(ttft) - 1)],
+                 engine_counts=counts, launches=launches, build_s=build_s,
+                 step_curve_ms=curves,
+                 warmup_s={r.name: r.warmup_s for r in reps},
+                 step_profiles=profiles,
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    log(f"  {stats['ok']}/{len(res)} ok, placements {stats['placements']}, "
+        f"{gen} tokens in {wall:.2f} s = {stats['tokens_per_s']:.1f} tok/s, "
+        f"TTFT p50 {stats['ttft_p50_ms']:.0f} ms p99 "
+        f"{stats['ttft_p99_ms']:.0f} ms, peak {stats['peak_mem_gb']:.1f} GB")
+    fleet.stop()
+    DETAILS["mesh_serve"] = stats
+    del model, reps, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _kernel_class(name: str) -> str:
     for key, cls in (("flash_bwd_", "flash_attention_bwd"),
                      ("norm_bwd_kernel", "rmsnorm_bwd"),
@@ -3191,21 +3751,32 @@ def profile_call(what: str, fn) -> dict:
                 top_kernels_ms=top)
 
 
-def step_profile(rep, cfg, dev, at: int = 1024):
+def step_profile(rep, cfg, dev, at: int = 1024, chunks: bool = True):
     """Host wall time and device-busy time of one batched decode step (all
-    lanes at position ``at``) and, for a ring replica, one widest-bucket
-    prefill chunk, on scratch caches, with device time by kernel class.  A
-    paged replica's scratch tables (``scratch_tables``) map each lane to its
-    own run of pages, holding positions 0 .. at-1."""
+    lanes at position ``at``) and, for a ring replica (with ``chunks``),
+    one widest-bucket prefill chunk, on scratch caches, with device time by
+    kernel class.  A paged replica's scratch tables (``scratch_tables``)
+    map each lane to its own run of pages, holding positions 0 .. at-1.  A
+    sharded replica's scratch cache is laid out over its mesh, and its
+    step runs under it."""
     import numpy as np
     import torch
     from repro_torch.models import model as M
+    from repro_torch.serving import spmd_decode as spmd
     from repro_torch.serving.engine import scratch_tables
+
+    def laid_out(cache):
+        if rep.serving_mesh is None:
+            return cache
+        return spmd.shard_cache(cache, rep.serving_mesh, paged=rep.paged,
+                                batch_axis=rep._mesh_axes[0],
+                                seq_axis=rep._mesh_axes[1])
 
     tok = np.zeros((rep.slots, 1), np.int64)
     idx = np.full((rep.slots,), at, np.int32)
     if rep.paged:
-        cache = rep._new_cache()
+        cache = M.init_paged_cache(cfg, rep.slots, rep.capacity,
+                                   rep.num_pages, rep.page_size, dev)
         tables = scratch_tables(rep)
         page = rep.page_size
         full = -(-at // page)
@@ -3215,6 +3786,7 @@ def step_profile(rep, cfg, dev, at: int = 1024):
         for layer in cache:
             if "pos" in layer:
                 layer["pos"][rows] = torch.where(p < at, p, -1).to(torch.int32)
+        cache = laid_out(cache)
         fns = (("decode_step", lambda: rep._step(rep.params, cache, tok, idx,
                                                  tables)),)
     else:
@@ -3226,13 +3798,16 @@ def step_profile(rep, cfg, dev, at: int = 1024):
             n = layer["pos"].shape[1]
             p = torch.arange(max(0, at - n), at, dtype=torch.int32, device=dev)
             layer["pos"][:, (p % n).long()] = p
+        cache = laid_out(cache)
         buf = rep._zeros_tokens(rep.prefill_chunk_tokens)
         fns = (("decode_step", lambda: rep._step(rep.params, cache, tok, idx)),
                ("prefill_chunk", lambda: rep._prefill_chunk(rep.params, lane,
                                                             buf, at)))
-    out = {name: profile_call(f"{name} at position {at}", fn)
-           for name, fn in fns}
-    if not rep.paged:
+        fns = fns if chunks else fns[:1]
+    with rep._mesh_scope():
+        out = {name: profile_call(f"{rep.name} {name} at position {at}", fn)
+               for name, fn in fns}
+    if not rep.paged and chunks:
         # wall time of one chunk at each bucket width: the fixed and
         # per-token parts the profile's chunk-cost fit separates
         by_width = {}
@@ -3253,11 +3828,13 @@ def step_profile(rep, cfg, dev, at: int = 1024):
 
 
 def expected_launches(cfg, steps: int, chunks: int, wholes: int,
-                      paged: bool = False) -> dict:
+                      paged: bool = False, n_seq: int = 0) -> dict:
     """Launches of every kernel that a run of ``steps`` decode steps,
     ``chunks`` prefill chunks and ``wholes`` whole-prompt prefills must
     make, from the layer kinds: an attention layer launches the (paged)
-    decode kernel once per step and flash once per prefill, a
+    decode kernel once per step (on a replica sharded over ``n_seq``
+    sequence shards: the partials launch once a shard and the combine
+    once, instead) and flash once per prefill, a
     cross-attention layer the contiguous decode kernel once per step (its
     cache is the encoder's, never paged) and flash once per whole prefill,
     an SSD layer ``ssd`` and an RG-LRU layer ``rglru`` once per prefill,
@@ -3271,14 +3848,18 @@ def expected_launches(cfg, steps: int, chunks: int, wholes: int,
     prefills = chunks + wholes
     norms = 1 + len(kinds) * (1 + (cfg.d_ff > 0))
     norms += (attn + cross) * cfg.use_qk_norm + kinds.count("ssm")
-    return {"decode_attention": (0 if paged else attn) * steps
-            + cross * steps,
-            "paged_decode_attention": attn * steps if paged else 0,
+    mesh = attn * steps if n_seq else 0
+    plain = 0 if n_seq else attn * steps
+    return {"decode_attention": (0 if paged else plain) + cross * steps,
+            "paged_decode_attention": plain if paged else 0,
             "flash_attention": attn * prefills + cross * wholes,
             "ssd": kinds.count("ssm") * prefills,
             "rglru": kinds.count("rglru") * prefills,
             "rmsnorm": norms * (steps + prefills),
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+            "decode_attention_partials": 0 if paged else n_seq * mesh,
+            "paged_decode_attention_partials": n_seq * mesh if paged else 0,
+            "attention_combine": mesh}
 
 
 def expected_train_launches(cfg, remat: bool, steps: int = 1) -> dict:
@@ -3300,7 +3881,9 @@ def expected_train_launches(cfg, remat: bool, steps: int = 1) -> dict:
             "rglru": 0, "flash_attention": layers * fwd * steps,
             "rmsnorm": (norms * fwd + 1) * steps,
             "flash_attention_bwd": layers * steps,
-            "rmsnorm_bwd": (norms + 1) * steps}
+            "rmsnorm_bwd": (norms + 1) * steps,
+            "decode_attention_partials": 0,
+            "paged_decode_attention_partials": 0, "attention_combine": 0}
 
 
 def serve_phase(dev, arch="qwen3-4b", capacity=2048, long_prompts=(),
@@ -3896,10 +4479,10 @@ def main(argv=None) -> int:
     ap.add_argument("--details", default="",
                     help="also write every measurement to this JSON file")
     ap.add_argument("--only", default="",
-                    help="build, run only these of the training slice's "
-                         "phases (comma-separated: 2t, 2c, 3i, 13) and "
-                         "stop, with no summary: a quick check of a change, "
-                         "not the smoke test")
+                    help="build, run only these phases (comma-separated: "
+                         "2t, 2c, 3i, 13 of the training slice; 2m, 3m, 14 "
+                         "of the serving mesh) and stop, with no summary: a "
+                         "quick check of a change, not the smoke test")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3931,7 +4514,9 @@ def main(argv=None) -> int:
     DETAILS["build_logs"] = {k: build.build_log(k) for k in build.SOURCES}
     if args.only:
         only = {"2t": check_backward, "2c": time_backward,
-                "3i": train_identity, "13": train_phase}
+                "3i": train_identity, "13": train_phase,
+                "2m": check_mesh_kernels, "3m": mesh_identity,
+                "14": mesh_serve_phase}
         for key in args.only.split(","):
             phase(f"phase {key} (--only)")
             only[key](dev)
@@ -3959,6 +4544,12 @@ def main(argv=None) -> int:
     rows["flash_attention"]["train_lse"] = train_rows.pop(
         "flash_attention_train")
     rows.update(train_rows)
+    phase("phase 2m: the decode kernels over a serving mesh (1 x 4 shards on "
+          "one card): spmd ring and paged against the plain decode, "
+          "partials and combine against their plain versions, timings")
+    mesh_rows = check_mesh_kernels(dev)["rows"]
+    for name, r in mesh_rows.items():
+        rows[name]["mesh"] = r
 
     phase("phase 3: identity (qwen3-4b width, 4 layers, f32, TF32 off)")
     identity_phase(dev)
@@ -3988,6 +4579,10 @@ def main(argv=None) -> int:
           "off): gradients and 3 train steps card against CPU; resume bit "
           "for bit (bf16, f32 masters)")
     train_identity(dev)
+    phase("phase 3m: identity of a sharded replica (qwen3-4b width, 4 "
+          "layers, f32, TF32 off; 1 x 4 mesh on one card): ring, then paged "
+          "with the prefix cache, against the unsharded replica and the CPU")
+    mesh_paged = mesh_identity(dev)
 
     phase("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
     launches = {"ring": serve_phase(dev)}
@@ -4031,6 +4626,11 @@ def main(argv=None) -> int:
     phase("phase 13: train qwen3-4b (full config: 36 layers, bf16, f32 "
           "masters, remat, AdamW, cosine; 6 steps of 2 x 1024 tokens)")
     launches["train"] = train_phase(dev)
+    phase("phase 14: serve qwen3-4b (full config, bf16) from a sharded "
+          "replica (1 x 4 mesh on one card) and an unsharded one, DDS, "
+          "capacity 8192, prompts to 6000 tokens")
+    launches["mesh"] = mesh_serve_phase(dev)
+    launches["mesh_paged"] = mesh_paged
 
     phase("all phases passed")
     DETAILS["phase_s"] = phase_s
@@ -4059,7 +4659,11 @@ def main(argv=None) -> int:
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = rows[name]
-        by_path = {path: n[name] for path, n in launches.items()}
+        # a serving mesh runs the decode kernels' partials entry point (the
+        # same kernel, unmerged) and the combine: counted apart, listed
+        # beside
+        by_path = {path: n[name] + n.get(f"{name}_partials", 0)
+                   for path, n in launches.items()}
         if not sum(by_path.values()):
             raise AssertionError(f"{name}: no launch on the main paths")
         kernels.append({
@@ -4079,6 +4683,17 @@ def main(argv=None) -> int:
                       "f32", "flops", "bytes", "split_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+        if "mesh" in r:
+            partials = {path: n[f"{name}_partials"]
+                        for path, n in launches.items()
+                        if n.get(f"{name}_partials")}
+            if not partials:
+                raise AssertionError(f"{name}: no partials launch on a mesh "
+                                     "path")
+            combine = {path: n["attention_combine"] for path in partials
+                       for n in (launches[path],)}
+            kernels[-1]["mesh"] = dict(r["mesh"], partials_launches=partials,
+                                       combine_launches=combine)
     DETAILS["kernels"] = kernels
     DETAILS["card"] = card
     if args.details:

@@ -146,8 +146,9 @@ class FaultInjector:
             with self._lock:
                 factor = self.slow_factor if self.mode == "slow" else 1.0
             if factor > 1.0:
-                # wait for the device (a no-op on the CPU) so the padding is
-                # proportional to the real compute, then stretch to factor;
+                # wait for the device (every device of a sharded replica's
+                # mesh; a no-op on the CPU) so the padding is proportional
+                # to the real compute, then stretch to factor;
                 # ``out`` may hold host arrays beside device tensors
                 # (``_step_sampled``: tokens, keys), so it is not touched
                 self.replica._sync()

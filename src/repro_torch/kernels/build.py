@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: dict = {}                 # (name, entry) -> declared C function
 
 
 def _nvcc() -> str:
@@ -115,16 +116,27 @@ def current_stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launcher(name: str, entry: str, argtypes):
+    """The C function ``entry`` of ``csrc/<name>.cu``'s library (built and
+    loaded on first use), with its argument types declared and ``int``
+    returned."""
+    with _lock:
+        fn = _fns.get((name, entry))
+        if fn is None:
+            lib = _libs.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _libs[name] = lib
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _fns[(name, entry)] = fn
+        return fn
+
+
 def library(name: str, argtypes) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (built on first use), with
     ``<name>_launch``'s argument types declared and ``int`` returned."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            build_all([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return lib
+    launcher(name, f"{name}_launch", argtypes)
+    return _libs[name]

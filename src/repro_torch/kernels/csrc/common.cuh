@@ -91,4 +91,21 @@ combine_splits(const float* __restrict__ ml, const float* __restrict__ part,
   out[row * D + threadIdx.x] = from_f32<T>(total / fmaxf(L, 1e-30f));
 }
 
+// Launch combine_splits over `rows` rows of d = 64, 128 or 256 columns.  A
+// row whose every split is empty (max kNegInf, sum 0) weighs each at
+// exp(0) = 1 against a sum of 0 and comes out as zeros.  Returns
+// cudaGetLastError().
+template <typename T>
+cudaError_t launch_combine(const float* ml, const float* part, T* out, int rows, int splits,
+                           int d, cudaStream_t st) {
+  if (rows <= 0 || splits < 1) return cudaErrorInvalidValue;
+  switch (d) {
+    case 64: combine_splits<T, 64><<<rows, 64, 0, st>>>(ml, part, out, splits); break;
+    case 128: combine_splits<T, 128><<<rows, 128, 0, st>>>(ml, part, out, splits); break;
+    case 256: combine_splits<T, 256><<<rows, 256, 0, st>>>(ml, part, out, splits); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace rt

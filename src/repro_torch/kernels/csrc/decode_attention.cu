@@ -33,6 +33,10 @@
 //     thread); the warps merge through shared memory at the end, and with
 //     splits > 1 rt::combine_splits merges the splits' (max, sum, acc) from
 //     an f32 workspace.
+// decode_attention_partials_launch runs the same kernel and stops before
+// that merge, at any `splits` (1 too): it leaves every split's state to the
+// caller, and attention_combine_launch merges states from any number of
+// such launches (a serving mesh's sequence shards, each over its own slots).
 // f32 inputs (the identity checks, held at 2e-5) take the CUDA-core body
 // decode_f32_kernel, selected by dtype: a warp owns whole rows (lane i holds
 // D/32 elements), a block takes up to 8 query heads of a group (4 at
@@ -275,7 +279,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (M != -INFINITY) lsum += sm_l[w * 16 + r] * rt::exp2_approx((sm_m[w * 16 + r] - M) * mult);
     }
     const size_t head = (size_t)b * hq + kh * rep + r;
-    if (splits == 1) {
+    if (part == nullptr) {
       out[head * D + c] = __float2bfloat16(total / fmaxf(lsum, 1e-30f));
     } else {
       // (max, sum) in natural-log units of the logits, as combine_splits
@@ -426,7 +430,7 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         total += sm_acc[w][threadIdx.x];
         L += sm_l[w][r] * expf(sm_m[w][r] - M);
       }
-      if (splits == 1) {
+      if (part == nullptr) {
         out[head * D + threadIdx.x] = total / fmaxf(L, 1e-30f);
       } else {
         part[(head * splits + split) * D + threadIdx.x] = total;
@@ -461,13 +465,14 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const int
   return cudaSuccess;
 }
 
+// The attention kernel alone: with `part` it writes each split's partial
+// softmax state to (ml, part), without it (one split) the output.
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const int* cl,
-                     const int* pos, void* out, float* work, int B, int n, int hq, int hkv,
-                     int splits, int window, float scale, float softcap, cudaStream_t st) {
+                     const int* pos, void* out, float* ml, float* part, int B, int n, int hq,
+                     int hkv, int splits, int window, float scale, float softcap,
+                     cudaStream_t st) {
   const int rep = hq / hkv;
-  float* ml = work;
-  float* part = work == nullptr ? nullptr : work + (size_t)B * hq * splits * 2;
   if constexpr (sizeof(T) == 2) {
     constexpr size_t bytes = TcLayout<D>::bytes;
     // set once per instance: the size is a constant
@@ -477,36 +482,62 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* cl,
     decode_tc_kernel<D><<<dim3(hkv, B, splits), kThreads, bytes, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         cl, pos, static_cast<bf16*>(out), ml, part, n, hkv, rep, window, scale, softcap);
+    return cudaSuccess;
   } else {
-    const cudaError_t e = launch_f32<D>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        cl, pos, static_cast<float*>(out), ml, part, B, n, hkv, rep, splits, window, scale,
-        softcap, st);
-    if (e != cudaSuccess) return e;
+    return launch_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k),
+                         static_cast<const float*>(v), cl, pos, static_cast<float*>(out), ml,
+                         part, B, n, hkv, rep, splits, window, scale, softcap, st);
   }
-  if (splits > 1)
-    rt::combine_splits<T, D><<<B * hq, D, 0, st>>>(ml, part, static_cast<T*>(out), splits);
-  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, const int* cl,
-                     const int* pos, void* out, float* work, int B, int n, int hq,
-                     int hkv, int d, int splits, int window, float scale,
-                     float softcap, cudaStream_t st) {
+                     const int* pos, void* out, float* ml, float* part, int B, int n, int hq,
+                     int hkv, int d, int splits, int window, float scale, float softcap,
+                     cudaStream_t st) {
   switch (d) {
-    case 64: return launch_d<T, 64>(q, k, v, cl, pos, out, work, B, n, hq, hkv, splits, window, scale, softcap, st);
-    case 128: return launch_d<T, 128>(q, k, v, cl, pos, out, work, B, n, hq, hkv, splits, window, scale, softcap, st);
-    case 256: return launch_d<T, 256>(q, k, v, cl, pos, out, work, B, n, hq, hkv, splits, window, scale, softcap, st);
+    case 64: return launch_d<T, 64>(q, k, v, cl, pos, out, ml, part, B, n, hq, hkv, splits, window, scale, softcap, st);
+    case 128: return launch_d<T, 128>(q, k, v, cl, pos, out, ml, part, B, n, hq, hkv, splits, window, scale, softcap, st);
+    case 256: return launch_d<T, 256>(q, k, v, cl, pos, out, ml, part, B, n, hq, hkv, splits, window, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+bool bad_shape(int B, int n, int hq, int hkv, int d, int splits) {
+  const int rep = hkv > 0 ? hq / hkv : 0;
+  return B <= 0 || B > 65535 || n <= 0 || hkv <= 0 || hq % hkv != 0 || rep < 1 || rep > 16 ||
+         splits < 1 || splits > 65535 || (d != 64 && d != 128 && d != 256);
+}
+
+cudaError_t launch_any(const void* q, const void* k, const void* v, const void* cache_len,
+                       const void* pos, void* out, float* ml, float* part, int B, int n, int hq,
+                       int hkv, int d, int dtype, int splits, int window, float scale,
+                       float softcap, cudaStream_t st) {
+  const int* cl = static_cast<const int*>(cache_len);
+  const int* pp = static_cast<const int*>(pos);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == rt::kFloat32)
+    e = launch_t<float>(q, k, v, cl, pp, out, ml, part, B, n, hq, hkv, d, splits, window, scale, softcap, st);
+  else if (dtype == rt::kBFloat16)
+    e = launch_t<bf16>(q, k, v, cl, pp, out, ml, part, B, n, hq, hkv, d, splits, window, scale, softcap, st);
+  return e;
+}
+
+cudaError_t combine_any(const float* ml, const float* part, void* out, int rows, int splits,
+                        int d, int dtype, cudaStream_t st) {
+  if (dtype == rt::kFloat32)
+    return rt::launch_combine(ml, part, static_cast<float*>(out), rows, splits, d, st);
+  if (dtype == rt::kBFloat16)
+    return rt::launch_combine(ml, part, static_cast<bf16*>(out), rows, splits, d, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q (B,1,Hq,D), k/v (B,n,Hkv,D), out (B,1,Hq,D): contiguous, one dtype.
 // cache_len (B,) int32; pos (B,n) int32 or null.  `work` holds
-// B * Hq * splits * (D + 2) floats when splits > 1 (unused otherwise).
+// B * Hq * splits * (D + 2) floats when splits > 1 (unused otherwise): the
+// splits' partial states, which rt::combine_splits merges into `out`.
 // Returns cudaGetLastError().
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* cache_len, const void* pos,
@@ -514,17 +545,45 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        int hkv, int d, int dtype, int splits,
                                        int window, float scale, float softcap,
                                        void* stream) {
-  const int rep = hkv > 0 ? hq / hkv : 0;
-  if (B <= 0 || B > 65535 || n <= 0 || hkv <= 0 || hq % hkv != 0 || rep < 1 || rep > 16 ||
-      splits < 1 || splits > 65535 || (splits > 1 && work == nullptr))
+  if (bad_shape(B, n, hq, hkv, d, splits) || (splits > 1 && work == nullptr))
     return cudaErrorInvalidValue;
-  const int* cl = static_cast<const int*>(cache_len);
-  const int* pp = static_cast<const int*>(pos);
-  float* ww = static_cast<float*>(work);
+  float* ml = splits > 1 ? static_cast<float*>(work) : nullptr;
+  float* part = splits > 1 ? ml + (size_t)B * hq * splits * 2 : nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kFloat32)
-    return launch_t<float>(q, k, v, cl, pp, out, ww, B, n, hq, hkv, d, splits, window, scale, softcap, st);
-  if (dtype == rt::kBFloat16)
-    return launch_t<bf16>(q, k, v, cl, pp, out, ww, B, n, hq, hkv, d, splits, window, scale, softcap, st);
-  return cudaErrorInvalidValue;
+  const cudaError_t e = launch_any(q, k, v, cache_len, pos, out, ml, part, B, n, hq, hkv, d,
+                                   dtype, splits, window, scale, softcap, st);
+  if (e != cudaSuccess) return e;
+  if (splits > 1) return combine_any(ml, part, out, B * hq, splits, d, dtype, st);
+  return cudaGetLastError();
+}
+
+// The partials launch: the same kernel with no merge, at any `splits`
+// (1 included).  ml (B*Hq, splits, 2) receives each split's (max in
+// natural-log units of the logits, sum), part (B*Hq, splits, D) its
+// max-relative accumulator; a split with nothing visible writes
+// (rt::kNegInf, 0, 0).  A serving mesh runs it on each sequence shard and
+// joins the shards with attention_combine_launch.
+extern "C" int decode_attention_partials_launch(const void* q, const void* k, const void* v,
+                                                const void* cache_len, const void* pos,
+                                                void* ml, void* part, int B, int n, int hq,
+                                                int hkv, int d, int dtype, int splits,
+                                                int window, float scale, float softcap,
+                                                void* stream) {
+  if (bad_shape(B, n, hq, hkv, d, splits) || ml == nullptr || part == nullptr)
+    return cudaErrorInvalidValue;
+  const cudaError_t e = launch_any(q, k, v, cache_len, pos, nullptr, static_cast<float*>(ml),
+                                   static_cast<float*>(part), B, n, hq, hkv, d, dtype, splits,
+                                   window, scale, softcap, static_cast<cudaStream_t>(stream));
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// The combine launch: rt::combine_splits over `rows` output rows of D, each
+// with `splits` partial states in (ml, part) as the partials launches write
+// them (any number of them concatenated along the split axis).  A row
+// whose every state is empty comes out as zeros.
+extern "C" int attention_combine_launch(const void* ml, const void* part, void* out, int rows,
+                                        int splits, int d, int dtype, void* stream) {
+  if (ml == nullptr || part == nullptr) return cudaErrorInvalidValue;
+  return combine_any(static_cast<const float*>(ml), static_cast<const float*>(part), out, rows,
+                     splits, d, dtype, static_cast<cudaStream_t>(stream));
 }

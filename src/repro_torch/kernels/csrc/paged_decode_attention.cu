@@ -291,7 +291,7 @@ paged_decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // query tile's place.
   bool empty = false;
   float* mean = reinterpret_cast<float*>(smem + L::q);
-  if (split == 0) {
+  if (split == 0 && out != nullptr) {
     float seen = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) seen += sm_l[w * 16];
@@ -363,7 +363,7 @@ paged_decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lsum = 1.f;
     }
     const size_t head = (size_t)b * hq + kh * rep + r;
-    if (splits == 1) {
+    if (part == nullptr) {
       out[head * D + c] = __float2bfloat16(total / fmaxf(lsum, 1e-30f));
     } else {
       // (max, sum) in natural-log units of the logits, as combine_splits
@@ -515,7 +515,7 @@ paged_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   // uniform mean of V over every gathered slot (see the header).
   bool empty = false;
   float uniform = 0.f;
-  if (split == 0) {
+  if (split == 0 && out != nullptr) {
     float seen = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarpsF; ++w) seen += sm_l[w][0];
@@ -572,7 +572,7 @@ paged_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
         total = uniform;
         L = 1.f;
       }
-      if (splits == 1) {
+      if (part == nullptr) {
         out[head * D + threadIdx.x] = total / fmaxf(L, 1e-30f);
       } else {
         part[(head * splits + split) * D + threadIdx.x] = total;
@@ -607,14 +607,14 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const int
   return cudaSuccess;
 }
 
+// The attention kernel alone: with `part` it writes each split's partial
+// softmax state to (ml, part), without it (one split) the output.
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const int* pos,
-                     const int* tables, const int* cl, void* out, float* work, int B,
-                     int maxp, int page, int hq, int hkv, int splits, int window, float scale,
-                     float softcap, cudaStream_t st) {
+                     const int* tables, const int* cl, void* out, float* ml, float* part,
+                     int B, int maxp, int page, int hq, int hkv, int splits, int window,
+                     float scale, float softcap, cudaStream_t st) {
   const int rep = hq / hkv;
-  float* ml = work;
-  float* part = work == nullptr ? nullptr : work + (size_t)B * hq * splits * 2;
   if constexpr (sizeof(T) == 2) {
     const int slice = (maxp + splits - 1) / splits;
     if (slice > kMaxSlice) return cudaErrorInvalidValue;
@@ -627,29 +627,50 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* pos
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         pos, tables, cl, static_cast<bf16*>(out), ml, part, page, maxp, hkv, rep, window, scale,
         softcap);
+    return cudaSuccess;
   } else {
-    const cudaError_t e = launch_f32<D>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        pos, tables, cl, static_cast<float*>(out), ml, part, B, maxp, page, hkv, rep, splits,
-        window, scale, softcap, st);
-    if (e != cudaSuccess) return e;
+    return launch_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k),
+                         static_cast<const float*>(v), pos, tables, cl, static_cast<float*>(out),
+                         ml, part, B, maxp, page, hkv, rep, splits, window, scale, softcap, st);
   }
-  if (splits > 1)
-    rt::combine_splits<T, D><<<B * hq, D, 0, st>>>(ml, part, static_cast<T*>(out), splits);
+}
+
+// The kernel, then (with `merge` and more than one split) the combine.
+template <typename T>
+cudaError_t launch_t(const void* q, const void* k, const void* v, const int* pos,
+                     const int* tables, const int* cl, void* out, float* ml, float* part,
+                     int B, int maxp, int page, int hq, int hkv, int d, int splits,
+                     int window, float scale, float softcap, bool merge, cudaStream_t st) {
+  cudaError_t e;
+  switch (d) {
+    case 64: e = launch_d<T, 64>(q, k, v, pos, tables, cl, out, ml, part, B, maxp, page, hq, hkv, splits, window, scale, softcap, st); break;
+    case 128: e = launch_d<T, 128>(q, k, v, pos, tables, cl, out, ml, part, B, maxp, page, hq, hkv, splits, window, scale, softcap, st); break;
+    case 256: e = launch_d<T, 256>(q, k, v, pos, tables, cl, out, ml, part, B, maxp, page, hq, hkv, splits, window, scale, softcap, st); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  if (merge && part != nullptr)
+    return rt::launch_combine(ml, part, static_cast<T*>(out), B * hq, splits, d, st);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_t(const void* q, const void* k, const void* v, const int* pos,
-                     const int* tables, const int* cl, void* out, float* work,
-                     int B, int maxp, int page, int hq, int hkv, int d, int splits,
-                     int window, float scale, float softcap, cudaStream_t st) {
-  switch (d) {
-    case 64: return launch_d<T, 64>(q, k, v, pos, tables, cl, out, work, B, maxp, page, hq, hkv, splits, window, scale, softcap, st);
-    case 128: return launch_d<T, 128>(q, k, v, pos, tables, cl, out, work, B, maxp, page, hq, hkv, splits, window, scale, softcap, st);
-    case 256: return launch_d<T, 256>(q, k, v, pos, tables, cl, out, work, B, maxp, page, hq, hkv, splits, window, scale, softcap, st);
-    default: return cudaErrorInvalidValue;
-  }
+int launch_any(const void* q, const void* k, const void* v, const void* pos,
+               const void* tables, const void* cache_len, void* out, float* ml, float* part,
+               int B, int maxp, int page, int hq, int hkv, int d, int dtype, int splits,
+               int window, float scale, float softcap, bool merge, void* stream) {
+  const int rep = hkv > 0 ? hq / hkv : 0;
+  if (B <= 0 || B > 65535 || maxp <= 0 || page <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      rep < 1 || rep > 16 || splits < 1 || splits > 65535)
+    return cudaErrorInvalidValue;
+  const int* pp = static_cast<const int*>(pos);
+  const int* tb = static_cast<const int*>(tables);
+  const int* cl = static_cast<const int*>(cache_len);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kFloat32)
+    return launch_t<float>(q, k, v, pp, tb, cl, out, ml, part, B, maxp, page, hq, hkv, d, splits, window, scale, softcap, merge, st);
+  if (dtype == rt::kBFloat16)
+    return launch_t<bf16>(q, k, v, pp, tb, cl, out, ml, part, B, maxp, page, hq, hkv, d, splits, window, scale, softcap, merge, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -657,26 +678,36 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const int* pos
 // q (B,1,Hq,D), pools k/v (P,page,Hkv,D), out (B,1,Hq,D): contiguous, one
 // dtype.  pos (P,page), tables (B,maxp), cache_len (B,): int32.  `work`
 // holds B * Hq * splits * (D + 2) floats when splits > 1 (unused
-// otherwise).  In bf16, ceil(maxp / splits) is at most 8192 (the table
+// otherwise): the splits' partial states, which rt::combine_splits merges
+// into `out`.  In bf16, ceil(maxp / splits) is at most 8192 (the table
 // slice a block holds in shared memory).  Returns cudaGetLastError().
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k, const void* v, const void* pos,
     const void* tables, const void* cache_len, void* out, void* work, int B,
     int maxp, int page, int hq, int hkv, int d, int dtype, int splits,
     int window, float scale, float softcap, void* stream) {
-  const int rep = hkv > 0 ? hq / hkv : 0;
-  if (B <= 0 || B > 65535 || maxp <= 0 || page <= 0 || hkv <= 0 || hq % hkv != 0 ||
-      rep < 1 || rep > 16 || splits < 1 || splits > 65535 ||
-      (splits > 1 && work == nullptr))
-    return cudaErrorInvalidValue;
-  const int* pp = static_cast<const int*>(pos);
-  const int* tb = static_cast<const int*>(tables);
-  const int* cl = static_cast<const int*>(cache_len);
-  float* ww = static_cast<float*>(work);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kFloat32)
-    return launch_t<float>(q, k, v, pp, tb, cl, out, ww, B, maxp, page, hq, hkv, d, splits, window, scale, softcap, st);
-  if (dtype == rt::kBFloat16)
-    return launch_t<bf16>(q, k, v, pp, tb, cl, out, ww, B, maxp, page, hq, hkv, d, splits, window, scale, softcap, st);
-  return cudaErrorInvalidValue;
+  if (splits > 1 && work == nullptr) return cudaErrorInvalidValue;
+  float* ml = splits > 1 ? static_cast<float*>(work) : nullptr;
+  float* part = splits > 1 ? ml + (size_t)B * hq * splits * 2 : nullptr;
+  return launch_any(q, k, v, pos, tables, cache_len, out, ml, part, B, maxp, page, hq, hkv, d,
+                    dtype, splits, window, scale, softcap, true, stream);
+}
+
+// The partials launch: the same kernel with no merge, at any `splits` (1
+// included), over the pool rows a sequence shard of a serving mesh holds
+// (its table has -1 for pages elsewhere).  ml (B*Hq, splits, 2) receives
+// each split's (max in natural-log units of the logits, sum), part
+// (B*Hq, splits, D) its max-relative accumulator; a split with nothing
+// visible writes (rt::kNegInf, 0, 0), not the empty lane's mean of V (that
+// is the whole lane's answer, which only the combine of every shard knows).
+// decode_attention.cu's attention_combine_launch joins the shards.
+extern "C" int paged_decode_attention_partials_launch(
+    const void* q, const void* k, const void* v, const void* pos,
+    const void* tables, const void* cache_len, void* ml, void* part, int B,
+    int maxp, int page, int hq, int hkv, int d, int dtype, int splits,
+    int window, float scale, float softcap, void* stream) {
+  if (ml == nullptr || part == nullptr) return cudaErrorInvalidValue;
+  return launch_any(q, k, v, pos, tables, cache_len, nullptr, static_cast<float*>(ml),
+                    static_cast<float*>(part), B, maxp, page, hq, hkv, d, dtype, splits, window,
+                    scale, softcap, false, stream);
 }

@@ -24,6 +24,12 @@ With ``pos`` ((B, n) int32, -1 = empty) slot j is visible when
 the ring decode site's mask, oracle ``ref.decode_mha_masked``.  The kernel
 skips slots at or past ``cache_len``, which is exact for a ring whose slot j
 only ever holds positions congruent to j modulo n (``pos >= j``).
+
+A serving mesh splits a ring's slots over shards: ``decode_attention_partials``
+launches the kernel without its merge and returns every split's partial
+softmax state, and ``attention_combine`` merges the states of all shards
+(``rt::combine_splits``, a second entry point of the same source).  Their
+plain versions are ``ref.local_attend`` by split and ``ref.combine_partials``.
 """
 from __future__ import annotations
 
@@ -34,16 +40,23 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-launches = 0                 # kernel launches (plain-version calls excluded)
+# kernel launches (plain-version calls excluded): the ordinary launch, the
+# partials launch and the combine, each counted apart
+launches = 0
+partial_launches = 0
+combine_launches = 0
 _count_lock = threading.Lock()
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+_COMBINE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-def _counted() -> None:
-    global launches
+
+
+def _counted(counter: str = "launches") -> None:
     with _count_lock:
-        launches += 1
+        globals()[counter] += 1
 
 
 def auto_splits(b: int, hkv: int, n: int, device) -> int:
@@ -114,6 +127,130 @@ def decode_attention(q, k_cache, v_cache, *, cache_len, pos=None, window=0,
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
     _counted()
     return out
+
+
+def partials_buffers(rows: int, splits: int, d: int, device):
+    """Empty (ml, part) for ``rows`` output rows of ``splits`` partial
+    states: (rows, splits, 2) and (rows, splits, d) float32."""
+    return (torch.empty((rows, splits, 2), dtype=torch.float32, device=device),
+            torch.empty((rows, splits, d), dtype=torch.float32, device=device))
+
+
+def decode_attention_partials(q, k_cache, v_cache, *, cache_len, pos=None,
+                              window=0, scale, softcap=0.0, splits=None):
+    """Launch the kernel without its merge: every split's partial softmax
+    state, at any ``splits`` (``auto_splits`` by default; 1 too).  Returns
+    (ml, part): (B·Hq, splits, 2) f32 (max logit in natural-log units, sum)
+    and (B·Hq, splits, D) f32 (the max-relative accumulator); a split with
+    nothing visible holds (-1e30, 0, 0).  ``attention_combine`` merges
+    them, with those of other launches (a serving mesh's shards).  Slot j
+    is cut from split ranges as in ``decode_attention``: in *this* cache's
+    index, so a shard that holds slots [start, start + n) of a ring passes
+    ``pos`` (positions in slot j are then at least j).  CUDA tensors
+    only."""
+    if q.device.type != "cuda":
+        raise RuntimeError("decode_attention kernel needs CUDA tensors; "
+                           "use decode_attention_partials_plain on the CPU")
+    _check(q, k_cache, v_cache, cache_len, pos)
+    b, _, hq, d = q.shape
+    n, hkv = k_cache.shape[1], k_cache.shape[2]
+    if splits is None:
+        splits = auto_splits(b, hkv, n, q.device)
+    ml, part = partials_buffers(b * hq, splits, d, q.device)
+    fn = build.launcher("decode_attention", "decode_attention_partials_launch",
+                        _ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 cache_len.data_ptr(), None if pos is None else pos.data_ptr(),
+                 ml.data_ptr(), part.data_ptr(), b, n, hq, hkv, d,
+                 _DTYPES[q.dtype], int(splits), int(window), float(scale),
+                 float(softcap), build.current_stream(q.device))
+    if err:
+        raise RuntimeError(f"decode_attention partials launch failed: CUDA "
+                           f"error {err}")
+    _counted("partial_launches")
+    return ml, part
+
+
+def attention_combine(ml, part, dtype):
+    """Launch ``rt::combine_splits`` over partial states: ``ml`` (R, S, 2)
+    and ``part`` (R, S, D) float32, from one partials launch or several
+    concatenated along S.  Returns (R, D) in ``dtype`` (float32 or
+    bfloat16); a row whose states are all empty comes out as zeros.  CUDA
+    tensors only."""
+    if ml.device.type != "cuda":
+        raise RuntimeError("attention_combine needs CUDA tensors; use "
+                           "attention_combine_plain on the CPU")
+    rows, splits, d = part.shape
+    if ml.shape != (rows, splits, 2) or ml.dtype != torch.float32 \
+            or part.dtype != torch.float32 or d not in (64, 128, 256) \
+            or dtype not in _DTYPES or ml.device != part.device \
+            or not (ml.is_contiguous() and part.is_contiguous()):
+        raise ValueError(f"attention_combine: ml {tuple(ml.shape)} "
+                         f"{ml.dtype}, part {tuple(part.shape)} {part.dtype}, "
+                         f"out {dtype}")
+    out = torch.empty((rows, d), dtype=dtype, device=ml.device)
+    fn = build.launcher("decode_attention", "attention_combine_launch",
+                        _COMBINE_ARGTYPES)
+    with torch.cuda.device(ml.device):
+        err = fn(ml.data_ptr(), part.data_ptr(), out.data_ptr(), rows, splits,
+                 d, _DTYPES[dtype], build.current_stream(ml.device))
+    if err:
+        raise RuntimeError(f"attention_combine launch failed: CUDA error "
+                           f"{err}")
+    _counted("combine_launches")
+    return out
+
+
+def split_ranges(cache_len, n: int, has_pos: bool, window: int, splits: int):
+    """Slot range [lo, hi) of each split of each lane, (splits, B) each, as
+    the kernel's ``split_range`` cuts them: [0, min(len, n)) (from
+    ``len - window`` without ``pos``) in ``splits`` equal parts."""
+    cl = cache_len.long()
+    hi_all = cl.clamp(max=n)
+    lo_all = ((cl - window).clamp(min=0) if not has_pos and window > 0
+              else torch.zeros_like(cl))
+    per = ((hi_all - lo_all).clamp(min=0) + splits - 1) // splits
+    lo = lo_all + torch.arange(splits, device=cl.device)[:, None] * per
+    return lo, torch.minimum(hi_all, lo + per)
+
+
+def stack_partials(states):
+    """[(m, l, acc)] of ``ref.local_attend``, one a split, as (ml, part)."""
+    ml = torch.stack([torch.stack([m, l], dim=-1) for m, l, _ in states], 2)
+    part = torch.stack([acc for _, _, acc in states], dim=2)
+    b, hq = ml.shape[:2]
+    return (ml.reshape(b * hq, len(states), 2),
+            part.reshape(b * hq, len(states), part.shape[-1]))
+
+
+def decode_attention_partials_plain(q, k_cache, v_cache, *, cache_len,
+                                    pos=None, window=0, scale, softcap=0.0,
+                                    splits=1):
+    """``decode_attention_partials`` in plain PyTorch: the split ranges of
+    ``split_ranges``, each split's state by ``ref.local_attend``."""
+    n = k_cache.shape[1]
+    j = torch.arange(n, device=q.device)
+    cl = cache_len.reshape(-1, 1)
+    if pos is None:
+        valid = j < cl
+        if window > 0:
+            valid = valid & (j > cl - 1 - window)
+    else:
+        valid = (pos >= 0) & (pos < cl)
+        if window > 0:
+            valid &= pos > cl - 1 - window
+    lo, hi = split_ranges(cache_len, n, pos is not None, window, splits)
+    return stack_partials([
+        ref.local_attend(q, k_cache, v_cache,
+                         valid & (j >= lo[s, :, None]) & (j < hi[s, :, None]),
+                         scale, softcap)
+        for s in range(splits)])
+
+
+def attention_combine_plain(ml, part, dtype):
+    """``attention_combine`` in plain PyTorch (``ref.combine_partials``)."""
+    return ref.combine_partials(ml, part, dtype)
 
 
 def decode_attention_plain(q, k_cache, v_cache, *, cache_len, pos=None,

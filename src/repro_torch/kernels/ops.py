@@ -130,6 +130,46 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, tables, *,
               window=window, scale=scale, softcap=softcap)
 
 
+def decode_attention_partials(q, k_cache, v_cache, *, cache_len, pos=None,
+                              window=0, scale, softcap=0.0, splits=None):
+    """The decode kernel's partial softmax states (ml (B·Hq, splits, 2),
+    part (B·Hq, splits, D), f32) without their merge: one serving-mesh
+    shard's share of ``decode_attention``.  The CPU takes one split unless
+    ``splits`` asks for more."""
+    kw = dict(cache_len=cache_len, pos=pos, window=window, scale=scale,
+              softcap=softcap)
+    if not _route(q):
+        return _decode.decode_attention_partials_plain(
+            q, k_cache, v_cache, splits=splits or 1, **kw)
+    _no_backward("decode_attention", q, k_cache, v_cache)
+    return _decode.decode_attention_partials(q, k_cache, v_cache,
+                                             splits=splits, **kw)
+
+
+def paged_decode_attention_partials(q, k_pages, v_pages, pos_pages, tables,
+                                    *, cache_len, window=0, scale,
+                                    softcap=0.0, splits=None):
+    """The paged decode kernel's partial softmax states without their
+    merge, as ``decode_attention_partials`` returns them."""
+    kw = dict(cache_len=cache_len, window=window, scale=scale,
+              softcap=softcap)
+    if not _route(q):
+        return _paged.paged_decode_attention_partials_plain(
+            q, k_pages, v_pages, pos_pages, tables, splits=splits or 1, **kw)
+    _no_backward("paged_decode_attention", q, k_pages, v_pages)
+    return _paged.paged_decode_attention_partials(
+        q, k_pages, v_pages, pos_pages, tables, splits=splits, **kw)
+
+
+def attention_combine(ml, part, dtype):
+    """(R, D) in ``dtype`` from partial states (R, S, 2) and (R, S, D)
+    concatenated from any number of partials calls: their log-sum-exp
+    merge."""
+    if not _route(ml):
+        return _decode.attention_combine_plain(ml, part, dtype)
+    return _decode.attention_combine(ml, part, dtype)
+
+
 def ssd(x, dt, a_log, b_mat, c_mat, d_skip=None, chunk=128):
     """Zero-state chunked SSD scan: (B,S,H,P) in x's dtype."""
     if not _route(x):
@@ -161,12 +201,17 @@ _COUNTED = {"decode_attention": (_decode, "launches"),
             "paged_decode_attention": (_paged, "launches"),
             "ssd": (_ssd, "launches"), "rglru": (_rglru, "launches"),
             "flash_attention_bwd": (_flash, "bwd_launches"),
-            "rmsnorm_bwd": (_norm, "bwd_launches")}
+            "rmsnorm_bwd": (_norm, "bwd_launches"),
+            "decode_attention_partials": (_decode, "partial_launches"),
+            "paged_decode_attention_partials": (_paged, "partial_launches"),
+            "attention_combine": (_decode, "combine_launches")}
 
 
 def kernel_launches() -> dict:
     """Launch counts of the eight kernels, the six forward kernels and the
-    two backward ones (plain-version calls excluded)."""
+    two backward ones, and of the decode kernels' partials and combine
+    entry points, which a serving mesh runs (plain-version calls
+    excluded)."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _COUNTED.items()}
 

@@ -24,6 +24,9 @@ is held against.
 Lane b's position r lives in pool row ``tables[b, r // page]``, slot
 ``r % page``; it is visible when that entry is >= 0, ``pos`` there equals
 r, ``r < cache_len[b]`` and r is inside the window.
+``paged_decode_attention_partials`` is the same kernel without its merge,
+for a serving mesh's shard of the pool; ``decode_attention.attention_combine``
+joins the shards.
 """
 from __future__ import annotations
 
@@ -33,8 +36,13 @@ import threading
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.decode_attention import (partials_buffers,
+                                                  stack_partials)
 
-launches = 0                 # kernel launches (plain-version calls excluded)
+# kernel launches (plain-version calls excluded): the ordinary launch and
+# the partials launch, counted apart
+launches = 0
+partial_launches = 0
 _count_lock = threading.Lock()
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
@@ -44,10 +52,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TABLE_SLICE = 8192
 
 
-def _counted() -> None:
-    global launches
+def _counted(counter: str = "launches") -> None:
     with _count_lock:
-        launches += 1
+        globals()[counter] += 1
 
 
 def auto_splits(b: int, hkv: int, maxp: int, page: int, device) -> int:
@@ -134,6 +141,80 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, tables, *,
             f"paged_decode_attention launch failed: CUDA error {err}")
     _counted()
     return out
+
+
+def paged_decode_attention_partials(q, k_pages, v_pages, pos_pages, tables,
+                                    *, cache_len, window=0, scale,
+                                    softcap=0.0, splits=None):
+    """Launch the kernel without its merge: every split's partial softmax
+    state, at any ``splits`` (``auto_splits`` by default; 1 too), as
+    ``decode_attention.decode_attention_partials`` returns them.  A serving
+    mesh's shard passes the pool rows it holds and a table of local row
+    ids, -1 for pages held elsewhere.  A split with nothing visible holds
+    (-1e30, 0, 0) (an empty lane gets no mean of V here: that is the whole
+    lane's answer).  CUDA tensors only."""
+    if q.device.type != "cuda":
+        raise RuntimeError("paged_decode_attention kernel needs CUDA "
+                           "tensors; use paged_decode_attention_partials_"
+                           "plain on the CPU")
+    _check(q, k_pages, v_pages, pos_pages, tables, cache_len)
+    b, _, hq, d = q.shape
+    page, hkv = k_pages.shape[1], k_pages.shape[2]
+    maxp = tables.shape[1]
+    if splits is None:
+        splits = auto_splits(b, hkv, maxp, page, q.device)
+    if q.dtype == torch.bfloat16 and -(-maxp // splits) > MAX_TABLE_SLICE:
+        raise ValueError(f"paged_decode_attention: {maxp} table entries in "
+                         f"{splits} splits exceed {MAX_TABLE_SLICE} a block")
+    ml, part = partials_buffers(b * hq, splits, d, q.device)
+    fn = build.launcher("paged_decode_attention",
+                        "paged_decode_attention_partials_launch", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 pos_pages.data_ptr(), tables.data_ptr(), cache_len.data_ptr(),
+                 ml.data_ptr(), part.data_ptr(), b, maxp, page, hq, hkv, d,
+                 _DTYPES[q.dtype], int(splits), int(window), float(scale),
+                 float(softcap), build.current_stream(q.device))
+    if err:
+        raise RuntimeError(f"paged_decode_attention partials launch failed: "
+                           f"CUDA error {err}")
+    _counted("partial_launches")
+    return ml, part
+
+
+def split_ranges(cache_len, maxp: int, page: int, window: int, splits: int):
+    """Position range [lo, hi) of each split of each lane, (splits, B)
+    each, as the kernel cuts them: the pages of [lo_all, hi_all) in
+    ``splits`` equal page-aligned parts."""
+    cl = cache_len.long()
+    hi_all = cl.clamp(min=0, max=maxp * page)
+    lo_all = torch.minimum((cl - window).clamp(min=0) if window > 0
+                           else torch.zeros_like(cl), hi_all)
+    pg_lo, pg_hi = lo_all // page, (hi_all + page - 1) // page
+    per = (pg_hi - pg_lo + splits - 1) // splits
+    pa = pg_lo + torch.arange(splits, device=cl.device)[:, None] * per
+    pb = torch.minimum(pg_hi, pa + per)
+    return (torch.maximum(lo_all, pa * page),
+            torch.minimum(hi_all, pb * page))
+
+
+def paged_decode_attention_partials_plain(q, k_pages, v_pages, pos_pages,
+                                          tables, *, cache_len, window=0,
+                                          scale, softcap=0.0, splits=1):
+    """``paged_decode_attention_partials`` in plain PyTorch: the lanes'
+    pages gathered as the oracle gathers them (``ref.paged_gather``), the
+    split ranges of ``split_ranges``, each split's state by
+    ``ref.local_attend``."""
+    k, v, valid = ref.paged_gather(k_pages, v_pages, pos_pages, tables,
+                                   cache_len, window)
+    r = torch.arange(k.shape[1], device=q.device)
+    lo, hi = split_ranges(cache_len, tables.shape[1], k_pages.shape[1],
+                          window, splits)
+    return stack_partials([
+        ref.local_attend(q, k, v,
+                         valid & (r >= lo[s, :, None]) & (r < hi[s, :, None]),
+                         scale, softcap)
+        for s in range(splits)])
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, pos_pages, tables, *,

@@ -125,23 +125,65 @@ def paged_decode_mha_reference(q, k_pages, v_pages, pos_pages, tables, *,
     visible when its table entry exists, its written position equals the
     slot's expected absolute position, that position is below cache_len,
     and it is inside the window; the math is ``decode_mha_masked``'s."""
-    b = q.shape[0]
+    k, v, valid = paged_gather(k_pages, v_pages, pos_pages, tables,
+                               cache_len, window)
+    return decode_mha_masked(q, k, v, valid_mask=valid, scale=scale,
+                             softcap=softcap)
+
+
+def paged_gather(k_pages, v_pages, pos_pages, tables, cache_len, window=0):
+    """Each lane's pages gathered in position order, as the paged oracle
+    reads them: (k, v) (B, maxp * page, Hkv, D) and the visibility mask
+    (B, maxp * page) of ``paged_decode_mha_reference``."""
+    b, maxp = tables.shape
     page = k_pages.shape[1]
-    maxp = tables.shape[1]
     safe = tables.clamp_min(0).long()                           # (B, maxp)
     k = k_pages[safe].reshape(b, maxp * page, *k_pages.shape[2:])
     v = v_pages[safe].reshape(b, maxp * page, *v_pages.shape[2:])
     pos = pos_pages[safe].reshape(b, maxp * page)               # (B, T)
     expected = torch.arange(maxp * page, dtype=torch.int32,
-                            device=q.device)[None]              # (1, T)
+                            device=k.device)[None]              # (1, T)
     cl = torch.as_tensor(cache_len, dtype=torch.int32,
-                         device=q.device).reshape(-1).expand(b).reshape(b, 1)
+                         device=k.device).reshape(-1).expand(b).reshape(b, 1)
     valid = (pos == expected) & (expected < cl)
     valid &= (tables >= 0).repeat_interleave(page, dim=1)
     if window > 0:
         valid &= expected > cl - 1 - window
-    return decode_mha_masked(q, k, v, valid_mask=valid, scale=scale,
-                             softcap=softcap)
+    return k, v, valid
+
+
+def local_attend(q, k, v, valid, scale, softcap=0.0):
+    """One query token a lane over the slots ``valid`` ((B, T) bool) marks,
+    as a partial softmax state: (m, l, acc) of shapes (B, Hq), (B, Hq) and
+    (B, Hq, D), f32, with m the largest logit (natural-log units; NEG_INF
+    where nothing is visible), l the sum of exp(logit - m) and acc the
+    exp(logit - m)-weighted sum of V rows, probabilities rounded to V's
+    dtype first.  The counterpart of the reference's spmd ``_local_attend``;
+    ``combine_partials`` joins such states."""
+    hq = q.shape[2]
+    logits = torch.einsum("bhd,bthd->bht", q[:, 0].float(),
+                          _gqa_expand(k, hq).float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    vm = valid[:, None, :]
+    logits = torch.where(vm, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1)                                     # (B, Hq)
+    p = torch.where(vm, torch.exp(logits - m[..., None]), 0.0)
+    acc = torch.einsum("bht,bthd->bhd", p.to(v.dtype).float(),
+                       _gqa_expand(v, hq).float())
+    return m, p.sum(dim=-1), acc
+
+
+def combine_partials(ml, part, dtype):
+    """Join partial softmax states by their log-sum-exp: ``ml`` (R, S, 2)
+    holds each state's (m, l), ``part`` (R, S, D) its acc.  Returns (R, D)
+    in ``dtype``: the reference's ``pmax``/``psum`` combine.  A row whose
+    states are all empty (m NEG_INF, l 0) comes out as zeros."""
+    m, l = ml[..., 0], ml[..., 1]
+    w = torch.exp(m - m.amax(dim=1, keepdim=True))              # (R, S)
+    total = (l * w).sum(dim=1)
+    acc = (part * w[..., None]).sum(dim=1)
+    return (acc / total.clamp_min(1e-30)[:, None]).to(dtype)
 
 
 def mha_cache_masked(q, k_cache, v_cache, *, mask, scale=None, softcap=0.0):

@@ -45,6 +45,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp, rmsnorm
+from repro_torch.serving import spmd_decode as spmd
+from repro_torch.sharding import context as shctx
 
 def _param(shape, dtype, device, fill=None) -> nn.Parameter:
     t = torch.empty(shape, dtype=dtype, device=device)
@@ -207,6 +209,13 @@ def apply_block_decode(p: Block, x, cache, cfg: ModelConfig, kind: str,
     paged decode kernel.  Duplicate dump-row writes are harmless: no table
     names the dump row.
 
+    Under a serving mesh (``sharding.context``) an attention block's ring
+    or pools are laid out over it (``serving.spmd_decode.Sharded``; a
+    plain cache is laid out at its first step, in place of its tensors)
+    and attention runs the split-S flash-decode there
+    (``spmd_decode_attention`` / ``spmd_paged_decode_attention``), as the
+    reference routes it; other blocks are unchanged.
+
     A recurrent block advances every lane's state by one token (the tables
     do not apply); ``Replica._insert`` and ``paged_commit`` overwrite a
     joining lane's state.  A cross-attention block attends over its cached
@@ -239,6 +248,26 @@ def apply_block_decode(p: Block, x, cache, cfg: ModelConfig, kind: str,
         rows, within = attn_lib.shared(
             memo, ("paged_slots", npool, page),
             lambda: _paged_slots(block_tables, idx, lanes, npool, page))
+    serving = shctx.get_serving_mesh()
+    if serving is not None:
+        # split-S flash-decode over the serving mesh: each sequence shard
+        # writes the lanes whose slot or pool row it holds and attends
+        # over its own slots; one combine joins the shards
+        mesh, b_ax, s_ax = serving
+        kw = dict(window=attn_lib._window_for(cfg, attn_kind),
+                  scale=attn_lib._scale(cfg), softcap=cfg.logit_softcap,
+                  batch_axis=b_ax, seq_axis=s_ax, memo=memo)
+        if block_tables is None:
+            out, *kvp = spmd.spmd_decode_attention(
+                mesh, q, cache["k"], cache["v"], k, v, cache["pos"], idx, **kw)
+        else:
+            out, *kvp = spmd.spmd_paged_decode_attention(
+                mesh, q, cache["k"], cache["v"], cache["pos"], block_tables,
+                k, v, rows, within, idx, **kw)
+        cache.update(zip(("k", "v", "pos"), kvp))
+        x, aux = _channel_mix(p, x, attn_lib._out_proj(out, p.attn["wo"]),
+                              cfg)
+        return x, cache, aux
     cache["k"][rows, within] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, within] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][rows, within] = idx

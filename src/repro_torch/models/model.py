@@ -204,6 +204,14 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
             for kind, akind in zip(cfg.layer_kinds(), cfg.attn_kinds())]
 
 
+def ring_lengths(cfg: ModelConfig, capacity: int) -> set:
+    """The slot counts of the attention layers' rings at ``capacity`` (a
+    local layer's ring holds its window)."""
+    return {blk._attn_cache_len(cfg, akind, capacity)
+            for kind, akind in zip(cfg.layer_kinds(), cfg.attn_kinds())
+            if kind == ATTN}
+
+
 def init_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
                      num_pages: int, page_size: int, device="cuda") -> Cache:
     """Like ``init_cache`` but every attention layer's KV lives in a shared

@@ -35,13 +35,18 @@ What differs from the JAX engine: the ``jax.jit`` executables are plain
 eager calls (kernels are built at first use, during warmup); every timing
 sample synchronises the device first (``torch.cuda.synchronize``) so it
 measures the work and not its launch; the caches are updated in place.
-Sharded replicas (``serving_mesh``) are not ported yet and raise
-``NotImplementedError``.  A stack with cross-attention layers raises
-``ValueError`` (``refuse_cross``): a request carries no encoder states.
+A replica may be sharded: with ``serving_mesh`` (``sharding.mesh.Mesh``)
+its batched cache is laid out over the mesh and every decode step runs
+the split-S flash-decode there (``repro_torch.serving.spmd_decode``), the
+same per-lane index vector and all; to the router and the
+continuous-batching loop it behaves as a single-device replica.  A stack
+with cross-attention layers raises ``ValueError`` (``refuse_cross``): a
+request carries no encoder states.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import logging
 import random
 import threading
@@ -68,6 +73,8 @@ from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving.overload import (BrownoutConfig, BrownoutController,
                                           CircuitBreaker, priority_rank)
 from repro_torch.serving.paging import PageAllocator, PrefixCache
+from repro_torch.serving import spmd_decode as spmd
+from repro_torch.sharding import context as shctx
 
 log = logging.getLogger(__name__)
 
@@ -290,9 +297,15 @@ class Replica:
     and with ``prefix_cache`` (attention-only, full-ring stacks) prompts
     sharing page-aligned prefixes ref-count the cached pages, restore
     their prefill ring from them, and copy-on-write the one page they must
-    recompute into.  Counters for the launch accounting: ``decode_steps``,
-    ``prefill_chunks``, ``whole_prefills``, ``prefilled_tokens`` and
-    ``cow_copies``.
+    recompute into.  ``serving_mesh`` (with ``mesh_batch_axis`` and
+    ``mesh_seq_axis``) shards the replica: the batched cache's attention
+    rings (or pools) are laid out over the mesh's sequence axis, and
+    every decode step runs the split-S flash-decode over it; prefill stays
+    on the replica's device, unsharded, as in the reference.  Every ring
+    length must divide by the sequence axis' size, and in paged mode the
+    pool's ``num_pages + 1`` rows (``ValueError`` otherwise).  Counters
+    for the launch accounting: ``decode_steps``, ``prefill_chunks``,
+    ``whole_prefills``, ``prefilled_tokens`` and ``cow_copies``.
     """
 
     def __init__(self, name: str, cfg: ModelConfig, params, *,
@@ -302,11 +315,9 @@ class Replica:
                  brownout: Optional[BrownoutConfig] = None,
                  paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
-                 prefix_cache: bool = False, serving_mesh=None):
-        if serving_mesh is not None:
-            raise NotImplementedError(
-                "sharded replicas are not ported yet: ROADMAP.md section 2 "
-                "item 4")
+                 prefix_cache: bool = False, serving_mesh=None,
+                 mesh_batch_axis: Optional[str] = "data",
+                 mesh_seq_axis: str = "model"):
         self.name = name
         self.cfg = cfg
         self.params = params
@@ -368,6 +379,10 @@ class Replica:
             self._alloc = None
             self._prefix = None
         refuse_cross(cfg, name)
+        self.serving_mesh = serving_mesh
+        self._mesh_axes = (mesh_batch_axis, mesh_seq_axis)
+        if serving_mesh is not None:
+            self._check_mesh()
         self.profile: Optional[AppProfile] = None
         self.device_profile: Optional[DeviceProfile] = None
 
@@ -395,6 +410,20 @@ class Replica:
 
         # warm every path once: kernels build and load HERE, not on requests
         t0 = time.perf_counter()
+        with self._mesh_scope():
+            self._warm(params)
+        self.warmup_s = time.perf_counter() - t0
+
+        self._thread = threading.Thread(
+            target=self._loop, name=f"decode-{name}", daemon=True)
+        self._thread.start()
+
+    def _warm(self, params) -> None:
+        """Run every path once (whole-prompt prefill, each chunk bucket,
+        insert or the paged moves, both decode steps, first-token
+        sampling), then start from a fresh cache."""
+        cfg = self.cfg
+        capacity = self.capacity
         dummy = torch.zeros((1, 8), dtype=torch.int64, device=self.device)
         _, lane_cache = self._prefill(params, dummy)
         if self.prefill_caps["supported"]:
@@ -429,26 +458,63 @@ class Replica:
             np.ones((1,), np.float32))[1].cpu()
         self._cache = self._new_cache()
         self._sync()
-        self.warmup_s = time.perf_counter() - t0
-
-        self._thread = threading.Thread(
-            target=self._loop, name=f"decode-{name}", daemon=True)
-        self._thread.start()
 
     # ------------------------------------------------------------ executables
+    def _check_mesh(self) -> None:
+        """Refuse a mesh the cache cannot be split over: every attention
+        ring (the capacity, or a local layer's window) and, in paged mode,
+        the pool's rows (``num_pages`` plus the dump row) must divide by
+        the sequence axis' size; the reference asserts both."""
+        n_seq = self.serving_mesh.shape[self._mesh_axes[1]]
+        if self.paged and (self.num_pages + 1) % n_seq:
+            raise ValueError(
+                f"replica {self.name}: a pool of num_pages + 1 = "
+                f"{self.num_pages + 1} rows does not split over {n_seq} "
+                "sequence shards")
+        # rings: the batched cache's in ring mode, generate_sequential's in
+        # both modes
+        bad = sorted(n for n in model_lib.ring_lengths(self.cfg, self.capacity)
+                     if n % n_seq)
+        if bad:
+            raise ValueError(
+                f"replica {self.name}: rings of {bad} slots (capacity "
+                f"{self.capacity}) do not split over {n_seq} sequence shards")
+
+    def _mesh_scope(self):
+        """Serving-mesh context for whatever thread is about to run the
+        model (the context is thread-local, and the decode loop runs on
+        its own thread)."""
+        if self.serving_mesh is None:
+            return contextlib.nullcontext()
+        return shctx.serving_mesh(self.serving_mesh,
+                                  batch_axis=self._mesh_axes[0],
+                                  seq_axis=self._mesh_axes[1])
+
     def _new_cache(self):
-        """A fresh batched cache: per-lane rings, or the paged pools."""
+        """A fresh batched cache: per-lane rings, or the paged pools, laid
+        out over the serving mesh when there is one."""
         if self.paged:
-            return model_lib.init_paged_cache(
+            cache = model_lib.init_paged_cache(
                 self.cfg, self.slots, self.capacity, self.num_pages,
                 self.page_size, self.device)
-        return model_lib.init_cache(self.cfg, self.slots, self.capacity,
-                                    self.device)
+        else:
+            cache = model_lib.init_cache(self.cfg, self.slots, self.capacity,
+                                         self.device)
+        if self.serving_mesh is None:
+            return cache
+        return spmd.shard_cache(cache, self.serving_mesh, paged=self.paged,
+                                batch_axis=self._mesh_axes[0],
+                                seq_axis=self._mesh_axes[1])
 
     def _sync(self) -> None:
-        """Wait for the device, so a host clock reads the work itself."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the replica's device and every device of its mesh, so a
+        host clock reads the work itself."""
+        devs = {self.device}
+        if self.serving_mesh is not None:
+            devs.update(self.serving_mesh.distinct_devices())
+        for dev in devs:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _zeros_tokens(self, w: int) -> torch.Tensor:
         return torch.zeros((1, w), dtype=torch.int64, device=self.device)
@@ -501,10 +567,14 @@ class Replica:
         """Copy a finished B=1 prefill cache into lane ``lane`` of the
         batched cache, in place.  The whole ring is overwritten, ``pos``
         included, so positions that decode steps ghost-wrote into the free
-        lane never leak into the new request."""
+        lane never leak into the new request.  A sharded ring takes each
+        sequence shard's slots of the lane's ring."""
         for dst, src in zip(cache, lane_cache):
             for name, t in dst.items():
-                t[lane].copy_(src[name][0])
+                if isinstance(t, spmd.Sharded):
+                    t.set_lane(lane, src[name][0])
+                else:
+                    t[lane].copy_(src[name][0])
         return cache
 
     def _commit(self, cache, lane_cache, lane: int, row, from_pos: int):
@@ -744,18 +814,21 @@ class Replica:
 
     def generate_sequential(self, req: Request) -> np.ndarray:
         """Batch-1 reference greedy decode: whole-prompt prefill, then one
-        decode step per token with a host sync each.  The parity oracle."""
+        decode step per token with a host sync each.  The parity oracle.
+        On a sharded replica the steps run over the mesh (the prefilled
+        ring is laid out at the first)."""
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
                                  device=self.device)[None, :]
-        logits, cache = self._prefill(self.params, prompt)
         out = []
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        pos = prompt.shape[1]
-        for _ in range(req.max_new_tokens):
-            out.append(int(tok[0, 0]))
-            logits, cache = self._decode(self.params, cache, tok, pos)
+        with self._mesh_scope():
+            logits, cache = self._prefill(self.params, prompt)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            pos += 1
+            pos = prompt.shape[1]
+            for _ in range(req.max_new_tokens):
+                out.append(int(tok[0, 0]))
+                logits, cache = self._decode(self.params, cache, tok, pos)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                pos += 1
         return np.asarray(out, np.int32)
 
     def stop(self, timeout_s: float = 5.0, raise_on_leak: bool = True) -> bool:
@@ -852,6 +925,10 @@ class Replica:
 
     # ---------------------------------------------------- decode loop (thread)
     def _loop(self) -> None:
+        with self._mesh_scope():
+            self._loop_body()
+
+    def _loop_body(self) -> None:
         while True:
             with self._work:
                 while (not self._shutdown and not self._pending
@@ -1239,12 +1316,19 @@ def measure_step_curve(rep: Replica, steps_per_point: int = 6,
     ending in a device synchronise.  A paged replica steps scratch pools
     through scratch block tables that map each lane to its own run of
     pages (modulo the pool), so the timed step pays the real scatter and
-    paged attention.  Also times one ``prefill_chunk`` of the widest
+    paged attention, and a sharded replica a scratch cache laid out over
+    its mesh (the split-S step).  Also times one ``prefill_chunk`` of the widest
     bucket: the cost a joining prompt interleaves between decode steps.
     Call before serving traffic.
 
     Returns ``(occupancies, step_ms, prefill_chunk_ms)``.
     """
+    with rep._mesh_scope():
+        return _measure_step_curve(rep, steps_per_point, warmup_steps)
+
+
+def _measure_step_curve(rep: Replica, steps_per_point: int,
+                        warmup_steps: int):
     cache = rep._new_cache()
     tables = scratch_tables(rep) if rep.paged else None
     tok = np.zeros((rep.slots, 1), np.int64)

@@ -31,6 +31,7 @@ from repro_torch.serving import engine as teng
 from repro_torch.serving.overload import BrownoutConfig
 from repro_torch.serving.sampling import NEG_INF
 from repro_torch.serving.sampling import _filter_logits as tfilter
+from repro_torch.sharding.mesh import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -269,11 +270,18 @@ def test_chunk_cost_moves_when_every_chunk_is_narrow(setup, mode):
 
 
 def test_unported_replica_modes_raise(setup):
-    """Sharded replicas are the one replica mode not ported yet (paged KV
-    is: ``tests/test_torch_paging.py``)."""
+    """Sharded replicas are served (``tests/test_torch_mesh_serving.py``);
+    the meshes a cache cannot be split over raise ``ValueError`` before
+    any warmup, as the reference asserts: a ring whose slots (the
+    capacity) do not divide by the sequence axis, and a paged pool whose
+    rows (``num_pages`` and the dump row) do not."""
     tc, tp, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.Replica("m", tc, tp, serving_mesh=object())
+    mesh = make_mesh((1, 4), ("data", "model"), ["cpu"] * 4)
+    with pytest.raises(ValueError, match="do not split over 4"):
+        teng.Replica("m", tc, tp, capacity=62, serving_mesh=mesh)
+    with pytest.raises(ValueError, match="does not split over 4"):
+        teng.Replica("m", tc, tp, capacity=64, paged=True, page_size=8,
+                     num_pages=16, serving_mesh=mesh)
 
 
 def test_serve_cli_runs_on_cpu(capsys):

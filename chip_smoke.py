@@ -146,7 +146,19 @@ success):
    (a restore and a copy-on-write across shards): greedy streams equal to
    the unsharded replica's and the CPU plain path's, the plain path's
    steps under the mesh on the card within 1e-3 of the CPU's last logits,
-   launches as ``expected_launches`` states for the mesh;
+   launches as ``expected_launches`` states for the mesh; then (3p) the
+   distributed trainer on a world of one NCCL rank (joined in-process
+   over a FileStore under build/, destroyed after): qwen3-4b at full
+   width, 4 layers, f32, 3 sharded steps on a (1, 1) ``DeviceMesh``
+   against ``make_train_step`` (loss, ce, grad norm, lr and every
+   parameter within 1e-6 relative, bit-equality logged; launches as
+   ``expected_train_launches``), the int8 all-reduce over the world equal
+   to ``dequantize(quantize(x))``, ``pipeline_forward`` over 4 stages on
+   the card within 1e-5 of ``forward`` (launches as
+   ``expected_pipeline_launches``), and in bf16 with f32 masters at 1
+   layer 4 straight ``train_loop(mesh=...)`` steps equal to 2, a checkpoint, a
+   restore placed leaf by leaf (``ft.elastic.reshard_leaf``) and 2 more,
+   bit for bit;
 4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
    bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
@@ -218,7 +230,22 @@ success):
    sharded one, 4 partials launches and a combine per attention layer);
    tokens/s, TTFT, each replica's step curve, ``step_profile`` of the
    sharded step at positions 1024 and 6000 and of the unsharded one at
-   6000, peak memory.
+   6000, peak memory;
+15. the sharded trainer: qwen3-4b at phase 13's config and batch through
+   ``train_loop(mesh=make_host_mesh())`` on a world of one NCCL rank, the
+   state stored as DTensors by the reference's specs, every block's
+   weights gathered on use and every gradient reduced by NCCL over groups
+   of one: finite losses within 1e-3 relative of phase 13's, launches as
+   ``expected_train_launches``, peak memory within phase 13's plus 2 GB;
+   step wall ms, tokens/s, one profiled step's device-busy ms, idle share
+   and host time by operator, the device ms of gathering every weight
+   once and of reducing every gradient once; then ``pipeline_forward``
+   of the 36 layers in bf16 over 4 stages of the card, 4 microbatches of
+   2 x 1024, against one forward of 8 x 1024: ms of each, each
+   microbatch's logits bit-equal to a forward of its own rows, and the
+   largest logit difference against the whole batch within
+   ``PIPE_BF16_SPACINGS`` bf16 spacings of max|ref| (argmax agreement
+   recorded).
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary (the six
 forward kernels and the two backward ones), the card line, and ``{"ok":
@@ -228,19 +255,21 @@ report) to PATH as JSON.  ``--only 2t,2c,3i,13`` builds and runs only
 those phases of the training slice, then stops without a summary: a quick
 check of a change on the card, not the smoke test (``--only 2t,2c,13``
 for work on the backward kernels, ``--only 2m,3m,14`` for the serving
-mesh).  The summary's decode rows count the partials launches of a mesh
+mesh, ``--only 3p,13,15`` for the distributed trainer).  The summary's decode rows count the partials launches of a mesh
 path with the kernel's (the same kernel, unmerged) and list them, the
 combine's and the sharded call's times under ``mesh``.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -3164,6 +3193,389 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
     return launches
 
 
+# ------------------------------------------------ the distributed trainer
+# One card holds one rank: the trainer's process group is a world of one
+# NCCL rank, joined in-process over a FileStore under build/ and destroyed
+# when its phase ends (NCCL refuses two ranks on one card; worlds of 2-8
+# gloo ranks run in tests/test_torch_distributed.py).  Its gathers and
+# reductions are real NCCL collectives over groups of one.
+@contextmanager
+def one_rank_world(dev):
+    """A world of one NCCL rank on ``dev`` for the ``with`` body."""
+    import torch.distributed as dist
+    from repro_torch.launch import multihost
+
+    path = os.path.join(ROOT, "build", "nccl_store")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    env = multihost.ClusterEnv("", 1, 0, local_rank=dev.index or 0)
+    multihost.initialize(env, device=dev, store=dist.FileStore(path, 1),
+                         timeout_s=300.0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        yield
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def expected_pipeline_launches(cfg, micro: int) -> dict:
+    """A GPipe forward of a dense attention stack in ``micro``
+    microbatches: every layer once a microbatch, the final norm once."""
+    one = expected_train_launches(cfg, False, 1)
+    return dict(one, flash_attention=one["flash_attention"] * micro,
+                rmsnorm=(one["rmsnorm"] - 1) * micro + 1,
+                flash_attention_bwd=0, rmsnorm_bwd=0)
+
+
+def train_dist_identity(dev, layers: int = 4, batch: int = 2, seq: int = 256,
+                        steps: int = 3) -> dict:
+    """Phase 3p: the distributed trainer on a world of one NCCL rank,
+    qwen3-4b at full width, ``layers`` deep (one a pipeline stage), f32
+    with TF32 off: ``steps`` sharded steps on a (1, 1) ``DeviceMesh``
+    against ``make_train_step`` on the card (loss, ce, grad norm, lr and
+    every parameter within 1e-6 relative; bit-equality reported), launches
+    as ``expected_train_launches``; the int8 all-reduce over the world
+    equal to ``dequantize(quantize(x))``; ``pipeline_forward`` over 4
+    stages on the card against ``forward`` within 1e-5 of max(1,
+    max|ref|); then, in bf16 with f32 masters at 1 layer, 4 straight
+    ``train_loop`` steps on the mesh against 2, a checkpoint, a restore
+    through ``reshard_leaf`` and 2 more, bit for bit."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as M
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.mesh import make_mesh as make_stage_mesh
+    from repro_torch.sharding.placement import local
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import steps as S
+    from repro_torch.training.compression import make_compressed_allreduce
+    from repro_torch.training.pipeline import pipeline_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen3-4b").replace(num_layers=layers,
+                                         dtype=torch.float32)
+    tc = TrainConfig(learning_rate=1e-4, total_steps=10, warmup_steps=2)
+    ds = SyntheticDataset(cfg, DataConfig(global_batch=batch, seq_len=seq,
+                                          seed=SEED))
+    out = {}
+    with one_rank_world(dev):
+        mesh = make_mesh(1, 1, device=dev)
+        plain = S.init_train_state(cfg, SEED, dev, tc)
+        sharded, _ = placement.place_by_specs(
+            S.init_train_state(cfg, SEED, dev, tc), mesh)
+        pstep = S.make_train_step(cfg, tc)
+        sstep = S.make_train_step(cfg, tc, num_groups=1, mesh=mesh)
+        pm = []
+        for i in range(steps):
+            plain, m = pstep(plain, ds.batch(i))
+            pm.append({k: float(v) for k, v in m.items()})
+        ops.reset_kernel_launches()
+        sm = []
+        for i in range(steps):
+            sharded, m = sstep(sharded, ds.batch(i))
+            sm.append({k: float(v) for k, v in m.items()})
+        launches = ops.kernel_launches()
+        expect = expected_train_launches(cfg, cfg.remat, steps)
+        if launches != expect:
+            raise AssertionError(f"sharded train: launches {launches}, "
+                                 f"expected {expect}")
+        metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                         for a, b in zip(sm, pm) for k in
+                         ("loss", "ce", "grad_norm", "lr"))
+        if metric_err > 1e-6:
+            raise AssertionError(f"sharded train: metrics {sm} against {pm}")
+        p_err, p_equal = 0.0, True
+        for (name, a), b in zip(sharded["model"].named_parameters(),
+                                plain["model"].parameters()):
+            a, b = local(a), b.detach()
+            rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            p_err, p_equal = max(p_err, rel), p_equal and torch.equal(a, b)
+            if rel > 1e-6:
+                raise AssertionError(f"sharded train: {name} off by {rel:.2e} "
+                                     "of its max")
+        metrics_equal = all(a[k] == b[k] for a, b in zip(sm, pm) for k in b)
+        log(f"  {steps} sharded steps on (1, 1) against make_train_step: "
+            f"metrics within {metric_err:.2e} relative (bit-equal: "
+            f"{metrics_equal}), parameters within {p_err:.2e} (bit-equal: "
+            f"{p_equal}); losses {[m['loss'] for m in sm]}; launches as "
+            "expected")
+        out.update(metric_rel_err=metric_err, metrics_bit_equal=metrics_equal,
+                   param_rel_err=p_err, params_bit_equal=p_equal,
+                   losses=[m["loss"] for m in sm], launches=launches)
+        del sharded, sstep
+        gc.collect()
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        x = torch.randn(1 << 20, generator=gen, device=dev) * 0.02
+        got = make_compressed_allreduce(mesh, "data")({"g": x})["g"]
+        if not torch.equal(got, opt.dequantize_int8(*opt.quantize_int8(x))):
+            raise AssertionError("int8 all-reduce over one rank: not "
+                                 "dequantize(quantize(x))")
+        log("  int8 all-reduce over the world of one equals "
+            "dequantize(quantize(x)) (2^20 elements)")
+
+        model = plain["model"]
+        tokens = torch.randint(0, cfg.vocab_size, (8, seq), generator=gen,
+                               device=dev)
+        stage_mesh = make_stage_mesh((4,), ("stage",), [dev] * 4)
+        ops.reset_kernel_launches()
+        got = pipeline_forward(stage_mesh, "stage", model, tokens, cfg, 4)
+        pipe = ops.kernel_launches()
+        if pipe != expected_pipeline_launches(cfg, 4):
+            raise AssertionError(f"pipeline: launches {pipe}")
+        with torch.no_grad():
+            want, _ = M.forward(model, tokens, cfg)
+        err = ((got - want).abs().max() / want.abs().max().clamp_min(1.0)
+               ).item()
+        if err > 1e-5:
+            raise AssertionError(f"pipeline: logits off by {err:.2e}")
+        log(f"  pipeline_forward over 4 stages on the card (4 microbatches "
+            f"of 2 x {seq}) within {err:.2e} of max(1, max|forward|); "
+            f"launches {pipe}")
+        out.update(pipeline_rel_err=err, pipeline_launches=pipe)
+        del plain, pstep, model, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume through reshard_leaf, bit for bit, bf16 with f32 masters
+        cfgb = cfg.replace(dtype=torch.bfloat16, num_layers=1)
+        host = make_host_mesh(dev)
+        ckpt = os.path.join(ROOT, "build", "train_dist_ckpt")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        kw = dict(global_batch=batch, seq_len=seq, log_every=0, mesh=host)
+        straight = train_loop(cfgb, tc, steps=4, **kw)
+        train_loop(cfgb, tc, steps=2, ckpt_dir=ckpt, **kw)
+        resumed = train_loop(cfgb, tc, steps=2, ckpt_dir=ckpt, resume=True,
+                             log_fn=log, **kw)
+        la = [h["loss"] for h in straight["history"]]
+        lb = [h["loss"] for h in resumed["history"]]
+        if la[2:] != lb:
+            raise AssertionError(f"sharded resume: losses {la} against {lb}")
+        sa, sb = straight["state"], resumed["state"]
+        for (name, a), b in zip(sa["model"].named_parameters(),
+                                sb["model"].parameters()):
+            if not torch.equal(local(a), local(b)):
+                raise AssertionError(f"sharded resume: {name} differs")
+        for part in ("master", "mu", "nu"):
+            for name, t in sa["opt"][part].items():
+                if not torch.equal(local(t), local(sb["opt"][part][name])):
+                    raise AssertionError(f"sharded resume: {part} {name}")
+        log(f"  sharded resume: 4 straight steps equal 2 + checkpoint + "
+            f"restore + reshard_leaf + 2, bit for bit (losses {la})")
+        out["resume_losses"] = la
+        shutil.rmtree(ckpt, ignore_errors=True)
+        del straight, resumed, sa, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    DETAILS["train_dist_identity"] = out
+    return out
+
+
+def train_sharded_phase(dev, steps: int = 6, batch: int = 2,
+                        seq: int = 1024) -> dict:
+    """Phase 15: the sharded trainer at qwen3-4b's full config (bf16
+    weights, f32 masters, remat, AdamW, cosine) through
+    ``launch.train.train_loop(mesh=make_host_mesh())`` on a world of one
+    NCCL rank: ``steps`` steps of ``batch`` x ``seq`` tokens, finite
+    losses within 1e-3 relative of phase 13's, launches as
+    ``expected_train_launches``, peak memory within phase 13's plus 2 GB;
+    step wall ms, tokens/s, one profiled step's device-busy ms and idle
+    share, the device ms of gathering every parameter once and of reducing
+    every gradient once, peak memory.  Then ``pipeline_forward`` of the 36
+    layers in bf16 over 4 stages on the card, 4 microbatches of ``batch`` x
+    ``seq``, against one ``forward`` of all of them: ms of each, the
+    largest logit difference against max(1, max|ref|) and the argmax
+    agreement (tolerances: PERF.md); whether each microbatch's logits are
+    bit-equal to a ``forward`` of its rows alone is logged.  Returns the
+    launches of both paths."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as M
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.mesh import make_mesh as make_stage_mesh
+    from repro_torch.training import steps as S
+    from repro_torch.training.pipeline import pipeline_forward
+
+    gc.collect()
+    torch.cuda.synchronize(dev)           # the context, when run first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config("qwen3-4b")
+    tc = TrainConfig(total_steps=steps, warmup_steps=1)
+    base = DETAILS.get("train")           # phase 13, when it ran
+    stats = {}
+    with one_rank_world(dev):
+        mesh = make_host_mesh(dev)
+        ops.reset_kernel_launches()
+        res = train_loop(cfg, tc, global_batch=batch, seq_len=seq,
+                         steps=steps, log_every=1, mesh=mesh,
+                         log_fn=lambda m: log("  " + m))
+        launches = ops.kernel_launches()
+        expect = expected_train_launches(cfg, cfg.remat, steps)
+        if launches != expect:
+            raise AssertionError(f"sharded train: launches {launches}, "
+                                 f"expected {expect}")
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"sharded train: losses {losses}")
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        if base is not None:
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(losses, base["losses"]))
+            if rel > 1e-3:
+                raise AssertionError(f"sharded train: losses {losses} "
+                                     f"against phase 13's {base['losses']}")
+            stats.update(loss_rel_to_phase13=rel,
+                         losses_equal_phase13=losses == base["losses"])
+            if peak > base["peak_mem_gb"] + 2.0:
+                raise AssertionError(f"sharded train: peak {peak:.1f} GB "
+                                     f"against phase 13's "
+                                     f"{base['peak_mem_gb']:.1f}")
+        walls = sorted(h["ms"] for h in hist[1:])
+        step_ms = walls[len(walls) // 2]
+        state = res["state"]
+        fn = S.make_train_step(cfg, tc, num_groups=1, mesh=mesh)
+        bt = SyntheticDataset(cfg, DataConfig(global_batch=batch, seq_len=seq,
+                                              seed=tc.seed)).batch(steps)
+        prof = profile_call("sharded train step", lambda: fn(state, bt))
+        prof["host"] = host_ops("sharded train step", lambda: fn(state, bt))
+        params = dict(state["model"].named_parameters())
+        shards = {n: placement.local(p) for n, p in params.items()}
+        pls = {n: p.placements for n, p in params.items()}
+        def gather_all():                  # one leaf held at a time
+            for n in shards:
+                placement.gather_full(shards[n], mesh, pls[n])
+
+        grads = {n: torch.full_like(t, 1e-3) for n, t in shards.items()}
+
+        def reduce_all():
+            for n in grads:
+                placement.to_placement(grads[n], mesh, pls[n])
+
+        prof_gather = profile_call("gather every parameter once", gather_all)
+        prof_gather["host"] = host_ops("gather every parameter once",
+                                       gather_all)
+        prof_reduce = profile_call("reduce every gradient once", reduce_all)
+        del grads, res, state, fn, params, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats.update(layers=cfg.num_layers, batch=batch, seq=seq, losses=losses,
+                 step_ms=[h["ms"] for h in hist], step_ms_median=step_ms,
+                 tokens_per_s=batch * seq / (step_ms / 1e3),
+                 peak_mem_gb=peak, profile=prof, launches=launches,
+                 gather_all_params=prof_gather,
+                 reduce_all_grads=prof_reduce)
+    log(f"  {cfg.num_layers} layers, {batch} x {seq} tokens a step on a "
+        f"(1, 1) mesh: step {step_ms:.1f} ms (median after the first), "
+        f"{stats['tokens_per_s']:.0f} tokens/s; profiled step wall "
+        f"{prof['wall_ms']:.1f} ms, busy {prof['device_ms']:.1f} ms, idle "
+        f"{100 * prof['idle_share']:.1f}%"
+        + (f" (phase 13: {base['step_ms_median']:.1f} ms, busy "
+           f"{base['profile']['device_ms']:.1f}, idle "
+           f"{100 * base['profile']['idle_share']:.1f}%, peak "
+           f"{base['peak_mem_gb']:.1f} GB; losses within "
+           f"{stats['loss_rel_to_phase13']:.2e}, equal: "
+           f"{stats['losses_equal_phase13']})" if base else "")
+        + f"; every parameter gathered once {prof_gather['device_ms']:.2f} "
+        f"ms, every gradient reduced once {prof_reduce['device_ms']:.2f} ms "
+        f"of device time; peak {peak:.1f} GB")
+
+    # GPipe: 4 stages on the card against one forward of the whole batch
+    model = M.init_model(cfg, SEED, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    micro = 4
+    tokens = torch.randint(0, cfg.vocab_size, (micro * batch, seq),
+                           generator=gen, device=dev)
+    stage_mesh = make_stage_mesh((4,), ("stage",), [dev] * 4)
+    ops.reset_kernel_launches()
+    got = pipeline_forward(stage_mesh, "stage", model, tokens, cfg, micro)
+    pipe = ops.kernel_launches()
+    if pipe != expected_pipeline_launches(cfg, micro):
+        raise AssertionError(f"pipeline: launches {pipe}")
+
+    def forward(t):
+        with torch.no_grad():
+            return M.forward(model, t, cfg)[0]
+
+    max_diff, ref_max, agree, bit_equal = 0.0, 0.0, 0, True
+    want = forward(tokens)
+    for i in range(micro):
+        rows = slice(i * batch, (i + 1) * batch)
+        a, b = got[rows].float(), want[rows].float()
+        max_diff = max(max_diff, (a - b).abs().max().item())
+        ref_max = max(ref_max, b.abs().max().item())
+        agree += (a.argmax(-1) == b.argmax(-1)).sum().item()
+        bit_equal = bit_equal and torch.equal(got[rows],
+                                              forward(tokens[rows]))
+        del a, b
+    del want, got
+    agree /= micro * batch * seq
+    rel = max_diff / max(1.0, ref_max)
+    limit = PIPE_BF16_SPACINGS * bf16_spacing(ref_max)
+    if not bit_equal or max_diff > limit:
+        raise AssertionError(
+            f"pipeline bf16: each microbatch bit-equal to a forward of its "
+            f"rows: {bit_equal}; whole batch off by {max_diff:.4f} (limit "
+            f"{limit:.4f}, {PIPE_BF16_SPACINGS} bf16 spacings of max|ref| "
+            f"{ref_max:.2f}), argmax agreement {agree:.4f}")
+    pipe_ms = host_ms(lambda: pipeline_forward(stage_mesh, "stage", model,
+                                               tokens, cfg, micro), iters=5)
+    fwd_ms = host_ms(lambda: forward(tokens), iters=5)
+    log(f"  pipeline_forward of {cfg.num_layers} layers over 4 stages on the "
+        f"card, {micro} microbatches of {batch} x {seq}: {pipe_ms:.1f} ms "
+        f"against one forward of {micro * batch} x {seq} {fwd_ms:.1f} ms; "
+        f"each microbatch bit-equal to a forward of its own rows (the "
+        f"head's GEMM over {batch * seq} rows, not {micro * batch * seq}): "
+        f"{bit_equal}; largest logit difference against the whole batch "
+        f"{max_diff:.4f} (limit {limit:.4f}) = {rel:.3e} of max(1, max|ref| "
+        f"{ref_max:.2f}), argmax agreement {agree:.4%}; launches {pipe}")
+    stats.update(pipeline_ms=pipe_ms, forward_ms=fwd_ms,
+                 pipeline_bit_equal_per_microbatch=bit_equal,
+                 pipeline_max_logit_diff=max_diff, pipeline_rel_err=rel,
+                 pipeline_max_logit_diff_limit=limit,
+                 pipeline_argmax_agree=agree, pipeline_launches=pipe)
+    DETAILS["train_sharded"] = stats
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_sharded": launches, "pipeline": pipe}
+
+
+# bf16 GPipe: each microbatch must equal a forward of its own rows bit for
+# bit.  Against one forward of the whole batch the GEMMs see 8192 rows
+# instead of 2048 and may take other cuBLAS kernels, whose rounding
+# differs: the logits may differ by this many bf16 spacings of max|ref|
+# (the card read 0 and 100% argmax agreement in every run so far)
+PIPE_BF16_SPACINGS = 4
+
+
+def bf16_spacing(x: float) -> float:
+    """The spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
 # ---------------------------------------------------------------- phase 4
 # ------------------------------------------------ the serving mesh (PR 22)
 # The one-card mesh: four sequence shards on cuda:0, so the partials and
@@ -3693,6 +4105,7 @@ def mesh_serve_phase(dev) -> dict:
 
 def _kernel_class(name: str) -> str:
     for key, cls in (("flash_bwd_", "flash_attention_bwd"),
+                     ("ncclDevKernel", "nccl"), ("ncclKernel", "nccl"),
                      ("norm_bwd_kernel", "rmsnorm_bwd"),
                      ("dscale_kernel", "rmsnorm_bwd"),
                      ("paged_decode_tc_kernel", "paged_decode_attention"),
@@ -3749,6 +4162,30 @@ def profile_call(what: str, fn) -> dict:
     return dict(wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
                 device_events=len(evs), device_ms_by_class=by_class,
                 top_kernels_ms=top)
+
+
+def host_ops(what: str, fn, top: int = 10) -> dict:
+    """Host time of one profiled call of ``fn`` by operator (self CPU ms
+    and calls, the ``top`` first), with the CUDA runtime's allocation and
+    synchronisation calls among them; logged as ``what``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    runtime = [r for r in rows if r[0].startswith("cuda") and any(
+        w in r[0] for w in ("Malloc", "Free", "Synchronize"))]
+    total = sum(r[1] for r in rows)
+    log(f"  {what}: host {total:.1f} ms of self CPU time; top "
+        + ", ".join(f"{k[:40]} {ms:.1f} ({n})" for k, ms, n in rows[:top])
+        + "; runtime " + (", ".join(f"{k} {ms:.1f} ({n})"
+                                    for k, ms, n in runtime) or "none"))
+    return dict(host_ms=total, top=rows[:top], runtime=runtime)
 
 
 def step_profile(rep, cfg, dev, at: int = 1024, chunks: bool = True):
@@ -4481,8 +4918,10 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="build, run only these phases (comma-separated: "
                          "2t, 2c, 3i, 13 of the training slice; 2m, 3m, 14 "
-                         "of the serving mesh) and stop, with no summary: a "
-                         "quick check of a change, not the smoke test")
+                         "of the serving mesh; 3p, 15 of the distributed "
+                         "trainer, 15 held against 13 when 13 runs first) "
+                         "and stop, with no summary: a quick check of a "
+                         "change, not the smoke test")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4515,6 +4954,7 @@ def main(argv=None) -> int:
     if args.only:
         only = {"2t": check_backward, "2c": time_backward,
                 "3i": train_identity, "13": train_phase,
+                "3p": train_dist_identity, "15": train_sharded_phase,
                 "2m": check_mesh_kernels, "3m": mesh_identity,
                 "14": mesh_serve_phase}
         for key in args.only.split(","):
@@ -4583,6 +5023,11 @@ def main(argv=None) -> int:
           "layers, f32, TF32 off; 1 x 4 mesh on one card): ring, then paged "
           "with the prefix cache, against the unsharded replica and the CPU")
     mesh_paged = mesh_identity(dev)
+    phase("phase 3p: identity of the distributed trainer (qwen3-4b width, 4 "
+          "layers, f32, TF32 off; a world of one NCCL rank): sharded steps "
+          "against make_train_step, int8 all-reduce, GPipe over 4 stages, "
+          "resume through reshard_leaf")
+    train_dist_identity(dev)
 
     phase("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
     launches = {"ring": serve_phase(dev)}
@@ -4631,6 +5076,11 @@ def main(argv=None) -> int:
           "capacity 8192, prompts to 6000 tokens")
     launches["mesh"] = mesh_serve_phase(dev)
     launches["mesh_paged"] = mesh_paged
+    phase("phase 15: the sharded trainer, qwen3-4b full config (bf16, f32 "
+          "masters, remat, AdamW, cosine; 6 steps of 2 x 1024 tokens) on a "
+          "(1, 1) mesh of one NCCL rank; GPipe of the 36 layers over 4 "
+          "stages")
+    launches.update(train_sharded_phase(dev))
 
     phase("all phases passed")
     DETAILS["phase_s"] = phase_s

@@ -2,7 +2,8 @@
 ``repro.common.config``).
 
 A single ``ModelConfig`` describes every architecture family;
-``TrainConfig`` holds the optimizer, schedule and step settings.  Fields,
+``ShapeConfig`` (and ``SHAPES``) an input-shape cell, ``ParallelConfig`` a
+mesh's layout, ``TrainConfig`` the optimizer, schedule and step settings.  Fields,
 properties and the per-layer pattern helpers are those of the JAX package;
 only the dtypes differ: ``torch.bfloat16``/``torch.float32`` stand where the
 reference pins ``jnp`` dtypes.
@@ -169,6 +170,44 @@ class ModelConfig:
         """Analytic parameter count (embedding included once if tied)."""
         from repro_torch.models import model as _m
         return _m.count_params(self)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                 # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh/parallelism layout knobs."""
+
+    dp: int = 1                   # data-parallel ways ("data" axis)
+    tp: int = 1                   # tensor-parallel ways ("model" axis)
+    pods: int = 1                 # "pod" axis (multi-pod data parallelism)
+    fsdp_params: bool = True      # shard non-TP param axes over data(+pod)
+    seq_shard_cache: bool = True  # shard KV cache on sequence when batch < dp
+    expert_parallel: bool = True  # shard experts over the model axis
+    remat_policy: str = "block"   # none|block|full
+
+    @property
+    def data_ways(self) -> int:
+        return self.dp * self.pods
 
 
 @dataclass(frozen=True)

@@ -1,2 +1,3 @@
 """Failure detection and fault injection for the serving fleet (copies of
-``repro.ft.monitor`` and ``repro.ft.faults``)."""
+``repro.ft.monitor`` and ``repro.ft.faults``), and elastic rescale of a
+training run (``elastic.py``)."""

@@ -1,1 +1,1 @@
-"""Command-line entry points."""
+"""Command-line entry points, the production meshes and the multi-host launch."""

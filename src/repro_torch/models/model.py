@@ -134,6 +134,17 @@ def count_params(cfg: ModelConfig) -> int:
     return sum(p.numel() for p in Model(cfg, "meta").parameters())
 
 
+def count_active_params(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: only top-k experts count)."""
+    total = count_params(cfg)
+    if not cfg.num_experts:
+        return total
+    expert_p = 3 * cfg.d_model * cfg.d_ff          # gate/up/down per expert
+    n_moe_layers = sum(1 for k in cfg.layer_kinds() if k in (ATTN, CROSS))
+    inactive = n_moe_layers * (cfg.num_experts - cfg.num_experts_per_tok) * expert_p
+    return total - inactive
+
+
 # --------------------------------------------------------------------- forward
 def _embed(params: Model, tokens, cfg: ModelConfig):
     if tokens.dim() == 2:
@@ -169,15 +180,17 @@ def _rope_memo(cfg: ModelConfig, positions) -> dict:
 
 
 def forward(params: Model, tokens, cfg: ModelConfig, *, enc=None,
-            num_groups: int = 1, training: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            num_groups: int = 1, training: bool = False,
+            apply=blk.apply_block) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int (or (B, S, d_model) embeddings).  ``enc`` (B, T,
     d_model): the encoder states a cross-attention layer attends over.
     ``num_groups``: the MoE FFN's capacity groups.  With ``training`` and
     ``cfg.remat`` every layer is checkpointed (its activations recomputed
     in the backward), as the reference checkpoints each period; the final
-    norm and the head stay outside.  Returns (logits (B, S, V), aux loss
-    scalar)."""
+    norm and the head stay outside.  ``apply`` runs one layer
+    (``apply_block``'s signature; the sharded trainer's gathers its
+    parameters first, ``sharding.placement``).  Returns (logits (B, S, V),
+    aux loss scalar)."""
     _need_enc(cfg, enc)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -188,10 +201,9 @@ def forward(params: Model, tokens, cfg: ModelConfig, *, enc=None,
                   num_groups=num_groups)
         args = (layer, x, cfg, layer.kind, layer.attn_kind)
         if training and cfg.remat:
-            x, a = checkpoint(blk.apply_block, *args, use_reentrant=False,
-                              **kw)
+            x, a = checkpoint(apply, *args, use_reentrant=False, **kw)
         else:
-            x, a = blk.apply_block(*args, **kw)
+            x, a = apply(*args, **kw)
         aux = aux + a
     return _logits(params, x, cfg), aux
 

@@ -60,17 +60,19 @@ def clip_by_global_norm(grads: Tensors, max_norm: float
 
 @torch.no_grad()
 def adamw_update(grads: Tensors, opt_state: dict, params: Tensors, lr,
-                 tc: TrainConfig, clip: Optional[float] = None
+                 tc: TrainConfig, clip: Optional[float] = None,
+                 norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Tensors, dict, Optional[torch.Tensor]]:
     """One AdamW step, in place (module docstring).  ``grads`` is emptied
     as it goes: each gradient is dropped once applied.  With ``clip`` set
-    the global norm is taken first and every gradient is scaled by
+    the global norm is taken first (``norm`` when given: a sharded state's,
+    over every rank's shards) and every gradient is scaled by
     ``min(1, clip / norm)`` as it is cast (``clip_by_global_norm``, one
     tensor at a time).  Returns (params, opt_state, the global norm, None
     without ``clip``)."""
-    norm = scale = None
+    scale = None
     if clip is not None:
-        norm = tree_global_norm(grads)
+        norm = tree_global_norm(grads) if norm is None else norm
         scale = _clip_scale(norm, clip)
     step = opt_state["step"] + 1
     opt_state["step"] = step
@@ -119,9 +121,10 @@ def ef_init(params: Tensors) -> Tensors:
     return tree_zeros_like(params, torch.float32)
 
 
-def quantize_int8(x: torch.Tensor):
-    """Per-tensor symmetric int8 quantization.  Returns (q, scale)."""
-    amax = x.abs().max()
+def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
+    """Per-tensor symmetric int8 quantization.  Returns (q, scale).
+    ``amax``: the largest |x| when ``x`` is a shard of the tensor."""
+    amax = x.abs().max() if amax is None else amax
     scale = torch.clamp_min(amax, 1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -131,14 +134,16 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def compress_grads_ef(grads: Tensors, ef_state: Tensors
+def compress_grads_ef(grads: Tensors, ef_state: Tensors, amax_fn=None
                       ) -> Tuple[Tensors, Tensors]:
     """g' = Q(g + e); e_new = (g + e) - g'.  Returns (decompressed, ef_new),
-    one leaf at a time."""
+    one leaf at a time.  ``amax_fn(t)``: the largest |.| of the whole leaf
+    whose shard is ``t`` (a sharded state's; by default ``t``'s own)."""
     deq, ef = {}, {}
     for name, g in grads.items():
         t = g.to(torch.float32) + ef_state[name]
-        d = dequantize_int8(*quantize_int8(t))
+        d = dequantize_int8(*quantize_int8(
+            t, None if amax_fn is None else amax_fn(t)))
         deq[name] = d
         ef[name] = g.to(torch.float32) + ef_state[name] - d
     return deq, ef

@@ -245,7 +245,18 @@ success):
    microbatch's logits bit-equal to a forward of its own rows, and the
    largest logit difference against the whole batch within
    ``PIPE_BF16_SPACINGS`` bf16 spacings of max|ref| (argmax agreement
-   recorded).
+   recorded);
+16. the multi-pod dry run (``launch.dryrun``) under this machine's torch:
+   ``run_cell`` of qwen3-4b ``train_4k`` and ``decode_32k`` on the 16x16
+   fake world (256 ranks, fake tensors) and a ``long_500k`` SKIP, each
+   record printed; then the dry cell of qwen3-4b at full config, 2 x 1024
+   tokens on a fake world of one rank, against one sharded step of the
+   same on a world of one NCCL rank (``make_host_mesh``), both counted by
+   ``dryrun.Trace``: collective bytes equal by kind, the dry argument
+   bytes equal to the real local state and batch; the dry peak printed
+   beside ``torch.cuda.max_memory_allocated`` with their ratio (the card's
+   kernels do not hold what the plain route does), not held; its seconds,
+   within 60.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary (the six
 forward kernels and the two backward ones), the card line, and ``{"ok":
@@ -255,7 +266,8 @@ report) to PATH as JSON.  ``--only 2t,2c,3i,13`` builds and runs only
 those phases of the training slice, then stops without a summary: a quick
 check of a change on the card, not the smoke test (``--only 2t,2c,13``
 for work on the backward kernels, ``--only 2m,3m,14`` for the serving
-mesh, ``--only 3p,13,15`` for the distributed trainer).  The summary's decode rows count the partials launches of a mesh
+mesh, ``--only 3p,13,15`` for the distributed trainer, ``--only 16`` for
+the dry run).  The summary's decode rows count the partials launches of a mesh
 path with the kernel's (the same kernel, unmerged) and list them, the
 combine's and the sharded call's times under ``mesh``.
 """
@@ -4910,6 +4922,105 @@ def chaos_phase(dev):
     return launches_sum
 
 
+# ------------------------------------------------------------- the dry run
+DRYRUN_BUDGET_S = 60.0
+
+
+def dryrun_phase(dev, batch: int = 2, seq: int = 1024) -> dict:
+    """Phase 16: ``launch.dryrun`` on this machine's torch, then the dry
+    run held against a real sharded step on the card (module docstring).
+    Returns the records and the comparison; raises if a cell is not as
+    the reference has it, if the counts disagree or if the phase takes
+    longer than ``DRYRUN_BUDGET_S``."""
+    import gc
+    import torch
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.common.tree import tree_paths
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import placement
+    from repro_torch.training import steps as S
+
+    t0 = time.perf_counter()
+    records = {}
+    for shape_name, status in (("train_4k", "OK"), ("decode_32k", "OK"),
+                               ("long_500k", "SKIP")):
+        rec = dryrun.run_cell("qwen3-4b", shape_name, False, save=False)
+        log(f"  {json.dumps(rec)}")
+        if rec["status"] != status:
+            raise AssertionError(f"dry run qwen3-4b {shape_name}: "
+                                 f"{rec['status']}, not {status}: "
+                                 f"{rec.get('traceback', rec)}")
+        records[shape_name] = rec
+
+    cfg = get_config("qwen3-4b")
+    shape = ShapeConfig("phase16", "train", seq, batch)
+    with dryrun.fake_world(1):
+        dry = dryrun.trace_cell(cfg, shape, make_host_mesh("cpu"))
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    data = {}
+    for k, t in dryrun.input_specs(cfg, shape).items():
+        if t.dtype == torch.int32:
+            data[k] = torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                                    device=dev, dtype=torch.int32)
+        else:
+            data[k] = torch.ones(t.shape, dtype=t.dtype, device=dev)
+    tc = TrainConfig(total_steps=1000)
+    with one_rank_world(dev):
+        mesh = make_host_mesh(dev)
+        state, _ = placement.place_by_specs(
+            S.init_train_state(cfg, SEED, dev, tc), mesh)
+        held = sum(placement.local(t).nbytes for _, t in
+                   tree_paths(placement.state_tree(state)))
+        held += sum(t.nbytes for t in data.values())   # one rank: every row
+        fn = S.make_train_step(cfg, tc, num_groups=1, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with dryrun.Trace() as tr:
+            _, metrics = fn(state, data)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        loss = float(metrics["loss"])
+        real = dryrun.collective_bytes(tr.calls)
+        del state, fn, metrics, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    cmp = {"batch": batch, "seq": seq, "dry": dry,
+           "real_collective_bytes": real, "real_argument_bytes": held,
+           "real_peak_bytes": peak, "real_loss": loss,
+           "peak_ratio_dry_over_real": dry["memory"]["peak_bytes"] / peak,
+           "seconds": seconds}
+    log(f"  dry vs real, qwen3-4b {batch} x {seq} on (1, 1): collective "
+        f"bytes dry {json.dumps(dry['collective_bytes'])} real "
+        f"{json.dumps(real)}; argument bytes dry "
+        f"{dry['memory']['argument_bytes']} real {held}; peak bytes dry "
+        f"{dry['memory']['peak_bytes']} (plain route) real {peak} "
+        f"(max_memory_allocated), ratio "
+        f"{cmp['peak_ratio_dry_over_real']:.3f}; real loss {loss:.4f}; "
+        f"phase {seconds:.1f} s")
+    DETAILS["dryrun"] = {"records": records, "dry_vs_real": cmp}
+    if dry["collective_bytes"] != real:
+        raise AssertionError(f"dry run: collective bytes "
+                             f"{dry['collective_bytes']} against a real "
+                             f"step's {real}")
+    if dry["memory"]["argument_bytes"] != held:
+        raise AssertionError(f"dry run: argument bytes "
+                             f"{dry['memory']['argument_bytes']} against the "
+                             f"real state and batch's {held}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"dry run: the real step's loss {loss}")
+    if seconds > DRYRUN_BUDGET_S:
+        raise AssertionError(f"phase 16 took {seconds:.1f} s, over "
+                             f"{DRYRUN_BUDGET_S:.0f}")
+    return cmp
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4919,7 +5030,8 @@ def main(argv=None) -> int:
                     help="build, run only these phases (comma-separated: "
                          "2t, 2c, 3i, 13 of the training slice; 2m, 3m, 14 "
                          "of the serving mesh; 3p, 15 of the distributed "
-                         "trainer, 15 held against 13 when 13 runs first) "
+                         "trainer, 15 held against 13 when 13 runs first; "
+                         "16, the dry run) "
                          "and stop, with no summary: a quick check of a "
                          "change, not the smoke test")
     args = ap.parse_args(argv)
@@ -4956,7 +5068,7 @@ def main(argv=None) -> int:
                 "3i": train_identity, "13": train_phase,
                 "3p": train_dist_identity, "15": train_sharded_phase,
                 "2m": check_mesh_kernels, "3m": mesh_identity,
-                "14": mesh_serve_phase}
+                "14": mesh_serve_phase, "16": dryrun_phase}
         for key in args.only.split(","):
             phase(f"phase {key} (--only)")
             only[key](dev)
@@ -5081,6 +5193,10 @@ def main(argv=None) -> int:
           "(1, 1) mesh of one NCCL rank; GPipe of the 36 layers over 4 "
           "stages")
     launches.update(train_sharded_phase(dev))
+    phase("phase 16: the multi-pod dry run (qwen3-4b train_4k and "
+          "decode_32k on a fake 16x16 world, long_500k skipped), held "
+          "against a real sharded step on a world of one NCCL rank")
+    dryrun_phase(dev)
 
     phase("all phases passed")
     DETAILS["phase_s"] = phase_s

@@ -34,7 +34,9 @@ first, and they return the ``Sharded`` tensors, updated in place.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -95,18 +97,17 @@ class Sharded:
                              f" do not split over {n_seq} sequence shards")
         chunk = t.shape[axis] // n_seq
         block = t.shape[0] // len(devices) if lane_split else t.shape[0]
-        parts = []
-        for g, row in enumerate(devices):
+
+        def piece(g, r, dev):
             src = t[g * block:(g + 1) * block] if lane_split else t
-            grp = []
-            for r, dev in enumerate(row):
-                p = src.narrow(axis, r * chunk, chunk)
-                if scratch:     # a pos row of -1 (K/V zeros) no table reads
-                    p = torch.cat([p, torch.full_like(p[:1], -1 if
-                                   p.dtype == torch.int32 else 0)])
-                grp.append(p.to(dev).contiguous())
-            parts.append(grp)
-        return cls(parts, devices, axis, lane_split, scratch, t.shape)
+            p = src.narrow(axis, r * chunk, chunk)
+            if scratch:     # a pos row of -1 (K/V zeros) no table reads
+                p = torch.cat([p, torch.full_like(p[:1], -1 if
+                               p.dtype == torch.int32 else 0)])
+            return p.to(dev).contiguous()
+
+        return cls(_per_shard(devices, piece), devices, axis, lane_split,
+                   scratch, t.shape)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -208,9 +209,45 @@ def gather_cache(cache: Sequence[dict], device=None) -> List[dict]:
              for name, t in layer.items()} for layer in cache]
 
 
+# ---------------------------------------------------------------- tracing
+# A tracer of one card's share (``launch.dryrun``) counts the lead card's:
+# shard (0, 0), which holds lane block 0's first slots, beside the query,
+# and the rest of the step.  The other shards' work is not its to count,
+# and their partial states have the lead's shapes.
+_trace = threading.local()
+
+
+@contextlib.contextmanager
+def lead_shard_only(observe=None):
+    """In the ``with`` body, lay out and issue only shard (0, 0): a cache
+    laid out here holds the lead's part in every shard's place, the
+    decode steps write and attend on the lead's part alone and stand its
+    partial states in for every other shard's; ``observe(states)``, when
+    given, is called before each combine with the per-shard (ml, part)
+    states it joins (a list a lane block of a list a sequence shard)."""
+    _trace.lead, _trace.observe = True, observe
+    try:
+        yield
+    finally:
+        _trace.lead, _trace.observe = False, None
+
+
+def _per_shard(devices, issue):
+    """``issue(g, r, dev)`` of every shard, a list a lane block of a list a
+    sequence shard.  Under ``lead_shard_only`` only shard (0, 0) is issued
+    and its result stands in for every other's."""
+    if getattr(_trace, "lead", False):
+        lead = issue(0, 0, devices[0][0])
+        return [[lead] * len(row) for row in devices]
+    return [[issue(g, r, dev) for r, dev in enumerate(row)]
+            for g, row in enumerate(devices)]
+
+
 def _combine(states, q):
     """One combine launch over every shard's partial states (a list per
     lane block of per-shard (ml, part)), on q's device: (B, 1, Hq, D)."""
+    if getattr(_trace, "observe", None) is not None:
+        _trace.observe(states)
     ml = torch.cat([torch.cat([m.to(q.device) for m, _ in grp], dim=1)
                     for grp in states])
     part = torch.cat([torch.cat([p.to(q.device) for _, p in grp], dim=1)
@@ -273,34 +310,32 @@ def spmd_decode_attention(mesh, q, k_cache, v_cache, new_k, new_v, pos,
         return (torch.arange(block, device=dev), off.clamp(0, s_loc - 1).long(),
                 inr, li, li + 1)
 
-    states = []
-    for g, row in enumerate(devices):
+    def partials(g, r, dev):
         lanes = slice(g * block, (g + 1) * block)
-        grp = []
-        for r, dev in enumerate(row):
-            ar, off, inr, li, cl = shared(memo, ("spmd_ring", s, g, r),
-                                          lambda: offsets(g, r, dev))
-            kl, vl = k_cache.parts[g][r], v_cache.parts[g][r]
-            pl = pos.parts[g if pos.lane_split else 0][r]
-            keep = inr[:, None, None]
-            kl[ar, off] = torch.where(keep, new_k[lanes, 0].to(dev, kl.dtype),
-                                      kl[ar, off])
-            vl[ar, off] = torch.where(keep, new_v[lanes, 0].to(dev, vl.dtype),
-                                      vl[ar, off])
-            if pos_batched:
-                pl[ar, off] = torch.where(inr, li, pl[ar, off])
-                pl2 = pl
-            else:
-                # one shared (S,) plane, held by the first group: every
-                # lane writes the same entry
-                if g == 0:
-                    pl[off[:1]] = torch.where(inr[:1], li[:1], pl[off[:1]])
-                pl2 = pl.to(dev).expand(block, s_loc).contiguous()
-            grp.append(ops.decode_attention_partials(
-                q[lanes].to(dev), kl, vl, cache_len=cl, pos=pl2,
-                window=window, scale=scale, softcap=softcap))
-        states.append(grp)
-    return _combine(states, q), k_cache, v_cache, pos
+        ar, off, inr, li, cl = shared(memo, ("spmd_ring", s, g, r),
+                                      lambda: offsets(g, r, dev))
+        kl, vl = k_cache.parts[g][r], v_cache.parts[g][r]
+        pl = pos.parts[g if pos.lane_split else 0][r]
+        keep = inr[:, None, None]
+        kl[ar, off] = torch.where(keep, new_k[lanes, 0].to(dev, kl.dtype),
+                                  kl[ar, off])
+        vl[ar, off] = torch.where(keep, new_v[lanes, 0].to(dev, vl.dtype),
+                                  vl[ar, off])
+        if pos_batched:
+            pl[ar, off] = torch.where(inr, li, pl[ar, off])
+            pl2 = pl
+        else:
+            # one shared (S,) plane, held by the first group: every
+            # lane writes the same entry
+            if g == 0:
+                pl[off[:1]] = torch.where(inr[:1], li[:1], pl[off[:1]])
+            pl2 = pl.to(dev).expand(block, s_loc).contiguous()
+        return ops.decode_attention_partials(
+            q[lanes].to(dev), kl, vl, cache_len=cl, pos=pl2,
+            window=window, scale=scale, softcap=softcap)
+
+    return (_combine(_per_shard(devices, partials), q), k_cache, v_cache,
+            pos)
 
 
 def spmd_paged_decode_attention(mesh, q, k_pool, v_pool, pos_pool, tables,
@@ -353,15 +388,16 @@ def spmd_paged_decode_attention(mesh, q, k_pool, v_pool, pos_pool, tables,
                 torch.where(mine, e_off, -1).to(dev, torch.int32).contiguous(),
                 idx.to(dev), (idx + 1).to(dev).contiguous())
 
-    grp = []
-    for r, dev in enumerate(devices[0]):
+    def partials(_, r, dev):
         off, win, tbl, li, cl = shared(memo, ("spmd_paged", prows, r),
                                        lambda: local(r, dev))
         kl, vl, pl = (t.parts[0][r] for t in (k_pool, v_pool, pos_pool))
         kl[off, win] = new_k[:, 0].to(dev, kl.dtype)
         vl[off, win] = new_v[:, 0].to(dev, vl.dtype)
         pl[off, win] = li
-        grp.append(ops.paged_decode_attention_partials(
+        return ops.paged_decode_attention_partials(
             q.to(dev), kl, vl, pl, tbl, cache_len=cl, window=window,
-            scale=scale, softcap=softcap))
-    return _combine([grp], q), k_pool, v_pool, pos_pool
+            scale=scale, softcap=softcap)
+
+    return (_combine(_per_shard(devices[:1], partials), q), k_pool, v_pool,
+            pos_pool)

@@ -219,6 +219,58 @@ def compressed_allreduce(rank, workdir, *, x):
     _save(workdir, "compressed", out, rank)
 
 
+def dryrun_real(rank, workdir, *, out, arch, shape, kind, batch, seq):
+    """One real step of the smoke ``arch`` on ``make_mesh(*shape)``, the
+    dry run's counterpart: the train step (``kind`` "train") or the
+    prefill forward ("prefill") of ``launch.dryrun.build_cell``, from
+    seeded weights placed by the specs and a seeded batch of the dry run's
+    input shapes and dtypes, under ``dryrun.Trace``.  Rank 0 writes the
+    counted flops, collectives and peak bytes and, summed here leaf by
+    leaf, the bytes of its local shards and of its rows of the batch."""
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.common.tree import tree_paths
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, parallel_config_for
+    from repro_torch.sharding import placement
+    from repro_torch.training import steps as S
+
+    mesh = make_mesh(*shape, device="cpu")
+    pc = parallel_config_for(mesh)
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    data = {}
+    for k, t in dryrun.input_specs(cfg, ShapeConfig(out, kind, seq,
+                                                    batch)).items():
+        if t.dtype == torch.int32:
+            data[k] = torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                                    dtype=torch.int32)
+        else:
+            data[k] = torch.rand(t.shape, generator=gen).to(t.dtype)
+    tc = TrainConfig(total_steps=1000)
+    state, _ = placement.place_by_specs(S.init_train_state(cfg, 0, "cpu", tc),
+                                        mesh)
+    if kind == "train":
+        fn = S.make_train_step(cfg, tc, num_groups=pc.data_ways, mesh=mesh)
+        args = (state, data)
+        tree = placement.state_tree(state)
+    else:
+        del data["labels"], data["mask"]
+        fn = dryrun.make_prefill_step(cfg, mesh, pc.data_ways)
+        args = (state["model"], data)
+        tree = dict(state["model"].named_parameters())
+    rows = batch // pc.data_ways          # rank 0: the first rows
+    resident = [placement.local(t) for _, t in tree_paths(tree)] + \
+        [t[:rows] for t in data.values()]
+    with dryrun.Trace(resident) as tr:
+        fn(*args)
+    _save(workdir, out, {"flops": tr.flops,
+                         "collective_bytes": dryrun.collective_bytes(tr.calls),
+                         "argument_bytes": sum(t.nbytes for t in resident),
+                         "peak_bytes": tr.peak}, rank)
+
+
 TASKS = {"sharded_steps": sharded_steps, "restore_rescaled": restore_rescaled,
          "checkpoint_leaf_by_leaf": checkpoint_leaf_by_leaf,
-         "compressed_allreduce": compressed_allreduce}
+         "compressed_allreduce": compressed_allreduce,
+         "dryrun_real": dryrun_real}

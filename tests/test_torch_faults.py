@@ -429,16 +429,20 @@ def test_slow_fault_inflates_observed_step_time(model_setup, paged):
     """slow(f) is adaptation, not failure: the live step EWMA must absorb
     the inflated cadence (what shifts DDS routing away).  The port's step
     executables serve ring and paged lanes alike, so a paged decode step
-    is stretched too."""
+    is stretched too.  Both sides are the live EWMA after the same
+    request, un-slowed just before the fault and slowed after it, so a
+    load spike on the host cannot inflate one of them alone."""
     cfg, params, _, _ = model_setup
     rep = Replica("slow0", cfg, params, slots=2, capacity=64, paged=paged,
                   page_size=8)
     prof = profile_replica(rep, prompt_lens=(8,), new_tokens=4)
     rep.profile = prof
+    prompt = np.arange(2, 10, dtype=np.int32)
+    rep.generate(Request(0, prompt, 24, 1e9))
     before = prof.step_curve(1.0)
     inj = faults.FaultInjector(rep, publisher=None)
     inj.apply("slow", factor=5.0)
-    rep.generate(Request(0, np.arange(2, 10, dtype=np.int32), 24, 1e9))
+    rep.generate(Request(1, prompt, 24, 1e9))
     after = prof.step_curve(1.0)
     assert after > before * 1.5, (before, after)
     inj.stop()

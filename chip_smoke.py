@@ -61,17 +61,27 @@ success):
    the cross-attention forms at llama-3.2-vision's shapes (flash, 8 lanes of
    512 queries over 1601 keys, not causal; contiguous decode over 1601
    slots) beside their bounds and SDPA over the same keys;
-   (2t) the two backward kernels against their plain versions: flash's
+   (2t) the four backward kernels against their plain versions: flash's
    (dQ, dK, dV from the forward's log-sum-exp, which is held against the
    plain version's too) at qwen3-4b's training shape (B 2, S 1024, 32
    query heads over 8 of 128) in bf16 and f32, minicpm-2b's D 64 MHA, GQA
    ratios 1-16 at D 64/128 with a window and empty key slots, S 77 and
-   1000, and 100 queries over 333 keys not causal; the norm's (the norm,
-   the qk pair and the residual add; dx and the gains' gradients) at
-   widths 128 (the pair at 2048 x 32 and 2048 x 8 rows), 2560 and 2304 at
-   2048 rows, 999, 64, 4096 and 8192; bf16 within one bf16 spacing of the
-   f32 oracle, f32 within 2e-5; two launches of each at the training
-   shapes bit-identical; then (phase 2c) their times at qwen3-4b's
+   1000, and 100 queries over 333 keys not causal, and recurrentgemma-9b's
+   D 256, 16 over 1, window 2048 (S 1024 and 2300, GQA 4 with holes, not
+   causal); the norm's (the norm, the qk pair, the residual add and
+   Mamba2's gated norm; dx, dz and the gains' gradients) at widths 128
+   (the pair at 2048 x 32 and 2048 x 8 rows), 2560 and 2304 at 2048 rows,
+   3072 (gated), 999, 64, 4096 and 8192; ``ssd``'s (dx, d dt, d a_log, dB,
+   dC, d d_skip) at mamba2-780m's widths, chunks of 128 (B 2, S 1024), 100
+   and 2, one chunk and several; ``rglru``'s (dx, d log_a, d gate) from 1
+   to 2300 steps on both of its paths at width 4096 and 999, with log_a
+   exactly 0 at a few steps (d log_a inf or NaN where the plain version
+   has them); bf16 within one bf16 spacing of the f32 oracle, f32 within
+   2e-5 (a per-head sum over every (b, s) within 1e-5 of its terms'
+   magnitudes; d log_a plus its 1 / (1 - a^2) conditioning); two launches
+   of each at the training shapes bit-identical; then (phase 2c) their
+   times at qwen3-4b's and the recurrent stacks' (``ssd``, ``rglru``, the
+   gated norm, flash at D 256)
    training shapes beside their bounds, their plain versions and the
    autograd backward of SDPA and of ``F.rms_norm`` as yardsticks (the
    add form's is the norm's alone: no PyTorch call adds the sum's
@@ -256,10 +266,22 @@ success):
    bytes equal to the real local state and batch; the dry peak printed
    beside ``torch.cuda.max_memory_allocated`` with their ratio (the card's
    kernels do not hold what the plain route does), not held; its seconds,
-   within 60.
+   within 60;
+17. train the recurrent stacks through ``launch.train.train_loop`` (bf16
+   weights, f32 masters, remat, AdamW, cosine; 4 steps of 2 x 1024
+   tokens): mamba2-780m at its full config (48 layers) and
+   recurrentgemma-9b at 9 layers (three (rglru, rglru, attn) periods,
+   which peak at 56.8 GB), launches equal to
+   ``expected_train_launches``, finite losses; step time, tokens/s, the
+   share of 989 TFLOP/s, one profiled step's device-busy time and idle
+   share, peak memory.  Phase 3r, after 3i, holds both stacks card
+   against CPU as 3i holds qwen3-4b (f32, full width, without the
+   resume): mamba2-780m at 2 layers over 2 x 256 tokens, 3 steps;
+   recurrentgemma-9b at 3 layers, one (rglru, rglru, attn) period, over
+   1 x 136 tokens, 1 step.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary (the six
-forward kernels and the two backward ones), the card line, and ``{"ok":
+forward kernels and the four backward ones), the card line, and ``{"ok":
 true, "device": {...}}`` as the last line.  ``--details PATH`` also writes
 every measurement (step profiles, nvcc's register and shared-memory
 report) to PATH as JSON.  ``--only 2t,2c,3i,13`` builds and runs only
@@ -267,7 +289,7 @@ those phases of the training slice, then stops without a summary: a quick
 check of a change on the card, not the smoke test (``--only 2t,2c,13``
 for work on the backward kernels, ``--only 2m,3m,14`` for the serving
 mesh, ``--only 3p,13,15`` for the distributed trainer, ``--only 16`` for
-the dry run).  The summary's decode rows count the partials launches of a mesh
+the dry run, ``--only 3r,17`` for the recurrent stacks' training).  The summary's decode rows count the partials launches of a mesh
 path with the kernel's (the same kernel, unmerged) and list them, the
 combine's and the sharded call's times under ``mesh``.
 """
@@ -2660,6 +2682,22 @@ def check_norm_bwd(dev, rng, form, rows, d, dtype, krows=0) -> float:
         terms = [(f(dy) * f(x) * torch.rsqrt(f(x).square().mean(-1, True)
                                               + 1e-6)).abs().sum(0)]
         pairs = [(got[0], exp[0]), (got[1], exp[1])]
+    elif form == "gated":
+        # the f32 oracle of gated_rmsnorm_bwd_plain's arithmetic on the
+        # forward's input v = y * silu(z), rounded as the forward rounds it
+        z = rnd((rows, d))
+        got = rk.gated_rmsnorm_bwd(x, z, g0, dy)
+        sz = torch.nn.functional.silu(z)
+        v = f(x * sz)
+        dv, dsc = rk._norm_bwd_f32(v, g0, f(dy), 1e-6)
+        sig = torch.sigmoid(f(z))
+        exp = (dv * f(sz), dv * f(x) * (sig * (1.0 + f(z) * (1.0 - sig))),
+               dsc)
+        terms = [(f(dy) * v * torch.rsqrt(v.square().mean(-1, True) + 1e-6))
+                 .abs().sum(0)]
+        # (dy, dscale), then dz held as another dx
+        pairs = [(got[0], exp[0]), (got[2], exp[2]), (got[1], exp[1]),
+                 (None, None)]
     elif form == "add":
         ds = rnd((rows, d), 0.5)
         got = rk.add_rmsnorm_bwd(x, g0, ds, dy)
@@ -2679,6 +2717,8 @@ def check_norm_bwd(dev, rng, form, rows, d, dtype, krows=0) -> float:
     torch.cuda.synchronize()
     err, worst = 0.0, 0.0
     for i, (g, e) in enumerate(pairs):
+        if g is None:
+            continue
         if i % 2 == 0:                                   # dx
             if g.dtype != dtype or not torch.isfinite(g).all():
                 raise AssertionError(f"norm bwd {form} D {d}: dx {g.dtype}")
@@ -2698,15 +2738,118 @@ def check_norm_bwd(dev, rng, form, rows, d, dtype, krows=0) -> float:
     return err, worst
 
 
+def check_ssd_bwd(dev, rng, label, b, s, h, p, n, chunk, dtype) -> tuple:
+    """``ssd_bwd`` against ``ssd_bwd_plain`` (f32 on the same inputs):
+    dx, ddt, dB and dC within BWD_SPACINGS (bf16) or 2e-5 of max(1,
+    max|ref|) (f32); d a_log and d d_skip, sums over every (b, s), within
+    1e-5 of the sum of their terms' magnitudes.  Returns (max abs err,
+    worst bf16 spacings)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as sk
+    x, dt, a_log, bm, cm, d_skip = ssd_inputs(rng, b, s, h, p, n, dtype, dev)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype("float32")
+                          ).to(dev, dtype)
+    got = sk.ssd_bwd(x, dt, a_log, bm, cm, d_skip, dy, chunk=chunk)
+    f = [t.float() for t in (x, dt, bm, cm, dy)]
+    exp = sk.ssd_bwd_plain(f[0], f[1], a_log, f[2], f[3], d_skip, f[4],
+                           chunk=chunk)
+    sa, sd = sk.ssd_param_scales(x, dt, a_log, bm, cm, dy, chunk)
+    torch.cuda.synchronize()
+    err, worst = 0.0, 0.0
+    for name, g, e in zip(("dx", "ddt", "da_log", "db", "dc", "dd"), got,
+                          exp):
+        if not torch.isfinite(g).all() or g.shape != e.shape:
+            raise AssertionError(f"ssd bwd {label}: {name} {tuple(g.shape)} "
+                                 "or not finite")
+        diff = (g.float() - e).abs()
+        err = max(err, diff.max().item())
+        if name in ("da_log", "dd"):
+            bad = (diff > 1e-5 * (sa if name == "da_log" else sd)
+                   + 1e-6).any().item()
+        elif dtype == torch.float32:
+            bad = diff.max().item() > 2e-5 * max(1.0, e.abs().max().item())
+        else:
+            worst = max(worst, bwd_spacings(g, e))
+            bad = bwd_spacings(g, e) > BWD_SPACINGS
+        if bad:
+            raise AssertionError(f"ssd bwd {label} {dtype}: {name} off by "
+                                 f"{diff.max().item():.3e}")
+    return err, worst
+
+
+def rglru_bwd_diff(g, e, la) -> tuple:
+    """(|g - e| finite part, its limit's conditioning term): d log_a
+    carries 1 / (1 - a^2), so one rounding of exp(2 log_a) on either side
+    moves it by 2^-23 / (1 - a^2) of itself; inf and NaN must sit where
+    the plain version has them."""
+    import torch
+    fin = torch.isfinite(e)
+    if not torch.equal(torch.isnan(g.float()), torch.isnan(e)) or \
+            not torch.equal(g.float()[~fin & ~torch.isnan(e)],
+                            e[~fin & ~torch.isnan(e)]):
+        raise AssertionError("rglru bwd: inf or NaN where the plain "
+                             "version has none, or the other way")
+    u = 1.0 - torch.exp(2.0 * la.double())
+    cond = (e.abs() * 2.0 ** -23 / u.clamp_min(1e-30)).float()
+    diff = torch.where(fin, (g.float() - e).abs(), 0.0)
+    return diff, torch.where(fin, cond, 0.0)
+
+
+def check_rglru_bwd(dev, rng, label, b, s, d, dtype, staged=None,
+                    zeros=False) -> tuple:
+    """``rglru_bwd`` against ``rglru_bwd_plain`` (f32 on the same inputs),
+    the inputs as the Griffin block makes them (``zeros``: a few log_a
+    exactly 0, where d log_a is -inf, +inf or NaN): dx and dgate within
+    BWD_SPACINGS (bf16) or 2e-5 of max(1, max|ref|) (f32), d log_a the
+    same plus its conditioning (``rglru_bwd_diff``).  Returns (max abs
+    err, worst bf16 spacings)."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    x, la, g = rglru_inputs(rng, (b, s, d), dtype, dev)
+    if zeros:
+        la[0, 0, :3] = 0.0
+        la[-1, -1, -2:] = 0.0
+    dy = torch.from_numpy(rng.standard_normal((b, s, d)).astype("float32")
+                          ).to(dev, dtype)
+    got = rg.rglru_bwd(x, la, g, dy, staged=staged)
+    exp = rg.rglru_bwd_plain(x.float(), la.float(), g.float(), dy.float())
+    torch.cuda.synchronize()
+    err, worst = 0.0, 0.0
+    for name, gg, e in zip(("dx", "dlog_a", "dgate"), got, exp):
+        if gg.dtype != dtype or gg.shape != e.shape:
+            raise AssertionError(f"rglru bwd {label}: {name} {gg.dtype}")
+        if name == "dlog_a":
+            diff, cond = rglru_bwd_diff(gg, e, la)
+        else:
+            if not torch.isfinite(gg).all():
+                raise AssertionError(f"rglru bwd {label}: {name} not finite")
+            diff, cond = (gg.float() - e).abs(), torch.zeros_like(e)
+        err = max(err, diff.max().item())
+        ef = torch.where(torch.isfinite(e), e, 0.0)
+        if dtype == torch.float32:
+            bad = (diff > 2e-5 * max(1.0, ef.abs().max().item()) + cond
+                   ).any().item()
+        else:
+            mag = ef.abs().clamp_min(ef.abs().max().item() / 256 + 1e-30)
+            spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            sp = ((diff - cond).clamp_min(0) / spacing).max().item()
+            worst = max(worst, sp)
+            bad = sp > BWD_SPACINGS
+        if bad:
+            raise AssertionError(f"rglru bwd {label} {dtype}: {name} off by "
+                                 f"{diff.max().item():.3e}")
+    return err, worst
+
+
 def check_backward(dev) -> dict:
-    """Phase 2t: the two backward kernels against their plain versions on
+    """Phase 2t: the four backward kernels against their plain versions on
     the card.  Returns each one's max abs error."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 20)
     bf, f32 = torch.bfloat16, torch.float32
-    errs = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
-    spac = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
+    names = ("flash_attention_bwd", "rmsnorm_bwd", "ssd_bwd", "rglru_bwd")
+    errs, spac = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
     lse_worst = 0.0
     cases = [("qwen3-4b train", 2, 1024, 1024, 32, 8, 128, bf, True, 0, 0.0),
              ("qwen3-4b train", 2, 1024, 1024, 32, 8, 128, f32, True, 0, 0.0),
@@ -2722,6 +2865,18 @@ def check_backward(dev) -> dict:
             for dt in (bf, f32):
                 cases.append((f"GQA {rep} D {d} window 100", 2, 300, 300,
                               2 * rep, 2, d, dt, True, 100, 0.05))
+    # recurrentgemma-9b's local attention: D 256, 16 over 1, window 2048,
+    # at its training shape in both dtypes, the rest in bf16 (the f32 body
+    # is also held at S 77)
+    cases += [("recurrentgemma-9b train D256", 2, 1024, 1024, 16, 1, 256,
+               dt, True, 2048, 0.0) for dt in (bf, f32)]
+    cases += [("D256 S 2300 past the window", 1, 2300, 2300, 16, 1, 256, bf,
+               True, 2048, 0.0),
+              ("D256 GQA 4 window 100 holes", 2, 300, 300, 8, 2, 256, bf,
+               True, 100, 0.05),
+              ("D256 S 77", 2, 77, 77, 4, 1, 256, f32, True, 0, 0.0),
+              ("D256 not causal, 100 over 333 keys", 1, 100, 333, 4, 1, 256,
+               bf, False, 0, 0.1)]
     for label, b, s, t, hq, hkv, d, dt, causal, window, holes in cases:
         e, sp, le = check_flash_bwd(dev, rng, label, b, s, t, hq, hkv, d, dt,
                                     causal, window, holes)
@@ -2733,17 +2888,45 @@ def check_backward(dev) -> dict:
                   ("add", 2048, 2304, 0), ("norm", 300, 999, 0),
                   ("add", 300, 999, 0), ("pair", 300, 999, 77),
                   ("pair", 40, 64, 12), ("norm", 64, 8192, 0),
-                  ("add", 7, 4096, 0)]
+                  ("add", 7, 4096, 0), ("gated", 2048, 3072, 0),
+                  ("gated", 300, 999, 0), ("gated", 3, 64, 0)]
     for form, rows, d, krows in norm_cases:
         for dt in (bf, f32):
             e, sp = check_norm_bwd(dev, rng, form, rows, d, dt, krows)
             errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], e)
             spac["rmsnorm_bwd"] = max(spac["rmsnorm_bwd"], sp)
+    # mamba2-780m's widths (48 heads of 64, state 128): its training
+    # prompt, chunks of 100 and the narrow chunks of 2, one chunk and
+    # several
+    ssd_cases = [(2, 1024, 128), (1, 100, 100), (1, 300, 100), (1, 2, 2),
+                 (1, 130, 2)]
+    for b, s, chunk in ssd_cases:
+        for dt in (bf, f32):
+            e, sp = check_ssd_bwd(dev, rng, f"B {b} S {s} chunk {chunk}", b, s,
+                                  48, 64, 128, chunk, dt)
+            errs["ssd_bwd"] = max(errs["ssd_bwd"], e)
+            spac["ssd_bwd"] = max(spac["ssd_bwd"], sp)
+    # recurrentgemma-9b's width 4096 and an odd one, 1 to 2300 steps, both
+    # of plan's paths (staged forced on short ones too)
+    rg_cases = [(2, 1024, 4096, None, True), (1, 1, 4096, None, False),
+                (2, 33, 4096, None, False), (1, 128, 4096, None, False),
+                (1, 33, 4096, True, False), (1, 2300, 4096, None, False),
+                (8, 300, 999, None, True), (1, 5, 999, True, False)]
+    for b, s, d, staged, zeros in rg_cases:
+        for dt in (bf, f32):
+            e, sp = check_rglru_bwd(dev, rng, f"B {b} S {s} D {d}", b, s, d,
+                                    dt, staged, zeros)
+            errs["rglru_bwd"] = max(errs["rglru_bwd"], e)
+            spac["rglru_bwd"] = max(spac["rglru_bwd"], sp)
     log(f"  flash bwd: {len(cases)} cases, max abs err "
         f"{errs['flash_attention_bwd']:.3e}, bf16 {spac['flash_attention_bwd']:.3f} "
         f"spacings (limit {BWD_SPACINGS}), lse {lse_worst:.2e}; norm bwd: "
         f"{2 * len(norm_cases)} cases, max abs err {errs['rmsnorm_bwd']:.3e}, "
-        f"bf16 {spac['rmsnorm_bwd']:.3f} spacings")
+        f"bf16 {spac['rmsnorm_bwd']:.3f} spacings; ssd bwd: "
+        f"{2 * len(ssd_cases)} cases, max abs err {errs['ssd_bwd']:.3e}, "
+        f"bf16 {spac['ssd_bwd']:.3f} spacings; rglru bwd: "
+        f"{2 * len(rg_cases)} cases, max abs err {errs['rglru_bwd']:.3e}, "
+        f"bf16 {spac['rglru_bwd']:.3f} spacings")
     repeated = check_bwd_repeat(dev, rng)
     DETAILS["backward_checks"] = dict(errs=errs, spacings=spac,
                                       lse_err=lse_worst,
@@ -2758,11 +2941,14 @@ def same_bits(a, b) -> bool:
 
 
 def check_bwd_repeat(dev, rng) -> list:
-    """Two launches of each backward kernel at qwen3-4b's training shapes
-    (bf16; flash B 2, S 1024, 32 over 8 heads of 128, causal; the norm and
-    add forms over 2048 rows of 2560, the pair over q 2048 x 32 and k
-    2048 x 8 rows of 128) give bit-identical outputs: no float atomics,
-    sums in a fixed order (resume bit for bit rests on it)."""
+    """Two launches of each backward kernel at the training shapes give
+    bit-identical outputs: no float atomics, sums in a fixed order (resume
+    bit for bit rests on it).  bf16; qwen3-4b's: flash B 2, S 1024, 32
+    over 8 heads of 128, causal; the norm and add forms over 2048 rows of
+    2560, the pair over q 2048 x 32 and k 2048 x 8 rows of 128; the
+    recurrent stacks': the gated norm over 2048 rows of 3072, ``ssd`` at
+    mamba2-780m's (B 2, S 1024, 48 heads, chunk 128), ``rglru`` over
+    2 x 1024 x 4096, flash at D 256, 16 over 1, window 2048."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fk
@@ -2785,6 +2971,21 @@ def check_bwd_repeat(dev, rng) -> list:
     qx, kx, dq, dk = (rnd((2048 * 32, 128)), rnd((2048 * 8, 128)),
                       rnd((2048 * 32, 128)), rnd((2048 * 8, 128)))
     gq, gk = gain(128), gain(128)
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as sk
+    gy, gz, gdo, g3 = (rnd((2048, 3072)), rnd((2048, 3072)),
+                       rnd((2048, 3072)), gain(3072))
+    sx, sdt, sal, sbm, scm, sds = ssd_inputs(rng, 2, 1024, 48, 64, 128, bf,
+                                             dev)
+    sdy = rnd((2, 1024, 48, 64))
+    rx, rla, rgt = rglru_inputs(rng, (2, 1024, 4096), bf, dev)
+    rdy = rnd((2, 1024, 4096))
+    q2, k2, v2, do2, qp2, kp2 = flash_bwd_inputs(rng, 2, 1024, 1024, 16, 1,
+                                                 256, bf, dev)
+    kw2 = dict(q_pos=qp2, k_pos=kp2, causal=True, window=2048,
+               scale=256 ** -0.5)
+    out2, lse2 = fk.flash_attention(q2, k2, v2, splits=1, return_lse=True,
+                                    **kw2)
     runs = {
         "flash_attention_bwd": lambda: fk.flash_attention_bwd(
             q, k, v, out, lse, dout, **kw),
@@ -2792,6 +2993,12 @@ def check_bwd_repeat(dev, rng) -> list:
         "rmsnorm_bwd add": lambda: rk.add_rmsnorm_bwd(x, g, ds, dy),
         "rmsnorm_bwd pair": lambda: rk.rmsnorm_pair_bwd(qx, kx, gq, gk, dq,
                                                         dk),
+        "rmsnorm_bwd gated": lambda: rk.gated_rmsnorm_bwd(gy, gz, g3, gdo),
+        "ssd_bwd": lambda: tuple(t for t in sk.ssd_bwd(
+            sx, sdt, sal, sbm, scm, sds, sdy, chunk=128) if t is not None),
+        "rglru_bwd": lambda: rg.rglru_bwd(rx, rla, rgt, rdy),
+        "flash_attention_bwd D256": lambda: fk.flash_attention_bwd(
+            q2, k2, v2, out2, lse2, do2, **kw2),
     }
     for name, fn in runs.items():
         first, second = fn(), fn()
@@ -2945,9 +3152,17 @@ def time_backward(dev) -> dict:
         else:
             norm_row[key] = row
     rows["rmsnorm_bwd"] = norm_row
+    t0 = time.perf_counter()
+    rows.update(time_recurrent_backward(dev, rng, flush))
+    log(f"  the recurrent stacks' backward rows: "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows["rmsnorm_bwd"]["gated"] = rows.pop("rmsnorm_bwd_gated")
+    rows["flash_attention_bwd"]["d256"] = rows.pop("flash_attention_bwd_d256")
     for name, row in rows.items():
         for key, at in (("ms", row), ("f32", row.get("f32")),
-                        ("pair", row.get("pair")), ("add", row.get("add"))):
+                        ("pair", row.get("pair")), ("add", row.get("add")),
+                        ("gated", row.get("gated")),
+                        ("d256", row.get("d256"))):
             if at is None:
                 continue
             extra = (f"; without lse {at['no_lse_ms']:.4f}"
@@ -2959,22 +3174,152 @@ def time_backward(dev) -> dict:
             if "split_ms" in at:
                 extra += "; by launch " + ", ".join(
                     f"{k} {v:.4f}" for k, v in at["split_ms"].items())
+            if "one_tile_ms" in at:
+                extra += f"; 32 steps {at['one_tile_ms']:.4f}"
+            lib = at["library_ms"]
             log(f"  {name:22s} {key:5s} {at['ms']:.4f} ms; bound "
                 f"{at['bound_ms']:.4f} ({at['bound_by']}), plain "
-                f"{at['plain_ms']:.4f}, library {at['library_ms']:.4f}"
+                f"{at['plain_ms']:.4f}, library "
+                + ("none" if lib is None else f"{lib:.4f}")
                 + extra + f" [{at['shape']}]")
+    DETAILS["backward_timings"] = rows
+    return rows
+
+
+def ssd_bwd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
+    """Operations of ``ssd``'s backward as the kernel's products count
+    them, per (b, chunk, head): C B^T, dy xb^T (Q x Q x N, P), M1^T dy,
+    M2 B, M2^T C (Q x Q x P, N, N), and the state products (the chunk
+    state, the carried state's local term, B G, dy H^T, xb G^T: five of
+    Q x N x P); two operations a multiply-add."""
+    return b * (s // q) * h * (2 * q * q * (3 * n + 2 * p) + 10 * q * n * p)
+
+
+def time_recurrent_backward(dev, rng, flush) -> dict:
+    """Phase 2c's rows for the recurrent stacks' backward kernels at their
+    training shapes (bf16, B 2, S 1024): ``ssd_bwd`` at mamba2-780m's (48
+    heads of 64, state 128, chunk 128), ``rglru_bwd`` over width 4096, the
+    gated norm over 2048 rows of 3072 (beside the autograd backward of
+    ``F.rms_norm(y * F.silu(z))``) and flash at D 256, 16 over 1, window
+    2048 (beside SDPA's backward over K/V expanded to 16 heads).  No
+    single PyTorch call computes ``ssd``'s or ``rglru``'s backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    bf = torch.bfloat16
+    rows = {}
+
+    def rnd(shape, sc=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * sc)
+                                .astype("float32")).to(dev, bf)
+    b, s, h, p, n, q = 2, 1024, 48, 64, 128, 128
+    x, dt, a_log, bm, cm, dsk = ssd_inputs(rng, b, s, h, p, n, bf, dev)
+    dy = rnd((b, s, h, p))
+    kern = (lambda: sk.ssd_bwd(x, dt, a_log, bm, cm, dsk, dy, chunk=q))
+    plain = (lambda: sk.ssd_bwd_plain(x, dt, a_log, bm, cm, dsk, dy,
+                                      chunk=q))
+    # x, dy read and dx written (B S H P); dt read, ddt written (B S H);
+    # B, C read, dB, dC written (B S N); a_log, d_skip and theirs (f32)
+    nbytes = 2 * (3 * x.numel() + 2 * dt.numel() + 4 * bm.numel()) + 16 * h
+    flops = ssd_bwd_flops(b, s, h, p, n, q)
+    # the inputs are bf16: the bound takes their products at the tensor
+    # cores' rate; the kernel's own CUDA-core f32 products are bounded
+    # apart, at 67 TFLOP/s
+    bms, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    rows["ssd_bwd"] = dict(
+        ms=device_ms(kern, flush), plain_ms=device_ms(plain, flush),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        cuda_core_bound_ms=bound(nbytes, flops, PEAK_F32_FLOPS)[0],
+        flops=flops, bytes=nbytes, host_ms=host_ms(kern, flush=flush),
+        split_ms=kernel_breakdown(kern, flush),
+        shape=f"B={b} S={s} H={h} P={p} N={n} chunk {q} bf16, products on "
+              "the CUDA cores in f32")
+    del x, dt, bm, cm, dy
+    w = 4096
+    x, la, g = rglru_inputs(rng, (b, s, w), bf, dev)
+    dy = rnd((b, s, w))
+    kern = (lambda: rg.rglru_bwd(x, la, g, dy))
+    # x, log_a, gate, dy read; dx, dlog_a, dgate written; about forty f32
+    # operations an element (the forward recomputed, the reverse scan)
+    nbytes = 7 * x.numel() * 2
+    bms, by = bound(nbytes, 40 * x.numel(), PEAK_F32_FLOPS)
+    rows["rglru_bwd"] = dict(
+        ms=device_ms(kern, flush),
+        plain_ms=device_ms(lambda: rg.rglru_bwd_plain(x, la, g, dy), flush),
+        library_ms=None, bound_ms=bms, bound_by=by, bytes=nbytes,
+        host_ms=host_ms(kern, flush=flush),
+        one_tile_ms=device_ms(lambda: rg.rglru_bwd(
+            x[:, :32].contiguous(), la[:, :32].contiguous(),
+            g[:, :32].contiguous(), dy[:, :32].contiguous()), flush),
+        shape=f"B={b} S={s} D={w} bf16 (one_tile_ms: the same over 32 "
+              "steps)")
+    del x, la, g, dy
+    rows_n, d = 2048, 3072
+    y, z, do = rnd((rows_n, d)), rnd((rows_n, d)), rnd((rows_n, d))
+    gain = torch.from_numpy((rng.standard_normal(d) * 0.1).astype("float32")
+                            ).to(dev)
+    ly, lz = (t.detach().requires_grad_(True) for t in (y, z))
+    lw = (1.0 + gain).to(bf).requires_grad_(True)
+    lo = F.rms_norm(ly * F.silu(lz), (d,), lw, 1e-6)
+    kern = (lambda: rk.gated_rmsnorm_bwd(y, z, gain, do))
+    # y, z, dy read and dy, dz written (bf16); the gain and its gradient
+    nbytes = 5 * y.numel() * 2 + d * 8
+    bms, by = bound(nbytes, 30 * y.numel(), PEAK_F32_FLOPS)
+    rows["rmsnorm_bwd_gated"] = dict(
+        ms=device_ms(kern, flush),
+        plain_ms=device_ms(lambda: rk.gated_rmsnorm_bwd_plain(y, z, gain, do),
+                           flush),
+        library_ms=device_ms(lambda: torch.autograd.grad(
+            lo, (ly, lz, lw), do, retain_graph=True), flush),
+        library_note="autograd backward of F.rms_norm(y * F.silu(z))",
+        bound_ms=bms, bound_by=by, host_ms=host_ms(kern, flush=flush),
+        split_ms=kernel_breakdown(kern, flush),
+        shape=f"{rows_n} x {d} bf16 (mamba2-780m's d_inner)")
+    del y, z, do, ly, lz, lo
+    hq, hkv, dh, window = 16, 1, 256, 2048
+    q_, k_, v_, do_, qp, kp = flash_bwd_inputs(rng, b, s, s, hq, hkv, dh, bf,
+                                               dev)
+    kw = dict(q_pos=qp, k_pos=kp, causal=True, window=window,
+              scale=dh ** -0.5)
+    out, lse = fk.flash_attention(q_, k_, v_, splits=1, return_lse=True, **kw)
+    lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q_, k_.repeat_interleave(hq, 2),
+                            v_.repeat_interleave(hq, 2)))
+    # the window (2048) covers the 1024 keys: SDPA's causal mask is the same
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    kern = (lambda: fk.flash_attention_bwd(q_, k_, v_, out, lse, do_, **kw))
+    nbytes = (4 * q_.numel() + 4 * k_.numel()) * 2 + lse.numel() * 4
+    flops = 5 * 2 * b * hq * dh * (s * (s + 1) // 2)
+    bms, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    rows["flash_attention_bwd_d256"] = dict(
+        ms=device_ms(kern, flush),
+        plain_ms=device_ms(lambda: fk.flash_attention_bwd_plain(
+            q_, k_, v_, out, lse, do_, **kw), flush),
+        library_ms=device_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do_.transpose(1, 2), retain_graph=True), flush),
+        library_note="SDPA backward over K/V expanded to 16 heads",
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        host_ms=host_ms(kern, flush=flush),
+        split_ms=kernel_breakdown(kern, flush),
+        shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={dh} causal window "
+              f"{window} bf16 (recurrentgemma-9b)")
     return rows
 
 
 # ------------------------------------------------ training (phases 3i, 13)
 def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
-                   steps: int = 3) -> dict:
-    """Phase 3i: qwen3-4b at full width, ``layers`` deep, f32 with TF32 off:
-    step 1's gradients of every parameter card against CPU (and nonzero on
-    the card), then ``steps`` ``make_train_step`` steps on both from the
-    same weights and batches; then, in bf16 with f32 masters, 4 straight
-    ``train_loop`` steps against 2, a checkpoint, a restore and 2 more, bit
-    for bit on the card."""
+                   steps: int = 3, arch: str = "qwen3-4b",
+                   resume: bool = True) -> dict:
+    """Phase 3i: ``arch`` (qwen3-4b) at full width, ``layers`` deep, f32
+    with TF32 off: step 1's gradients of every parameter card against CPU
+    (and nonzero on the card), then ``steps`` ``make_train_step`` steps on
+    both from the same weights and batches; then, with ``resume``, in bf16
+    with f32 masters, 4 straight ``train_loop`` steps against 2, a
+    checkpoint, a restore and 2 more, bit for bit on the card.  Phase 3r
+    runs it for the recurrent stacks without the resume."""
     import gc
     import shutil
     import torch
@@ -2989,10 +3334,10 @@ def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(os.cpu_count() or 8)
-    cfg = get_config("qwen3-4b").replace(num_layers=layers,
-                                         dtype=torch.float32)
+    cfg = get_config(arch).replace(num_layers=layers, dtype=torch.float32)
     lr = 1e-4
     tc = TrainConfig(learning_rate=lr, total_steps=10, warmup_steps=2)
+    t0 = time.perf_counter()
     gpu = M.init_model(cfg, SEED, dev)
     cpu = M.Model(cfg, "cpu")
     with torch.no_grad():
@@ -3002,6 +3347,7 @@ def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
     ds = SyntheticDataset(cfg, DataConfig(global_batch=batch, seq_len=seq,
                                           seed=SEED))
     loss_fn = S.make_loss_fn(cfg, tc)
+    took = {"setup": time.perf_counter() - t0}
     losses = []
     for st in (gs, cs):
         loss, _ = loss_fn(st["model"], S.to_device(ds.batch(0),
@@ -3012,18 +3358,23 @@ def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
     # and widths up to 9728 in another order on each side (cuBLAS, the
     # kernels' f32 bodies; the CPU's), through two layers and the 151936-
     # way softmax
+    # compared on the card (the CPU's copy sent over): the same exact
+    # differences, maxima and counts, without a pass over every parameter
+    # on the host
     grad_err = 0.0
     for (name, g), c in zip(gpu.named_parameters(), cpu.parameters()):
-        gg, cg = g.grad, c.grad
+        gg = g.grad
         if gg is None or not (gg != 0).any():
-            raise AssertionError(f"train identity: {name} has no gradient "
-                                 "on the card")
-        rel = ((gg.cpu() - cg).abs().max() / cg.abs().max()).item()
+            raise AssertionError(f"train identity {arch}: {name} has no "
+                                 "gradient on the card")
+        cg = c.grad.to(dev)
+        rel = ((gg - cg).abs().max() / cg.abs().max()).item()
         grad_err = max(grad_err, rel)
         if rel > 1e-4:
-            raise AssertionError(f"train identity: {name} gradient off by "
-                                 f"{rel:.2e} of its max")
+            raise AssertionError(f"train identity {arch}: {name} gradient "
+                                 f"off by {rel:.2e} of its max")
         g.grad = c.grad = None
+    took["gradients"] = time.perf_counter() - t0 - took["setup"]
     gstep, cstep = S.make_train_step(cfg, tc), S.make_train_step(cfg, tc)
     ops.reset_kernel_launches()
     metrics = []
@@ -3039,38 +3390,46 @@ def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
         tol = 1e-5 if i == 0 else 1e-4
         for k, (a, b) in m.items():
             if abs(a - b) > tol * abs(b) + 1e-12:
-                raise AssertionError(f"train identity: step {i + 1} {k} "
-                                     f"card {a} CPU {b}")
+                raise AssertionError(f"train identity {arch}: step {i + 1} "
+                                     f"{k} card {a} CPU {b}")
+    took["steps"] = time.perf_counter() - t0 - sum(took.values())
     launches = ops.kernel_launches()
     expect = expected_train_launches(cfg, cfg.remat, steps)
     if launches != expect:
-        raise AssertionError(f"train identity: launches {launches}, "
-                             f"expected {expect}")
+        raise AssertionError(f"train identity {arch}: launches "
+                             f"{launches}, expected {expect}")
     # AdamW's first updates are lr * sign(g) wherever |g| >> eps, so an
     # element whose gradient is summation noise near zero can move 2 lr the
     # other way at each step
     p_err, close = 0.0, 0
     total = 0
     for a, b in zip(gpu.parameters(), cpu.parameters()):
-        dlt = (a.detach().cpu() - b.detach()).abs()
+        dlt = (a.detach() - b.detach().to(dev)).abs()
         p_err = max(p_err, dlt.max().item())
         close += int((dlt <= 1e-6).sum())
         total += dlt.numel()
     if p_err > 2 * lr * steps:
-        raise AssertionError(f"train identity: parameters off by {p_err}")
-    log(f"  step-1 loss card {losses[0]:.6f} CPU {losses[1]:.6f}; every "
+        raise AssertionError(f"train identity {arch}: parameters off by "
+                             f"{p_err}")
+    log(f"  {arch} x {layers}: step-1 loss card {losses[0]:.6f} CPU "
+        f"{losses[1]:.6f}; every "
         f"gradient nonzero, within {grad_err:.2e} of its max; {steps} steps "
         + "; ".join(f"loss {m['loss'][0]:.6f}/{m['loss'][1]:.6f} gnorm "
                     f"{m['grad_norm'][0]:.6f}/{m['grad_norm'][1]:.6f}"
                     for m in metrics)
         + f"; parameters within {p_err:.2e} ({close / total:.4%} within "
-        f"1e-6); launches {launches}")
+        f"1e-6); launches {launches}; seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in took.items()))
     out = dict(grad_rel_err=grad_err, param_err=p_err,
                params_within_1e6=close / total, metrics=metrics,
-               launches=launches)
+               launches=launches, layers=layers, batch=batch, seq=seq,
+               seconds=took)
     del gs, cs, gpu, cpu, gstep, cstep
     gc.collect()
     torch.cuda.empty_cache()
+    if not resume:
+        DETAILS[f"train_identity_{arch}"] = out
+        return out
 
     # resume, bit for bit, in bf16 with f32 masters
     cfgb = cfg.replace(dtype=torch.bfloat16)
@@ -3108,28 +3467,34 @@ def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
     return out
 
 
-def train_flops(cfg, batch: int, seq: int) -> float:
+def train_flops(model, cfg, batch: int, seq: int) -> float:
     """Model operations of one train step (forward and backward, remat's
     recompute not counted): 6 per weight per token over every projection
-    and the tied head, and 6 S D per query head and layer per token for
-    causal attention's two products."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    per_layer = (d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
-                 + cfg.num_heads * hd * d + 3 * d * cfg.d_ff)
-    weights = cfg.num_layers * per_layer + d * cfg.vocab_size
-    attn = cfg.num_layers * cfg.num_heads * 6 * seq * hd
-    return batch * seq * (6 * weights + attn)
+    (the leaves of two or more axes but the embedding, an untied head and
+    the conv taps; dense stacks: an MoE's experts would count whole) and
+    the head, and 6 S D per query head and attention layer per token for
+    causal attention's two products (S at most the window).  The
+    recurrent scans are not counted."""
+    mats = sum(p.numel() for n, p in model.named_parameters()
+               if p.dim() >= 2 and n not in ("embed", "head")
+               and "conv" not in n)
+    span = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+    attn = (cfg.layer_kinds().count("attn") * cfg.num_heads * 6 * span
+            * cfg.resolved_head_dim)
+    return batch * seq * (6 * (mats + cfg.d_model * cfg.vocab_size) + attn)
 
 
 def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
-                layers: int = 0) -> dict:
-    """Phase 13: qwen3-4b at its full config (bf16 weights, f32 masters,
-    remat, AdamW, cosine) through ``launch.train.train_loop``: ``steps``
-    steps of ``batch`` x ``seq`` tokens, the launches of every kernel equal
-    to ``expected_train_launches``, finite losses; step wall ms (median
-    after the first), tokens/s, one profiled step's device-busy ms and idle
-    share, model operations over step time against 989 TFLOP/s, peak
-    memory."""
+                layers: int = 0, arch: str = "qwen3-4b",
+                key: str = "train") -> dict:
+    """Phase 13 (and 17): ``arch`` at its full config, or ``layers`` deep
+    (bf16 weights, f32 masters, remat, AdamW, cosine) through
+    ``launch.train.train_loop``: ``steps`` steps of ``batch`` x ``seq``
+    tokens, the launches of every kernel equal to
+    ``expected_train_launches``, finite losses; step wall ms (median
+    after the first), tokens/s, one profiled step's device-busy ms and
+    idle share, model operations over step time against 989 TFLOP/s, peak
+    memory; kept under ``DETAILS[key]``."""
     import gc
     import numpy as np
     import torch
@@ -3145,7 +3510,7 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev) / 1e9
-    cfg = get_config("qwen3-4b")
+    cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers)
     tc = TrainConfig(total_steps=steps, warmup_steps=1)
@@ -3156,10 +3521,12 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
     expect = expected_train_launches(cfg, cfg.remat, steps)
     log(f"  launches {launches}; expected {expect}")
     if launches != expect:
-        raise AssertionError(f"train: launches {launches}, expected {expect}")
+        raise AssertionError(f"train {arch}: launches {launches}, expected "
+                             f"{expect}")
     hist = out["history"]
     if not all(np.isfinite(h["loss"]) for h in hist):
-        raise AssertionError(f"train: losses {[h['loss'] for h in hist]}")
+        raise AssertionError(f"train {arch}: losses "
+                             f"{[h['loss'] for h in hist]}")
     walls = sorted(h["ms"] for h in hist[1:])
     step_ms = walls[len(walls) // 2]
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -3171,15 +3538,15 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
     fn = S.make_train_step(cfg, tc)
     bt = SyntheticDataset(cfg, DataConfig(global_batch=batch, seq_len=seq,
                                           seed=tc.seed)).batch(steps)
-    prof = profile_call("train step", lambda: fn(state, bt))
+    prof = profile_call(f"{arch} train step", lambda: fn(state, bt))
     # the optimizer alone, on gradients of the step's shapes and dtypes
     from repro_torch.training import optimizer as opt
     grads = {k: torch.full_like(p, 1e-3) for k, p in params.items()}
     prof_opt = profile_call("AdamW update", lambda: opt.adamw_update(
         dict(grads), o, params, 0.0, tc, clip=tc.grad_clip))
     del grads
-    flops = train_flops(cfg, batch, seq)
-    stats = dict(layers=cfg.num_layers, batch=batch, seq=seq,
+    flops = train_flops(state["model"], cfg, batch, seq)
+    stats = dict(arch=arch, layers=cfg.num_layers, batch=batch, seq=seq,
                  losses=[h["loss"] for h in hist],
                  step_ms=[h["ms"] for h in hist], step_ms_median=step_ms,
                  tokens_per_s=batch * seq / (step_ms / 1e3),
@@ -3188,8 +3555,8 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
                  peak_mem_gb=peak, held_at_start_gb=held, profile=prof,
                  launches=launches, params=tree_count(params),
                  state_gb=state_gb, profile_adamw=prof_opt)
-    log(f"  {cfg.num_layers} layers, {batch} x {seq} tokens a step: step "
-        f"{step_ms:.1f} ms (median after the first; first "
+    log(f"  {arch}, {cfg.num_layers} layers, {batch} x {seq} tokens a step: "
+        f"step {step_ms:.1f} ms (median after the first; first "
         f"{hist[0]['ms']:.0f}), {stats['tokens_per_s']:.0f} tokens/s, "
         f"{flops / 1e12:.1f} TFLOP a step = "
         f"{100 * stats['flops_share']:.1f}% of 989 TFLOP/s; profiled step "
@@ -3198,11 +3565,43 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
         f"(held at start {held:.1f}; state "
         + ", ".join(f"{k} {v:.1f}" for k, v in state_gb.items())
         + f" GB over {stats['params'] / 1e9:.2f} B parameters)")
-    DETAILS["train"] = stats
+    DETAILS[key] = stats
     del out, state, fn, params, o
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def recurrent_train_phases(dev) -> dict:
+    """Phase 17: 4 steps of mamba2-780m at its full config (48 layers)
+    and of recurrentgemma-9b at 9 layers (three (rglru, rglru, attn)
+    periods, which peak at 56.8 GB).  Returns the launches of each run by
+    path."""
+    return {key: train_phase(dev, steps=4, layers=layers, arch=arch, key=key)
+            for arch, layers, key in (
+                ("mamba2-780m", 0, "train_mamba2"),
+                ("recurrentgemma-9b", 9, "train_recurrentgemma"))}
+
+
+def recurrent_train_identity(dev) -> None:
+    """Phase 3r: ``train_identity`` for the recurrent stacks (f32, TF32 off,
+    full width), gradients card against CPU, then steps: mamba2-780m at 2
+    layers, 3 steps over 2 x 256 tokens (two SSD chunks of 128);
+    recurrentgemma-9b at 3 layers, one (rglru, rglru, attn) period so that
+    the D 256 MQA flash backward runs inside the model, 1 step over 1 x 136
+    tokens (past the RG-LRU's one-tile 128 steps); each arch's seconds
+    logged.  A recurrentgemma-9b step costs ~16 s on the CPU side (the
+    256000-way head and AdamW over 1.2 B f32 parameters), so its steps are
+    the ones cut to keep the script within its time."""
+    for arch, layers, batch, seq, steps in (
+            ("mamba2-780m", 2, 2, 256, 3),
+            ("recurrentgemma-9b", 3, 1, 136, 1)):
+        t0 = time.perf_counter()
+        train_identity(dev, layers=layers, batch=batch, seq=seq, steps=steps,
+                       arch=arch, resume=False)
+        took = time.perf_counter() - t0
+        DETAILS[f"train_identity_{arch}"]["total_s"] = took
+        log(f"  {arch}: {took:.1f} s")
 
 
 # ------------------------------------------------ the distributed trainer
@@ -3240,7 +3639,7 @@ def expected_pipeline_launches(cfg, micro: int) -> dict:
     one = expected_train_launches(cfg, False, 1)
     return dict(one, flash_attention=one["flash_attention"] * micro,
                 rmsnorm=(one["rmsnorm"] - 1) * micro + 1,
-                flash_attention_bwd=0, rmsnorm_bwd=0)
+                flash_attention_bwd=0, rmsnorm_bwd=0, ssd_bwd=0, rglru_bwd=0)
 
 
 def train_dist_identity(dev, layers: int = 4, batch: int = 2, seq: int = 256,
@@ -4133,7 +4532,9 @@ def _kernel_class(name: str) -> str:
                      ("ssd_chunk_state_kernel", "ssd"),
                      ("ssd_state_pass_kernel", "ssd"),
                      ("rglru_one_tile_kernel", "rglru"),
-                     ("rglru_staged_kernel", "rglru")):
+                     ("rglru_staged_kernel", "rglru"),
+                     ("ssd_bwd_", "ssd_bwd"),
+                     ("rglru_bwd_kernel", "rglru_bwd")):
         if key in name:
             return cls
     low = name.lower()
@@ -4305,32 +4706,38 @@ def expected_launches(cfg, steps: int, chunks: int, wholes: int,
             "ssd": kinds.count("ssm") * prefills,
             "rglru": kinds.count("rglru") * prefills,
             "rmsnorm": norms * (steps + prefills),
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_bwd": 0,
+            "rglru_bwd": 0,
             "decode_attention_partials": 0 if paged else n_seq * mesh,
             "paged_decode_attention_partials": n_seq * mesh if paged else 0,
             "attention_combine": mesh}
 
 
 def expected_train_launches(cfg, remat: bool, steps: int = 1) -> dict:
-    """Launches of every kernel that ``steps`` train steps of a dense
-    attention stack must make (one microbatch).  The forward runs each
-    layer once, twice with remat (the checkpointed forward and its
-    recompute in the backward); the final norm sits outside the checkpoint
-    and runs once.  Per layer and forward: flash once, and the pre-norm,
-    the qk pair (with qk-norm) and the residual add with the MLP's norm
-    once each; the backward launches each one's backward kernel once."""
+    """Launches of every kernel that ``steps`` train steps of a stack of
+    attention, SSD and RG-LRU layers must make (one microbatch).  The
+    forward runs each layer once, twice with remat (the checkpointed
+    forward and its recompute in the backward); the final norm sits
+    outside the checkpoint and runs once.  Per layer and forward: the
+    mixer's kernel once (flash, ``ssd`` or ``rglru``), and the pre-norm,
+    the qk pair (attention with qk-norm), Mamba2's gated norm and the
+    residual add with the MLP's norm once each (each a ``rmsnorm``
+    launch); the backward launches each one's backward kernel once."""
     kinds = cfg.layer_kinds()
-    if set(kinds) != {"attn"}:
-        raise ValueError(f"{cfg.name}: a train step is counted for dense "
-                         "attention stacks only")
+    if not set(kinds) <= {"attn", "ssm", "rglru"}:
+        raise ValueError(f"{cfg.name}: a train step is counted for stacks "
+                         "of attention, SSD and RG-LRU layers only")
     layers = len(kinds)
-    norms = layers * (1 + (cfg.d_ff > 0) + cfg.use_qk_norm)
+    attn, ssm, rec = (kinds.count(k) for k in ("attn", "ssm", "rglru"))
+    norms = layers * (1 + (cfg.d_ff > 0)) + attn * cfg.use_qk_norm + ssm
     fwd = 2 if remat else 1
-    return {"decode_attention": 0, "paged_decode_attention": 0, "ssd": 0,
-            "rglru": 0, "flash_attention": layers * fwd * steps,
+    return {"decode_attention": 0, "paged_decode_attention": 0,
+            "ssd": ssm * fwd * steps, "rglru": rec * fwd * steps,
+            "flash_attention": attn * fwd * steps,
             "rmsnorm": (norms * fwd + 1) * steps,
-            "flash_attention_bwd": layers * steps,
+            "flash_attention_bwd": attn * steps,
             "rmsnorm_bwd": (norms + 1) * steps,
+            "ssd_bwd": ssm * steps, "rglru_bwd": rec * steps,
             "decode_attention_partials": 0,
             "paged_decode_attention_partials": 0, "attention_combine": 0}
 
@@ -5031,7 +5438,8 @@ def main(argv=None) -> int:
                          "2t, 2c, 3i, 13 of the training slice; 2m, 3m, 14 "
                          "of the serving mesh; 3p, 15 of the distributed "
                          "trainer, 15 held against 13 when 13 runs first; "
-                         "16, the dry run) "
+                         "16, the dry run; 3r, 17 of the recurrent stacks' "
+                         "training) "
                          "and stop, with no summary: a quick check of a "
                          "change, not the smoke test")
     args = ap.parse_args(argv)
@@ -5068,7 +5476,8 @@ def main(argv=None) -> int:
                 "3i": train_identity, "13": train_phase,
                 "3p": train_dist_identity, "15": train_sharded_phase,
                 "2m": check_mesh_kernels, "3m": mesh_identity,
-                "14": mesh_serve_phase, "16": dryrun_phase}
+                "14": mesh_serve_phase, "16": dryrun_phase,
+                "3r": recurrent_train_identity, "17": recurrent_train_phases}
         for key in args.only.split(","):
             phase(f"phase {key} (--only)")
             only[key](dev)
@@ -5085,7 +5494,9 @@ def main(argv=None) -> int:
     errs = check_kernels(dev)
     phase("phase 2t: the backward kernels against their plain versions "
           "(flash at qwen3-4b's training shape, D 64 MHA, GQA 1-16 with a "
-          "window, ragged S; the norm forms at 128, 2304, 2560, 999, 8192)")
+          "window, ragged S, D 256 MQA; the norm forms at 128, 2304, 2560, "
+          "999, 8192, the gated one at 3072; ssd at mamba2-780m's widths, "
+          "chunks 128, 100, 2; rglru 1-2300 steps at 4096 and 999)")
     errs.update(check_backward(dev))
     phase("phase 2b: moe_ffn against the reference loop (one layer at full "
         "width: mixtral-8x22b f32 and bf16, arctic-480b bf16)")
@@ -5131,6 +5542,11 @@ def main(argv=None) -> int:
           "off): gradients and 3 train steps card against CPU; resume bit "
           "for bit (bf16, f32 masters)")
     train_identity(dev)
+    phase("phase 3r: train identity of the recurrent stacks (full width, "
+          "f32, TF32 off): gradients and steps card against CPU, "
+          "mamba2-780m at 2 layers 3 steps, recurrentgemma-9b at 3 layers "
+          "(rglru, rglru, attn) 1 step")
+    recurrent_train_identity(dev)
     phase("phase 3m: identity of a sharded replica (qwen3-4b width, 4 "
           "layers, f32, TF32 off; 1 x 4 mesh on one card): ring, then paged "
           "with the prefix cache, against the unsharded replica and the CPU")
@@ -5197,6 +5613,10 @@ def main(argv=None) -> int:
           "decode_32k on a fake 16x16 world, long_500k skipped), held "
           "against a real sharded step on a world of one NCCL rank")
     dryrun_phase(dev)
+    phase("phase 17: train the recurrent stacks (bf16, f32 masters, remat, "
+          "AdamW, cosine; 4 steps of 2 x 1024 tokens): mamba2-780m at full "
+          "config (48 layers), recurrentgemma-9b at 9 layers")
+    launches.update(recurrent_train_phases(dev))
 
     phase("all phases passed")
     DETAILS["phase_s"] = phase_s
@@ -5221,6 +5641,11 @@ def main(argv=None) -> int:
             "src/repro/kernels/flash_attention.py:75"),
         "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                         "src/repro/kernels/rmsnorm.py:31"),
+        "ssd_bwd": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                    "src/repro/kernels/ssd_scan.py:73"),
+        "rglru_bwd": ("cuda",
+                      "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+                      "src/repro/kernels/rglru_scan.py:53"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -5228,7 +5653,7 @@ def main(argv=None) -> int:
         # a serving mesh runs the decode kernels' partials entry point (the
         # same kernel, unmerged) and the combine: counted apart, listed
         # beside
-        by_path = {path: n[name] + n.get(f"{name}_partials", 0)
+        by_path = {path: n.get(name, 0) + n.get(f"{name}_partials", 0)
                    for path, n in launches.items()}
         if not sum(by_path.values()):
             raise AssertionError(f"{name}: no launch on the main paths")
@@ -5246,7 +5671,8 @@ def main(argv=None) -> int:
                       "prompt2300", "one_token_ms", "one_slot_ms",
                       "read_flush_ms", "warm_ms", "fixed_ms", "issue_us",
                       "staged_ms", "pair", "add", "gated", "train_lse",
-                      "f32", "flops", "bytes", "split_ms"):
+                      "f32", "flops", "bytes", "split_ms", "one_tile_ms",
+                      "cuda_core_bound_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "mesh" in r:

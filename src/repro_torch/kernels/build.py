@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "flash_attention", "paged_decode_attention",
            "ssd_scan", "rglru_scan", "rmsnorm", "flash_attention_bwd",
-           "rmsnorm_bwd")
+           "rmsnorm_bwd", "ssd_scan_bwd", "rglru_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,8 +6,8 @@
 // flash_attention.cu, so its gradient needs this kernel, the half of the
 // kernel that jax.grad gives the reference for free.  Same masks as the
 // forward: key j is visible to query i when k_pos[b,j] >= 0, and
-// k_pos <= q_pos when causal, and k_pos > q_pos - window.  No softcap, D 64
-// and 128 (the wrapper refuses the rest).
+// k_pos <= q_pos when causal, and k_pos > q_pos - window.  No softcap, D 64,
+// 128 and 256 (the wrapper refuses the rest).
 //
 // FlashAttention-2's recompute from the forward's log-sum-exp, in float32
 // for bf16 and f32 inputs alike:
@@ -39,10 +39,18 @@
 //     next two are requested before the current two are computed.  32
 //     queries a pair at D 128 (the 128 f32 accumulators a thread leave
 //     room for 32 of scores), 64 at D 64;
+//   * D 256 (recurrentgemma-9b's local attention): dK and dV of 16 keys x
+//     256 would be 256 f32 accumulators a thread, past the 255 registers,
+//     so a dK/dV block owns half of their columns (DC = 128) and there are
+//     two blocks a key tile; each recomputes S and dP over all 256 of the
+//     depth (twice the score products, a block's registers as at D 128).
+//     Under MQA (16 query heads over 1) a block walks every query head,
+//     and the grid is 2 x (key tiles x B): 64 blocks at B 2, S 1024;
 //   * dQ: four warps, 16 query rows each, of a 64-row tile (Q and dO stay
-//     in shared memory); K/V tiles of 64 keys stream through two cp.async
-//     stages; S = Q K^T, dP = dO V^T, then dQ += dS K with K read through
-//     ldmatrix .trans;
+//     in shared memory); K/V tiles of 64 keys (32 at D 256, whose 128
+//     accumulators a thread leave room for 32 keys of scores; one block an
+//     SM) stream through two cp.async stages; S = Q K^T, dP = dO V^T, then
+//     dQ += dS K with K read through ldmatrix .trans;
 //   * P and dS are f32 and the oracle keeps them so: each is split into
 //     hi = bf16(x) and lo = bf16(x - hi) and both halves are multiplied
 //     (dS = P (dP - delta) cancels, so it needs the split more than P):
@@ -55,8 +63,10 @@
 //     first (low key tiles for dK/dV, late query tiles for dQ).
 // f32 inputs (the identity checks, held at 2e-5) take a CUDA-core body,
 // flash_bwd_dkdv_f32 / flash_bwd_dq_f32, selected by dtype: 64 x 64 f32
-// tiles in shared memory, a 4 x 4 register tile of scores a thread.  This
-// is a dispatch by dtype, not a fallback: both routes launch or fail.
+// tiles in shared memory (32 x 32 at D 256, where four 64-row tiles of 256
+// floats would pass the SM's shared memory), a 4 x 4 (2 x 2) register tile
+// of scores a thread.  This is a dispatch by dtype, not a fallback: both
+// routes launch or fail.
 #include <climits>
 
 #include "common.cuh"
@@ -108,6 +118,7 @@ constexpr int kMaxTiles = 8192;      // tiles a bitmask covers
 template <int D>
 struct KvLayout {  // flash_bwd_dkdv_tc, bytes
   static constexpr int BQ = D >= 128 ? 32 : 64;  // queries of a streamed pair
+  static constexpr int DC = D > 128 ? 128 : D;   // dK/dV columns a block owns
   static constexpr int LD = D + 8;               // padded row, bf16
   static constexpr size_t k = 0;
   static constexpr size_t v = k + kRows * LD * sizeof(bf16);
@@ -123,13 +134,13 @@ struct KvLayout {  // flash_bwd_dkdv_tc, bytes
   static constexpr size_t bytes = bits + kMaxTiles / 8;
   static_assert(stage % 16 == 0 && s_do % 16 == 0, "16-byte rows");
   // at the end the second set's dK and dV (f32) pass through the stages
-  static_assert(2 * kRows * D * sizeof(float) <= 4 * stage, "dK/dV exchange fits the stages");
+  static_assert(2 * kRows * DC * sizeof(float) <= 4 * stage, "dK/dV exchange fits the stages");
   static_assert(bytes + 1024 <= 233472, "a dK/dV block within the SM");
 };
 
 template <int D>
 struct QLayout {  // flash_bwd_dq_tc, bytes
-  static constexpr int BK = 64;                  // keys of a streamed tile
+  static constexpr int BK = D > 128 ? 32 : 64;   // keys of a streamed tile
   static constexpr int LD = D + 8;
   static constexpr size_t q = 0;
   static constexpr size_t dout = q + kRows * LD * sizeof(bf16);
@@ -141,7 +152,8 @@ struct QLayout {  // flash_bwd_dq_tc, bytes
   static constexpr size_t bits = stage0 + 2 * stage;
   static constexpr size_t bytes = bits + kMaxTiles / 8;
   static_assert(stage % 16 == 0 && s_v % 16 == 0, "16-byte rows");
-  static_assert(2 * (bytes + 1024) <= 233472, "two dQ blocks per SM");
+  // two dQ blocks an SM, one at D 256
+  static_assert((D > 128 ? 1 : 2) * (bytes + 1024) <= 233472, "dQ blocks within the SM");
 };
 
 // min and max over the warp of the live positions lo/hi (INT_MAX / INT_MIN
@@ -259,9 +271,10 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, size_t stride
   }
 }
 
-// dK, dV of one 64-key tile of KV head kh, batch row b.  Block index:
-// (key tile, batch row, KV head), the key tile slowest, so that the low
-// tiles, which the most causal queries see, start first.  Two sets of
+// dK, dV of one 64-key tile of KV head kh, batch row b (columns [c0, c0 +
+// DC) of them: both halves at D 256).  Block index: (key tile, batch row,
+// KV head, column half), the key tile slowest, so that the low tiles,
+// which the most causal queries see, start first.  Two sets of
 // four warps (16 keys a warp each) share the K/V tile: set 0 takes the
 // even (query tile, head) pairs and set 1 the odd ones, so a key tile
 // that every query sees takes half as long; at the end set 1's sums are
@@ -275,14 +288,15 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int T_, int hq,
                   int hkv, int causal, int window, float scale) {
   using L = KvLayout<D>;
-  constexpr int BQ = L::BQ, LD = L::LD, CPR = D / 8;
+  constexpr int BQ = L::BQ, LD = L::LD, CPR = D / 8, DC = L::DC, NH = D / DC;
   extern __shared__ __align__(16) unsigned char smem[];
   const bf16* Ks = reinterpret_cast<const bf16*>(smem + L::k);
   const bf16* Vs = reinterpret_cast<const bf16*>(smem + L::v);
   uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::bits);
 
-  const int per_tile = B * hkv;
-  const int kt = blockIdx.x / per_tile, b = (blockIdx.x % per_tile) / hkv, kh = blockIdx.x % hkv;
+  const int per_tile = B * hkv * NH;
+  const int kt = blockIdx.x / per_tile, rest = blockIdx.x % per_tile / NH;
+  const int b = rest / hkv, kh = rest % hkv, c0 = blockIdx.x % NH * DC;
   const int rep = hq / hkv, k0 = kt * kRows, nk = min(kRows, T_ - k0);
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, tq = lane % 4;
   const int set = tid / kThreads, kw = (tid / 32) % kWarps;  // the warp's keys: kw * 16..
@@ -355,9 +369,9 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[DC / 8][4], dva[DC / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DC / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
   const float c2 = scale * rt::kLog2e;
@@ -401,8 +415,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dp[nt][e + 2] = p1 * (dp[nt][e + 2] - d);
       }
     }
-    accumulate_split<D, BQ, LD>(dva, sc, Os);  // dV += P^T dO
-    accumulate_split<D, BQ, LD>(dka, dp, Qs);  // dK += dS^T Q
+    accumulate_split<DC, BQ, LD>(dva, sc, Os + c0);  // dV += P^T dO
+    accumulate_split<DC, BQ, LD>(dka, dp, Qs + c0);  // dK += dS^T Q
   }
   rt::cp_async_wait<0>();
   __syncthreads();  // every stage is consumed: they carry set 1's sums
@@ -410,11 +424,11 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // set 1 hands its fragments to the set-0 thread of the same (warp,
   // lane), which holds the same elements; lanes on consecutive words
   float* xk = reinterpret_cast<float*>(smem + L::stage0);
-  float* xv = xk + kRows * D;
-  auto at = [&](int nt, int e) { return ((kw * (D / 8) + nt) * 4 + e) * 32 + lane; };
+  float* xv = xk + kRows * DC;
+  auto at = [&](int nt, int e) { return ((kw * (DC / 8) + nt) * 4 + e) * 32 + lane; };
   if (set == 1) {
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+    for (int nt = 0; nt < DC / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         xk[at(nt, e)] = dka[nt][e];
@@ -424,15 +438,15 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   if (set == 0) {
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+    for (int nt = 0; nt < DC / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         dka[nt][e] += xk[at(nt, e)];
         dva[nt][e] += xv[at(nt, e)];
       }
     const size_t stride = (size_t)hkv * D;
-    store_rows<D>(dk + kbase, stride, dka, kw * 16, nk, scale);
-    store_rows<D>(dv + kbase, stride, dva, kw * 16, nk, 1.f);
+    store_rows<DC>(dk + kbase + c0, stride, dka, kw * 16, nk, scale);
+    store_rows<DC>(dv + kbase + c0, stride, dva, kw * 16, nk, 1.f);
   }
 }
 
@@ -562,25 +576,26 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- f32 route
-constexpr int BQ = 64;      // query rows per tile
-constexpr int BKV = 64;     // keys per tile
 constexpr int NT = 256;     // threads per block
-constexpr int LDP = BKV + 1;
 
 template <int D>
 struct Layout {  // shared memory, in floats (ints after)
-  static constexpr int LD = D + 1;
+  // query rows and keys a tile: 64, or 32 at D 256 (four 64-row tiles of
+  // 256 floats would pass the SM's shared memory); R = BT / 16 rows of
+  // scores a thread
+  static constexpr int BT = D > 128 ? 32 : 64, R = BT / 16;
+  static constexpr int LD = D + 1, LDP = BT + 1;
   static constexpr int q = 0;
-  static constexpr int dout = q + BQ * LD;
-  static constexpr int k = dout + BQ * LD;
-  static constexpr int v = k + BKV * LD;
-  static constexpr int p = v + BKV * LD;
-  static constexpr int ds = p + BQ * LDP;
-  static constexpr int lse = ds + BQ * LDP;
-  static constexpr int delta = lse + BQ;
-  static constexpr int qpos = delta + BQ;  // int
-  static constexpr int kpos = qpos + BQ;   // int
-  static constexpr size_t bytes = (size_t)(kpos + BKV) * 4;
+  static constexpr int dout = q + BT * LD;
+  static constexpr int k = dout + BT * LD;
+  static constexpr int v = k + BT * LD;
+  static constexpr int p = v + BT * LD;
+  static constexpr int ds = p + BT * LDP;
+  static constexpr int lse = ds + BT * LDP;
+  static constexpr int delta = lse + BT;
+  static constexpr int qpos = delta + BT;  // int
+  static constexpr int kpos = qpos + BT;   // int
+  static constexpr size_t bytes = (size_t)(kpos + BT) * 4;
   static_assert(bytes <= 232448, "flash backward block within 227 KB");
 };
 
@@ -624,30 +639,31 @@ __device__ __forceinline__ void pos_range(const int* p, int n, bool keys, int& l
 }
 
 // The warp-synchronous score tile: rows tr + 16 i and keys tc + 16 j of the
-// shared Q/dO and K/V tiles; S = Q K^T and dP = dO V^T, 4 x 4 per thread.
+// shared Q/dO and K/V tiles; S = Q K^T and dP = dO V^T, R x R per thread.
 template <int D>
-__device__ __forceinline__ void scores(const float* sm, int tr, int tc, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
+__device__ __forceinline__ void scores(const float* sm, int tr, int tc,
+                                       float (&s)[Layout<D>::R][Layout<D>::R],
+                                       float (&dp)[Layout<D>::R][Layout<D>::R]) {
   using L = Layout<D>;
-  constexpr int LD = L::LD;
+  constexpr int LD = L::LD, R = L::R;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qd[4], od[4], kd[4], vd[4];
+    float qd[R], od[R], kd[R], vd[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       qd[i] = sm[L::q + (tr + 16 * i) * LD + d];
       od[i] = sm[L::dout + (tr + 16 * i) * LD + d];
       kd[i] = sm[L::k + (tc + 16 * i) * LD + d];
       vd[i] = sm[L::v + (tc + 16 * i) * LD + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] = fmaf(qd[i], kd[j], s[i][j]);
         dp[i][j] = fmaf(od[i], vd[j], dp[i][j]);
       }
@@ -659,17 +675,18 @@ template <int D>
 __device__ __forceinline__ void probs(float* sm, int q0, int k0, int S, int T, int causal,
                                       int window, float scale, bool want_p) {
   using L = Layout<D>;
+  constexpr int R = L::R, LDP = L::LDP;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   const int* qps = reinterpret_cast<const int*>(sm + L::qpos);
   const int* kps = reinterpret_cast<const int*>(sm + L::kpos);
-  float s[4][4], dp[4][4];
+  float s[R][R], dp[R][R];
   scores<D>(sm, tr, tc, s, dp);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = tr + 16 * i;
     const float lse = sm[L::lse + r], dl = sm[L::delta + r];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int c = tc + 16 * j;
       const bool vis = q0 + r < S && k0 + c < T && visible(kps[c], qps[r], causal, window);
       const float p = vis ? expf(fmaf(s[i][j], scale, -lse)) : 0.f;
@@ -686,6 +703,7 @@ __device__ __forceinline__ void load_queries(float* sm, const float* q, const fl
                                              const float* lse, const float* delta, const int* qp,
                                              int b, int h, int q0, int S, int hq) {
   using L = Layout<D>;
+  constexpr int BQ = L::BT;
   const int nq = min(BQ, S - q0);
   const size_t base = (((size_t)b * S + q0) * hq + h) * D;
   load_tile<D>(sm + L::q, q + base, (size_t)hq * D, nq, BQ);
@@ -709,7 +727,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    float* __restrict__ dk, float* __restrict__ dv, int S, int T_, int hq, int hkv,
                    int causal, int window, float scale) {
   using L = Layout<D>;
-  constexpr int LD = L::LD, E = D / 16;
+  constexpr int LD = L::LD, E = D / 16, R = L::R, BQ = L::BT, BKV = L::BT, LDP = L::LDP;
   extern __shared__ float sm[];
   int* qps = reinterpret_cast<int*>(sm + L::qpos);
   int* kps = reinterpret_cast<int*>(sm + L::kpos);
@@ -725,9 +743,9 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   // this thread's share of dK and dV: keys kc + 16 j, columns dc + 16 e
   const int kc = threadIdx.x % 16, dc = threadIdx.x / 16;
-  float ak[4][E], av[4][E];
+  float ak[R][E], av[R][E];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < R; ++j)
 #pragma unroll
     for (int e = 0; e < E; ++e) ak[j][e] = av[j][e] = 0.f;
 
@@ -748,9 +766,9 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 #pragma unroll 2
       for (int r = 0; r < BQ; ++r) {
-        float pj[4], sj[4], od[E], qd[E];
+        float pj[R], sj[R], od[E], qd[E];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           pj[j] = sm[L::p + r * LDP + kc + 16 * j];
           sj[j] = sm[L::ds + r * LDP + kc + 16 * j];
         }
@@ -760,7 +778,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
           qd[e] = sm[L::q + r * LD + dc + 16 * e];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < R; ++j)
 #pragma unroll
           for (int e = 0; e < E; ++e) {
             av[j][e] = fmaf(pj[j], od[e], av[j][e]);
@@ -772,7 +790,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   // stage through the K/V tiles so that the stores are coalesced
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < R; ++j)
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       sm[L::k + (kc + 16 * j) * LD + dc + 16 * e] = ak[j][e];
@@ -793,7 +811,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ dq, int S, int T_, int hq, int hkv, int causal, int window,
                  float scale) {
   using L = Layout<D>;
-  constexpr int LD = L::LD, E = D / 16;
+  constexpr int LD = L::LD, E = D / 16, R = L::R, BQ = L::BT, BKV = L::BT, LDP = L::LDP;
   extern __shared__ float sm[];
   int* qps = reinterpret_cast<int*>(sm + L::qpos);
   int* kps = reinterpret_cast<int*>(sm + L::kpos);
@@ -806,9 +824,9 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   // this thread's share of dQ: rows rq + 16 i, columns dc + 16 e
   const int rq = threadIdx.x % 16, dc = threadIdx.x / 16;
-  float aq[4][E];
+  float aq[R][E];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int e = 0; e < E; ++e) aq[i][e] = 0.f;
 
@@ -829,20 +847,20 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 #pragma unroll 2
     for (int c = 0; c < BKV; ++c) {
-      float sd[4], kd[E];
+      float sd[R], kd[E];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sd[i] = sm[L::ds + (rq + 16 * i) * LDP + c];
+      for (int i = 0; i < R; ++i) sd[i] = sm[L::ds + (rq + 16 * i) * LDP + c];
 #pragma unroll
       for (int e = 0; e < E; ++e) kd[e] = sm[L::k + c * LD + dc + 16 * e];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int e = 0; e < E; ++e) aq[i][e] = fmaf(sd[i], kd[e], aq[i][e]);
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int e = 0; e < E; ++e) sm[L::q + (rq + 16 * i) * LD + dc + 16 * e] = aq[i][e];
   __syncthreads();
@@ -877,7 +895,7 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o
   if (a1 != cudaSuccess) return a1;
   if (a2 != cudaSuccess) return a2;
   launch_delta<bf16>(out, dout, delta, B, S, hq, D, st);
-  const long long kv_blocks = (long long)((T_ + kRows - 1) / kRows) * B * hkv;
+  const long long kv_blocks = (long long)((T_ + kRows - 1) / kRows) * B * hkv * (D / LK::DC);
   const long long q_blocks = (long long)((S + kRows - 1) / kRows) * B * hq;
   if (kv_blocks > INT_MAX || q_blocks > INT_MAX) return cudaErrorInvalidValue;
   flash_bwd_dkdv_tc<D><<<(unsigned)kv_blocks, kKvThreads, LK::bytes, st>>>(
@@ -893,14 +911,15 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
                        float* delta, float* dq, float* dk, float* dv, int B, int S, int T_,
                        int hq, int hkv, int causal, int window, float scale, cudaStream_t st) {
   constexpr size_t bytes = Layout<D>::bytes;
+  constexpr int BT = Layout<D>::BT;
   static const cudaError_t a1 = allow_smem(flash_bwd_dkdv_f32<D>, bytes);
   static const cudaError_t a2 = allow_smem(flash_bwd_dq_f32<D>, bytes);
   if (a1 != cudaSuccess) return a1;
   if (a2 != cudaSuccess) return a2;
   launch_delta<float>(out, dout, delta, B, S, hq, D, st);
-  flash_bwd_dkdv_f32<D><<<dim3((T_ + BKV - 1) / BKV, hkv, B), NT, bytes, st>>>(
+  flash_bwd_dkdv_f32<D><<<dim3((T_ + BT - 1) / BT, hkv, B), NT, bytes, st>>>(
       q, k, v, dout, lse, delta, qp, kp, dk, dv, S, T_, hq, hkv, causal, window, scale);
-  flash_bwd_dq_f32<D><<<dim3((S + BQ - 1) / BQ, hq, B), NT, bytes, st>>>(
+  flash_bwd_dq_f32<D><<<dim3((S + BT - 1) / BT, hq, B), NT, bytes, st>>>(
       q, k, v, dout, lse, delta, qp, kp, dq, S, T_, hq, hkv, causal, window, scale);
   return cudaGetLastError();
 }
@@ -909,7 +928,7 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 
 // q, out, dout, dq (B,S,Hq,D); k, v, dk, dv (B,T,Hkv,D): contiguous, one
 // dtype, 16-byte aligned.  lse (B,Hq,S) f32 from the forward; q_pos (B,S),
-// k_pos (B,T) int32; delta: B * Hq * S floats of scratch.  D 64 or 128.
+// k_pos (B,T) int32; delta: B * Hq * S floats of scratch.  D 64, 128 or 256.
 // Three launches on `stream`: delta, dK/dV, dQ.  Returns cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* out, const void* dout, const void* lse,
@@ -933,6 +952,9 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     if (d == 128)
       return launch_f32<128>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
                              m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+    if (d == 256)
+      return launch_f32<256>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                             m(dv), B, S, T, hq, hkv, causal, window, scale, st);
     return cudaErrorInvalidValue;
   }
   if (dtype == rt::kBFloat16) {
@@ -943,6 +965,9 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                            m(dv), B, S, T, hq, hkv, causal, window, scale, st);
     if (d == 128)
       return launch_tc<128>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                            m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+    if (d == 256)
+      return launch_tc<256>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
                             m(dv), B, S, T, hq, hkv, causal, window, scale, st);
     return cudaErrorInvalidValue;
   }

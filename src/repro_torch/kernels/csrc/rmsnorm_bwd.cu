@@ -1,28 +1,34 @@
-// Backward of the (1 + scale) RMSNorm in the three forms the training path
-// calls it in: the norm, the qk pair and the residual add with the next
-// norm (rmsnorm.cu's kNorm, its two-segment launch, and kAdd).
+// Backward of the (1 + scale) RMSNorm in the four forms the training path
+// calls it in: the norm, the qk pair, the residual add with the next norm
+// and Mamba2's gated norm (rmsnorm.cu's kNorm, its two-segment launch,
+// kAdd and kGated).
 //
 // The TPU kernel repro/kernels/rmsnorm.py (rmsnorm -> _rmsnorm_kernel) has
 // no backward: the JAX package differentiates its jnp norm.  The port's
 // forward is the kernel of rmsnorm.cu, so its gradient is a kernel too.
-// With w = 1 + scale and r = rsqrt(mean(x^2) + eps), recomputed from the
-// saved input x (kAdd: the saved sum s = x + y):
-//   dx     = r * (dy * w - x * r^2 * mean(dy * w * x))   (+ dres for kAdd:
+// With w = 1 + scale and r = rsqrt(mean(v^2) + eps), recomputed from the
+// saved input v (kNorm: x; kAdd: the saved sum s = x + y; kGated: v = y *
+// silu(z), formed from the saved y and z and rounded as the forward rounds
+// it, silu to T first, then the product):
+//   dv     = r * (dy * w - v * r^2 * mean(dy * w * v))   (+ dres for kAdd:
 //            the gradient of the sum output, so dx = dy_in = dres + dnorm)
-//   dscale = sum over rows of dy * x * r, in float32.
-// dx is computed in float32 and rounded once to x's type.  dscale is
-// deterministic, without atomics: each block writes its rows' partial sum
-// per column (norm_bwd_kernel) and a second kernel adds the blocks'
+//   dscale = sum over rows of dy * v * r, in float32;
+//   kGated: dy_in = dv * silu(z) (the rounded silu the forward multiplied
+//           by) and dz = dv * y * sigmoid(z) * (1 + z * (1 - sigmoid(z))),
+//           silu's derivative, in float32.
+// Each gradient is computed in float32 and rounded once to the input's
+// type.  dscale is deterministic, without atomics: each block writes its
+// rows' partial sum per column (norm_bwd_kernel) and a second kernel adds the blocks'
 // partials in a fixed order (dscale_kernel).  The pair's two segments (q
 // and k, each with its own gain) share one launch of each kernel.
 //
-// Bound on the card: bytes (x, dy and dres read once, dx written once;
-// about ten operations an element).  Design:
+// Bound on the card: bytes (x, dy and dres or z read once, dx and dz
+// written once; about ten operations an element, thirty gated).  Design:
 //   * a row belongs to a group of G threads (8 to 256: KC chunks of 8
 //     columns a thread, four or five), so a block of 256 threads has
 //     256 / G rows in flight, and a narrow group (G <= 32) takes R rows
 //     at once; bf16 keeps to 128 registers a thread, two blocks an SM;
-//   * every load of a row (x, dy, dres) is issued, 16 bytes a thread,
+//   * every load of a row (x, dy, dres or z) is issued, 16 bytes a thread,
 //     before the row's reduction, so their latencies overlap;
 //   * the row's two sums are reduced by warp shuffles; a group of two to
 //     eight warps (G 64 to 256) adds its warps' sums through shared memory
@@ -45,8 +51,10 @@ struct Seg {
   const void* x;     // rows of D (kAdd: the sum s)
   const void* dy;    // gradient of the normalised output
   const void* dres;  // kAdd: gradient of the sum output, else null
+  const void* z;     // kGated: the gate (x is then y), else null
   const float* gain;
-  void* dx;
+  void* dx;          // kGated: the gradient of y
+  void* dz;          // kGated: the gradient of z, else null
   int rows;
 };
 
@@ -72,6 +80,21 @@ template <>
 __device__ __forceinline__ float elem<__nv_bfloat16>(const Chunk<__nv_bfloat16>& c, int e) {
   const uint32_t u = word(c.w[0], e / 2);
   return __uint_as_float(e % 2 ? (u & 0xffff0000u) : (u << 16));
+}
+
+// x rounded to T and back, as the forward rounds its gated input.
+template <typename T>
+__device__ __forceinline__ float round_t(float x) { return rt::to_f32(rt::from_f32<T>(x)); }
+
+// silu(z) rounded to T: the factor the forward multiplied y by.
+template <typename T>
+__device__ __forceinline__ float silu_t(float z) { return round_t<T>(z / (1.f + expf(-z))); }
+
+// The normalised input v of one element: x, or kGated's y * silu(z)
+// (x = y, r = z) rounded as the forward rounds it.
+template <typename T>
+__device__ __forceinline__ float input_v(float x, float r, bool gated) {
+  return gated ? round_t<T>(x * silu_t<T>(r)) : x;
 }
 
 __device__ __forceinline__ uint32_t bits_of(float x) { return __float_as_uint(x); }
@@ -194,8 +217,12 @@ norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ p
     const T* xs = static_cast<const T*>(seg ? s1.x : s0.x);
     const T* dys = static_cast<const T*>(seg ? s1.dy : s0.dy);
     const T* dres = static_cast<const T*>(seg ? s1.dres : s0.dres);
+    const T* zs = static_cast<const T*>(seg ? s1.z : s0.z);
     const float* gain = seg ? s1.gain : s0.gain;
     T* dxs = static_cast<T*>(seg ? s1.dx : s0.dx);
+    T* dzs = static_cast<T*>(seg ? s1.dz : s0.dz);
+    const bool gated = zs != nullptr;  // uniform: rv then holds z, not dres
+    const T* rs = gated ? zs : dres;
     for (int c = threadIdx.x; c < groups * D; c += NT) acc_s[c] = 0.f;
     __syncthreads();
 
@@ -217,8 +244,8 @@ norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ p
           const bool ok = live && c0 < D;
           xv[j][k] = ok ? load_chunk<T>(xs + row, c0, D, vec) : zero_chunk<T>();
           gv[j][k] = ok ? load_chunk<T>(dys + row, c0, D, vec) : zero_chunk<T>();
-          rv[j][k] = ok && dres != nullptr ? load_chunk<T>(dres + row, c0, D, vec)
-                                           : zero_chunk<T>();
+          rv[j][k] = ok && rs != nullptr ? load_chunk<T>(rs + row, c0, D, vec)
+                                         : zero_chunk<T>();
         }
       }
       // (sum x^2, sum dy w x) of each row
@@ -235,7 +262,8 @@ norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ p
         for (int j = 0; j < R; ++j)
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            const float xf = elem<T>(xv[j][k], e), gf = elem<T>(gv[j][k], e);
+            const float xf = input_v<T>(elem<T>(xv[j][k], e), elem<T>(rv[j][k], e), gated);
+            const float gf = elem<T>(gv[j][k], e);
             sums[j].x = fmaf(xf, xf, sums[j].x);
             sums[j].y = fmaf(gf * w[e], xf, sums[j].y);
           }
@@ -258,15 +286,24 @@ norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ p
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           if (base + j >= rows) continue;
-          float o[8];
+          float o[8], oz[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            const float xf = elem<T>(xv[j][k], e), gf = elem<T>(gv[j][k], e);
+            const float yf = elem<T>(xv[j][k], e), rf = elem<T>(rv[j][k], e);
+            const float xf = input_v<T>(yf, rf, gated), gf = elem<T>(gv[j][k], e);
             o[e] = r[j] * (gf * w[e] - xf * coef[j]);
-            if (dres != nullptr) o[e] += elem<T>(rv[j][k], e);
+            if (gated) {
+              // through v = y * silu(z): dy = dv silu(z), dz = dv y silu'(z)
+              const float sig = 1.f / (1.f + expf(-rf));
+              oz[e] = o[e] * yf * (sig * (1.f + rf * (1.f - sig)));
+              o[e] *= silu_t<T>(rf);
+            } else if (dres != nullptr) {
+              o[e] += rf;
+            }
             a[e] = fmaf(gf, xf * r[j], a[e]);
           }
           store_chunk<T>(dxs + (size_t)(base + j) * D, c0, D, vec, o);
+          if (gated) store_chunk<T>(dzs + (size_t)(base + j) * D, c0, D, vec, oz);
         }
         // the group's own row of acc_s: no other thread touches these
         if (vec) {
@@ -358,25 +395,27 @@ bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_
 
 }  // namespace
 
-// Segment 0: x0 (rows0, D) (kAdd: the saved sum), dy0, dres0 (null unless
-// the add form), gain0, dx0 out; segment 1 (rows1 > 0: the pair's k): x1,
-// dy1, gain1, dx1.  All rows contiguous, one dtype, D <= 8192.  The first
-// kernel runs at most `blocks` blocks of 256 threads, each striding over
-// both segments' rows; partial: blocks * 2 * D floats of scratch.
-// dgain0/dgain1: (D,) f32 out (dgain1 null without segment 1).  Two
-// launches.  Returns cudaGetLastError().
+// Segment 0: x0 (rows0, D) (kAdd: the saved sum; kGated: y), dy0, dres0
+// (null unless the add form), z0 (null unless the gated form), gain0, dx0
+// out (kGated: the gradient of y), dz0 out (kGated only); segment 1
+// (rows1 > 0: the pair's k): x1, dy1, gain1, dx1.  All rows contiguous, one
+// dtype, D <= 8192.  The first kernel runs at most `blocks` blocks of 256
+// threads, each striding over both segments' rows; partial: blocks * 2 * D
+// floats of scratch.  dgain0/dgain1: (D,) f32 out (dgain1 null without
+// segment 1).  Two launches.  Returns cudaGetLastError().
 extern "C" int rmsnorm_bwd_launch(int dtype, int D, float eps, const void* x0, const void* dy0,
-                                  const void* dres0, const void* gain0, void* dx0, int rows0,
-                                  const void* x1, const void* dy1, const void* gain1, void* dx1,
-                                  int rows1, float* partial, int blocks, float* dgain0,
-                                  float* dgain1, void* stream) {
+                                  const void* dres0, const void* z0, const void* gain0, void* dx0,
+                                  void* dz0, int rows0, const void* x1, const void* dy1,
+                                  const void* gain1, void* dx1, int rows1, float* partial,
+                                  int blocks, float* dgain0, float* dgain1, void* stream) {
   if (D <= 0 || D > 8192 || rows0 < 0 || rows1 < 0 || blocks <= 0 || partial == nullptr ||
-      dgain0 == nullptr || (rows1 > 0 && dgain1 == nullptr))
+      dgain0 == nullptr || (rows1 > 0 && dgain1 == nullptr) ||
+      (z0 != nullptr && (dz0 == nullptr || dres0 != nullptr)))
     return cudaErrorInvalidValue;
-  const Seg s0{x0, dy0, dres0, static_cast<const float*>(gain0), dx0, rows0};
-  const Seg s1{x1, dy1, nullptr, static_cast<const float*>(gain1), dx1, rows1};
+  const Seg s0{x0, dy0, dres0, z0, static_cast<const float*>(gain0), dx0, dz0, rows0};
+  const Seg s1{x1, dy1, nullptr, nullptr, static_cast<const float*>(gain1), dx1, nullptr, rows1};
   const int vec = D % 8 == 0 && aligned16(x0) && aligned16(dy0) && aligned16(dres0) &&
-                  aligned16(gain0) && aligned16(dx0) &&
+                  aligned16(z0) && aligned16(dz0) && aligned16(gain0) && aligned16(dx0) &&
                   (rows1 == 0 || (aligned16(x1) && aligned16(dy1) && aligned16(gain1) &&
                                   aligned16(dx1)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -21,9 +21,9 @@ so its gradient is one too.  ``FlashAttentionFn`` is the
 ``torch.autograd.Function`` that ``ops.flash_attention`` routes a CUDA
 call through when an input needs a gradient: its forward launches the
 forward kernel with the log-sum-exp, its backward the backward kernel.
-The backward takes no ring, no softcap and D 64 or 128 (ROADMAP §3); a
-call under grad outside that raises ``NotImplementedError`` before
-anything runs.
+The backward takes no ring, no softcap and D 64, 128 or 256 (at D 256 a
+dK/dV block owns half of the columns, ROADMAP §3); a call under grad
+outside that raises ``NotImplementedError`` before anything runs.
 
 It is bound by the bytes of q, K, V and out at the main path's shapes.  In
 bf16 a block owns 64 *packed rows* of one KV head (packed row r is query
@@ -65,8 +65,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                  + [ctypes.c_float, ctypes.c_void_p])
-_BWD_HEAD_DIMS = (64, 128)
-_BWD_TODO = "ROADMAP.md §3 (backward kernels: softcap, D 256, the ring)"
+_BWD_HEAD_DIMS = (64, 128, 256)
+_BWD_TODO = "ROADMAP.md §3 (backward kernels: softcap, the ring)"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Launch geometry, as csrc/flash_attention.cu has it: a bf16 block owns
 # _BM packed rows; a split walks at most _MAX_TILES key tiles (its live-tile
@@ -253,7 +253,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, q_pos, k_pos,
                         causal=True, window=0, scale, softcap=0.0):
     """Launch the backward kernel: (dq, dk, dv) in the inputs' shapes and
     dtype.  ``out`` and ``lse`` are the forward's (``return_lse``), ``dout``
-    the gradient of ``out``.  CUDA tensors, D 64 or 128, no softcap."""
+    the gradient of ``out``.  CUDA tensors, D 64, 128 or 256, no
+    softcap."""
     if q.device.type != "cuda":
         raise RuntimeError("flash_attention_bwd kernel needs CUDA tensors; "
                            "use flash_attention_bwd_plain on the CPU")
@@ -324,7 +325,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, q_pos, k_pos,
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention under autograd on the card: the forward kernel with
     its log-sum-exp, and the backward kernel.  Inputs (q, k, v, q_pos,
-    k_pos, causal, window, scale); no ring, no softcap, D 64 or 128
+    k_pos, causal, window, scale); no ring, no softcap, D 64, 128 or 256
     (``ops.flash_attention`` checks before it applies this)."""
 
     @staticmethod

@@ -7,14 +7,14 @@ kernel to the plain version.
 
 Gradients on the card: a kernel's output is written through ctypes and
 carries no autograd graph, so when grad mode is on and a CUDA input
-requires a gradient, ``flash_attention``, ``rmsnorm``, ``rmsnorm_pair``
-and ``add_rmsnorm`` go through their ``torch.autograd.Function``s
+requires a gradient, ``flash_attention``, the four norm entry points,
+``ssd`` and ``rglru`` go through their ``torch.autograd.Function``s
 (forward kernel, then backward kernel: ``FlashAttentionFn``,
-``RMSNormFn``, ``RMSNormPairFn``, ``AddRMSNormFn``); otherwise, as on
-every serving call, they launch directly.  The kernels with no backward
-yet (``gated_rmsnorm``, ``ssd``, ``rglru``, the decode kernels) raise
-``NotImplementedError`` in that case: they never return an output cut
-from its inputs.
+``RMSNormFn``, ``RMSNormPairFn``, ``AddRMSNormFn``, ``GatedRMSNormFn``,
+``SSDFn``, ``RGLRUFn``); otherwise, as on every serving call, they launch
+directly.  The decode kernels have no backward and raise
+``NotImplementedError`` in that case, as flash does with a softcap or a
+ring: they never return an output cut from its inputs.
 """
 from __future__ import annotations
 
@@ -48,8 +48,8 @@ def _no_backward(name: str, *ts) -> None:
     """Raise where a kernel without a backward would be recorded."""
     if _grad(*ts):
         raise NotImplementedError(
-            f"{name} has no backward kernel yet (ROADMAP.md §3): its CUDA "
-            "output would carry no gradient")
+            f"{name} has no backward kernel (decode runs no training "
+            "step): its CUDA output would carry no gradient")
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -83,7 +83,8 @@ def gated_rmsnorm(y, z, scale, eps: float = 1e-6):
     """rmsnorm(y * silu(z), scale): Mamba2's gated output norm."""
     if not _route(y):
         return _norm.gated_rmsnorm_plain(y, z, scale, eps)
-    _no_backward("gated_rmsnorm", y, z, scale)
+    if _grad(y, z, scale):
+        return _norm.GatedRMSNormFn.apply(y, z, scale, eps)
     return _norm.gated_rmsnorm(y, z, scale, eps)
 
 
@@ -174,7 +175,8 @@ def ssd(x, dt, a_log, b_mat, c_mat, d_skip=None, chunk=128):
     """Zero-state chunked SSD scan: (B,S,H,P) in x's dtype."""
     if not _route(x):
         return _ssd.ssd_plain(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
-    _no_backward("ssd", x, dt, a_log, b_mat, c_mat, d_skip)
+    if _grad(x, dt, a_log, b_mat, c_mat, d_skip):
+        return _ssd.SSDFn.apply(x, dt, a_log, b_mat, c_mat, d_skip, chunk)
     return _ssd.ssd(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)
 
 
@@ -182,7 +184,8 @@ def rglru(x, log_a, gate_x):
     """Zero-state RG-LRU scan over (B,S,D), in x's dtype."""
     if not _route(x):
         return _rglru.rglru_plain(x, log_a, gate_x)
-    _no_backward("rglru", x, log_a, gate_x)
+    if _grad(x, log_a, gate_x):
+        return _rglru.RGLRUFn.apply(x, log_a, gate_x)
     return _rglru.rglru(x, log_a, gate_x)
 
 
@@ -202,16 +205,18 @@ _COUNTED = {"decode_attention": (_decode, "launches"),
             "ssd": (_ssd, "launches"), "rglru": (_rglru, "launches"),
             "flash_attention_bwd": (_flash, "bwd_launches"),
             "rmsnorm_bwd": (_norm, "bwd_launches"),
+            "ssd_bwd": (_ssd, "bwd_launches"),
+            "rglru_bwd": (_rglru, "bwd_launches"),
             "decode_attention_partials": (_decode, "partial_launches"),
             "paged_decode_attention_partials": (_paged, "partial_launches"),
             "attention_combine": (_decode, "combine_launches")}
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the eight kernels, the six forward kernels and the
-    two backward ones, and of the decode kernels' partials and combine
-    entry points, which a serving mesh runs (plain-version calls
-    excluded)."""
+    """Launch counts of the ten kernels, the six forward kernels and the
+    four backward ones (flash, the norm forms, ``ssd``, ``rglru``), and of
+    the decode kernels' partials and combine entry points, which a serving
+    mesh runs (plain-version calls excluded)."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _COUNTED.items()}
 

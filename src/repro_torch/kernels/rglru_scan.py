@@ -15,6 +15,21 @@ is read once; ``a``, ``beta`` and ``b`` are computed once, in float32, and
 ``rglru`` launches the kernel on CUDA tensors; ``rglru_plain`` is the same
 function in plain PyTorch (``ref.rglru_chunked``), which the CPU path runs
 and the kernel is held against.
+
+Backward: ``csrc/rglru_scan_bwd.cu``, launched by ``rglru_bwd``: the
+reverse-time recurrence ``dh_t = dy_t + a_{t+1} dh_{t+1}``, then ``da_t =
+dh_t h_{t-1}`` and ``db_t = dh_t``, carried through ``a = exp(log_a)`` and
+``b = sqrt(max(1 - a^2, 0)) gate x`` to d log_a, d gate and d x (f32,
+rounded once to x's dtype).  ``h_{t-1}`` is the f32 state, recomputed
+forward inside the kernel (the forward's output is rounded).  It keeps
+the forward's cut of time (``plan``), run backward: the tiles are walked
+last to first, the carry of ``a dh`` coming from the later tile, each
+tile's incoming state recomputed from a checkpoint that a first forward
+pass over the tiles leaves in a small workspace.  ``rglru_bwd_plain`` is
+the same function in plain PyTorch, with the gradient ``jax.grad`` of
+``ref.rglru_chunked`` gives where ``1 - a^2 = 0`` (``_dlog_a``).
+``RGLRUFn`` is the ``torch.autograd.Function`` ``ops.rglru`` routes a CUDA
+call through when an input needs a gradient.
 """
 from __future__ import annotations
 
@@ -26,9 +41,13 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0                 # kernel launches (plain-version calls excluded)
+bwd_launches = 0             # backward kernel launches
 _count_lock = threading.Lock()
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# x, log_a, gate, dy, dx, dlog_a, dgate, work; B, S, D, segs, per, dtype;
+# stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 ONE_TILE_SEGS = 16   # most warps of a one-tile launch
@@ -51,10 +70,26 @@ def plan(s: int, staged: bool = None):
     return -(-s // per), per
 
 
-def _counted() -> None:
-    global launches
+def _counted(bwd: bool = False) -> None:
+    global launches, bwd_launches
     with _count_lock:
-        launches += 1
+        if bwd:
+            bwd_launches += 1
+        else:
+            launches += 1
+
+
+def _check(name, x, *others):
+    if x.dim() != 3 or any(t.shape != x.shape for t in others):
+        raise ValueError(f"{name}: shapes {tuple(x.shape)}, "
+                         + ", ".join(str(tuple(t.shape)) for t in others))
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in others):
+        raise TypeError(f"{name}: dtypes {x.dtype}, "
+                        + ", ".join(str(t.dtype) for t in others))
+    for t in (x,) + others:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous and on "
+                             "one device")
 
 
 def rglru(x, log_a, gate_x, staged: bool = None):
@@ -64,17 +99,7 @@ def rglru(x, log_a, gate_x, staged: bool = None):
     if x.device.type != "cuda":
         raise RuntimeError("rglru kernel needs CUDA tensors; use rglru_plain "
                            "on the CPU")
-    if x.dim() != 3 or log_a.shape != x.shape or gate_x.shape != x.shape:
-        raise ValueError(f"rglru: shapes {tuple(x.shape)}, "
-                         f"{tuple(log_a.shape)}, {tuple(gate_x.shape)}")
-    if x.dtype not in _DTYPES or log_a.dtype != x.dtype \
-            or gate_x.dtype != x.dtype:
-        raise TypeError(f"rglru: dtypes {x.dtype}, {log_a.dtype}, "
-                        f"{gate_x.dtype}")
-    for t in (x, log_a, gate_x):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError("rglru: tensors must be contiguous and on one "
-                             "device")
+    _check("rglru", x, log_a, gate_x)
     b, s, d = x.shape
     segs, per = plan(s, staged)
     y = torch.empty_like(x)
@@ -92,3 +117,89 @@ def rglru(x, log_a, gate_x, staged: bool = None):
 def rglru_plain(x, log_a, gate_x):
     """The same function in plain PyTorch (the CPU path and the oracle)."""
     return ref.rglru_chunked(x, log_a, gate_x)
+
+
+# ------------------------------------------------------------- backward
+def rglru_bwd(x, log_a, gate_x, dy, staged: bool = None):
+    """Launch the backward kernel: (dx, dlog_a, dgate_x) of ``rglru(x,
+    log_a, gate_x)`` for the output gradient ``dy``, in x's dtype.
+    ``staged`` forces a path (``plan``).  CUDA tensors only."""
+    if x.device.type != "cuda":
+        raise RuntimeError("rglru_bwd kernel needs CUDA tensors; use "
+                           "rglru_bwd_plain on the CPU")
+    dy = dy.contiguous()
+    _check("rglru_bwd", x, log_a, gate_x, dy)
+    b, s, d = x.shape
+    segs, per = plan(s, staged)
+    tiles = -(-s // (segs * per))
+    dx, dla, dg = (torch.empty_like(x) for _ in range(3))
+    # each tile's incoming f32 state, from the first, forward pass
+    work = torch.empty(max(1, b * (tiles - 1) * d), dtype=torch.float32,
+                       device=x.device)
+    fn = build.launcher("rglru_scan_bwd", "rglru_scan_bwd_launch",
+                        _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), log_a.data_ptr(), gate_x.data_ptr(),
+                 dy.data_ptr(), dx.data_ptr(), dla.data_ptr(), dg.data_ptr(),
+                 work.data_ptr(), b, s, d, segs, per, _DTYPES[x.dtype],
+                 build.current_stream(x.device))
+    if err:
+        raise RuntimeError(f"rglru backward launch failed: CUDA error {err}")
+    _counted(bwd=True)
+    return dx, dla, dg
+
+
+def _dlog_a(la, da, dbeta):
+    """d log_a from the gradients of ``a = exp(la)`` and of ``beta =
+    sqrt(max(1 - exp(2 la), 0))``, by the steps ``jax.grad`` takes: sqrt's
+    ``0.5 / beta``, max's 1 above 0, 0.5 at 0 and 0 below, then ``-2
+    exp(2 la)``.  So where ``1 - a^2 = 0`` (la = 0, or so near it that
+    exp(2 la) rounds to 1) the gradient is -inf (+inf) where ``dh gate x``
+    is positive (negative), and NaN where it is 0, as ``jax.grad`` of
+    ``ref.rglru_chunked`` gives."""
+    e2 = torch.exp(2.0 * la)
+    u = 1.0 - e2
+    beta = torch.sqrt(torch.clamp_min(u, 0.0))
+    coef = torch.where(u > 0, 1.0, torch.where(u == 0, 0.5, 0.0))
+    return da * torch.exp(la) - (dbeta * (0.5 / beta)) * coef * e2 * 2.0
+
+
+def rglru_bwd_plain(x, log_a, gate_x, dy):
+    """The backward kernel's function in plain PyTorch, in f32 (f64 for
+    f64 inputs): the states by the forward's scan, the reverse recurrence
+    by the same scan over reversed time (coefficients ``a_{t+1}``), then
+    the gradients of the inputs, rounded once to x's dtype."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    la, xf, gf = log_a.to(f32), x.to(f32), gate_x.to(f32)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * la), 0.0))
+    a, bx = torch.exp(la), beta * gf * xf
+
+    def combine(c1, c2):
+        return [c1[0] * c2[0], c1[1] * c2[0] + c2[1]]
+
+    _, h = ref._associative_scan(combine, [a, bx], dim=1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    _, dh = ref._associative_scan(
+        combine, [torch.flip(a_next, [1]), torch.flip(dy.to(f32), [1])],
+        dim=1)
+    dh = torch.flip(dh, [1])
+    dhx = dh * xf
+    dla = _dlog_a(la, dh * h_prev, dhx * gf)
+    return ((dh * (beta * gf)).to(x.dtype), dla.to(x.dtype),
+            (dhx * beta).to(x.dtype))
+
+
+class RGLRUFn(torch.autograd.Function):
+    """``rglru`` under autograd on the card: forward kernel, backward
+    kernel (from the saved inputs)."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, gate_x):
+        y = rglru(x, log_a, gate_x)
+        ctx.save_for_backward(x, log_a, gate_x)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return rglru_bwd(*ctx.saved_tensors, dy)

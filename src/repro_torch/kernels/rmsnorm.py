@@ -21,18 +21,22 @@ the kernel is held against.  A wrapper launches on CUDA tensors and raises
 on any other; it reads inputs through a row stride (a slice of a wider
 projection is not copied) and writes contiguous outputs.
 
-Backward: ``csrc/rmsnorm_bwd.cu``, one body for the three forms the
-training path calls (the norm, the pair, the add; the gated form has
-none yet, ROADMAP §3): ``dx = r (dy w - x r^2 mean(dy w x))`` from the
-saved input, plus the sum output's gradient for the add form, and the
-gain's gradient summed over rows in f32 by a second, deterministic pass.
+Backward: ``csrc/rmsnorm_bwd.cu``, one body for the four forms the
+training path calls (the norm, the pair, the add, the gated norm): ``dx
+= r (dy w - x r^2 mean(dy w x))`` from the saved input, plus the sum
+output's gradient for the add form, and the gain's gradient summed over
+rows in f32 by a second, deterministic pass.  The gated form recomputes
+its input ``v = y * silu(z)`` from the saved y and z, rounded as the
+forward rounds it, and carries ``dv`` on to ``dy = dv silu(z)`` and
+``dz = dv y silu'(z)``.
 Rows go to groups of 8 to 128 threads, several rows in flight a block
 with 16-byte loads, all issued before the row's reduction (the source's
 header has the design).
-``rmsnorm_bwd``, ``rmsnorm_pair_bwd`` and ``add_rmsnorm_bwd`` launch it;
-each ``*_bwd_plain`` is the same arithmetic in plain PyTorch.  The TPU
-kernel has no backward (the JAX package differentiates its jnp norm).
-``RMSNormFn``, ``RMSNormPairFn`` and ``AddRMSNormFn`` are the
+``rmsnorm_bwd``, ``rmsnorm_pair_bwd``, ``add_rmsnorm_bwd`` and
+``gated_rmsnorm_bwd`` launch it; each ``*_bwd_plain`` is the same
+arithmetic in plain PyTorch.  The TPU kernel has no backward (the JAX
+package differentiates its jnp norm).  ``RMSNormFn``, ``RMSNormPairFn``,
+``AddRMSNormFn`` and ``GatedRMSNormFn`` are the
 ``torch.autograd.Function``s ``ops`` routes a CUDA call through when an
 input needs a gradient: forward kernel, then backward kernel.
 """
@@ -58,10 +62,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # segment 1: a, sa, gain, out, rows; stream
 _ARGTYPES = [_I, _I, _I, ctypes.c_float, _P, _P, _L, _L, _P, _P, _P, _I,
              _P, _L, _P, _P, _I, _P]
-# dtype, D, eps; segment 0: x, dy, dres, gain, dx, rows; segment 1: x, dy,
-# gain, dx, rows; partial, blocks, dgain0, dgain1, stream
-_BWD_ARGTYPES = [_I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                 _P, _I, _P, _I, _P, _P, _P]
+# dtype, D, eps; segment 0: x, dy, dres, z, gain, dx, dz, rows; segment 1:
+# x, dy, gain, dx, rows; partial, blocks, dgain0, dgain1, stream
+_BWD_ARGTYPES = [_I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                 _P, _P, _P, _I, _P, _I, _P, _P, _P]
 _BWD_MAX_D = 8192
 
 
@@ -227,14 +231,17 @@ def gated_rmsnorm_plain(y, z, scale, eps: float = 1e-6):
 
 # ------------------------------------------------------------- backward
 def _bwd_launch(x0, dy0, scale0, dres0=None, x1=None, dy1=None, scale1=None,
-                eps: float = 1e-6):
+                eps: float = 1e-6, z0=None):
     """One backward launch (two kernels) over one or two segments of
-    contiguous rows.  Returns (dx0, dgain0, dx1, dgain1)."""
+    contiguous rows; ``z0`` makes segment 0 the gated form (x0 is then its
+    y).  Returns (dx0, dgain0, dx1, dgain1), and dz0 after them with
+    ``z0``."""
     d = x0.shape[-1]
     if d > _BWD_MAX_D:
         raise NotImplementedError(f"rmsnorm backward: width {d} > "
                                   f"{_BWD_MAX_D}")
-    segs = [(x0, dy0, dres0)] + ([] if x1 is None else [(x1, dy1, None)])
+    segs = [(x0, dy0, dres0 if z0 is None else z0)] + (
+        [] if x1 is None else [(x1, dy1, None)])
     for x, dy, dres in segs:
         for t in (dy,) + (() if dres is None else (dres,)):
             if t.shape != x.shape or t.dtype != x.dtype \
@@ -244,6 +251,8 @@ def _bwd_launch(x0, dy0, scale0, dres0=None, x1=None, dy1=None, scale1=None,
                                  f"{x.dtype}")
     x0, dy0 = x0.contiguous(), dy0.contiguous()
     dres0 = None if dres0 is None else dres0.contiguous()
+    z0 = None if z0 is None else z0.contiguous()
+    dz0 = None if z0 is None else _empty(z0)
     dx0, dg0 = _empty(x0), torch.empty(d, dtype=torch.float32,
                                        device=x0.device)
     rows0, rows1 = x0.numel() // d, 0
@@ -262,14 +271,17 @@ def _bwd_launch(x0, dy0, scale0, dres0=None, x1=None, dy1=None, scale1=None,
     fn = build.library("rmsnorm_bwd", _BWD_ARGTYPES).rmsnorm_bwd_launch
     with torch.cuda.device(dev):
         err = fn(_DTYPES[x0.dtype], d, eps, x0.data_ptr(), dy0.data_ptr(),
-                 ptr(dres0), scale0.data_ptr(), dx0.data_ptr(), rows0,
-                 ptr(x1), ptr(dy1), ptr(scale1), ptr(dx1), rows1,
+                 ptr(dres0), ptr(z0), scale0.data_ptr(), dx0.data_ptr(),
+                 ptr(dz0), rows0, ptr(x1), ptr(dy1), ptr(scale1), ptr(dx1),
+                 rows1,
                  partial.data_ptr(), blocks, dg0.data_ptr(), ptr(dg1),
                  build.current_stream(dev))
     if err:
         raise RuntimeError(f"rmsnorm backward launch failed: CUDA error "
                            f"{err} (D {d})")
     _counted(bwd=True)
+    if z0 is not None:
+        return dx0, dg0, dx1, dg1, dz0
     return dx0, dg0, dx1, dg1
 
 
@@ -301,6 +313,14 @@ def add_rmsnorm_bwd(s, scale, ds, dh, eps: float = 1e-6):
     return dx, dg
 
 
+def gated_rmsnorm_bwd(y, z, scale, dout, eps: float = 1e-6):
+    """Backward of ``gated_rmsnorm(y, z, scale)`` from the saved y and z
+    and the output gradient: (dy, dz in y's dtype, dscale f32)."""
+    _check("gated_rmsnorm_bwd", y, scale, z, dout)
+    dy, dg, _, _, dz = _bwd_launch(y, dout, scale, eps=eps, z0=z)
+    return dy, dz, dg
+
+
 def _norm_bwd_f32(x, scale, dy, eps):
     """(dx, dscale) of the norm in f32, dx not rounded."""
     xf, dyf = x.float(), dy.float()
@@ -329,6 +349,20 @@ def rmsnorm_pair_bwd_plain(q, k, q_scale, k_scale, dq_out, dk_out,
 def add_rmsnorm_bwd_plain(s, scale, ds, dh, eps: float = 1e-6):
     dx, dscale = _norm_bwd_f32(s, scale, dh, eps)
     return (ds.float() + dx).to(s.dtype), dscale
+
+
+def gated_rmsnorm_bwd_plain(y, z, scale, dout, eps: float = 1e-6):
+    """The gated form's backward kernel in plain PyTorch: the norm's
+    input ``v = y * silu(z)`` rounded as the forward rounds it, ``dv`` of
+    the norm in f32, then ``dy = dv silu(z)`` and ``dz = dv y silu'(z)``
+    with ``silu'(z) = sigmoid(z) (1 + z (1 - sigmoid(z)))``, each rounded
+    once.  Returns (dy, dz, dscale f32)."""
+    s = F.silu(z)
+    dv, dscale = _norm_bwd_f32(y * s, scale, dout, eps)
+    zf = z.float()
+    sig = torch.sigmoid(zf)
+    dz = dv * y.float() * (sig * (1.0 + zf * (1.0 - sig)))
+    return (dv * s.float()).to(y.dtype), dz.to(z.dtype), dscale
 
 
 class RMSNormFn(torch.autograd.Function):
@@ -383,3 +417,21 @@ class AddRMSNormFn(torch.autograd.Function):
         s, scale = ctx.saved_tensors
         dx, dscale = add_rmsnorm_bwd(s, scale, ds, dh, ctx.eps)
         return dx, dx, dscale, None
+
+
+class GatedRMSNormFn(torch.autograd.Function):
+    """``gated_rmsnorm`` under autograd on the card: the backward
+    recomputes ``y * silu(z)`` from the saved y and z."""
+
+    @staticmethod
+    def forward(ctx, y, z, scale, eps):
+        out = gated_rmsnorm(y, z, scale, eps)
+        ctx.save_for_backward(y, z, scale)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, z, scale = ctx.saved_tensors
+        dy, dz, dscale = gated_rmsnorm_bwd(y, z, scale, dout, ctx.eps)
+        return dy, dz, dscale, None

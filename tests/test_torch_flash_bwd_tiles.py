@@ -9,9 +9,11 @@ tiles that its keys' positions can meet (32 rows at D 128, 64 at D 64):
 it forms ``Sᵀ = K Qᵀ`` and ``dPᵀ = V dOᵀ`` from bf16 operands with f32
 sums, ``P = exp(S scale - lse)`` and ``dS = P (dP - delta)`` in f32, and
 adds ``Pᵀ dO`` into dV and ``dSᵀ Q`` into dK, the even pairs in one sum
-and the odd ones in another, which are added at the end.  The dQ kernel
-owns a 64-row query tile of one head and walks the 64-key tiles in order,
-adding ``dS K``.  P and dS enter their products split into bf16 ``hi =
+and the odd ones in another, which are added at the end (at D 256 two
+blocks share a key tile, each owning half of dK's and dV's columns over
+the same S and dP: the columns' sums are the ones below).  The dQ kernel
+owns a 64-row query tile of one head and walks the 64-key tiles (32 at D
+256) in order, adding ``dS K``.  P and dS enter their products split into bf16 ``hi =
 bf16(x)`` and ``lo = bf16(x - hi)``, both multiplied by the bf16 operand.
 ``_render`` is that decomposition in plain PyTorch, the split emulated by
 bf16 casts; a key tile that no query of a dQ block can see adds exact
@@ -113,10 +115,11 @@ def _render(q, k, v, out, lse, dout, q_pos, k_pos, causal, window, scale,
             dv[bb, ks] = sums[0, 1] + sums[1, 1]
     kx, vx = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
     dq = torch.zeros_like(q)
+    bk = 32 if d > 128 else KEY_TILE
     for q0 in range(0, s, DQ_ROWS):                            # dQ blocks
         qs = slice(q0, q0 + DQ_ROWS)
-        for k0 in range(0, t, KEY_TILE):
-            ks = slice(k0, k0 + KEY_TILE)
+        for k0 in range(0, t, bk):
+            ks = slice(k0, k0 + bk)
             sc = torch.einsum("bqhd,bkhd->bhqk", q[:, qs], kx[:, ks])
             p = torch.where(m[:, qs, ks][:, None],
                             torch.exp(sc * scale - lse[:, :, qs][..., None]),
@@ -179,7 +182,7 @@ def _forward(q, k, v, kw, bf16):
 
 
 @pytest.mark.parametrize("masks", ["causal", "wide"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("rep", [1, 6, 16])
 def test_tile_walk_f32_matches_jax_vjp(rep, d, masks):
     """The decomposition in f32 is the backward of the reference's masked
@@ -198,7 +201,7 @@ def test_tile_walk_f32_matches_jax_vjp(rep, d, masks):
 
 
 @pytest.mark.parametrize("masks", ["causal", "wide"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("rep", REPS)
 def test_split_within_one_spacing(rep, d, masks):
     """bf16 inputs through the hi/lo split stay within one bf16 spacing of
@@ -215,7 +218,7 @@ def test_split_within_one_spacing(rep, d, masks):
 
 
 @pytest.mark.parametrize("masks", ["causal", "wide"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("rep", REPS)
 def test_without_lo_misses_the_limit(rep, d, masks):
     """The same walk with P and dS rounded once to bf16 (``hi`` alone)

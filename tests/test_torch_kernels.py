@@ -222,7 +222,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
                                      "flash_attention": 0, "rmsnorm": 0,
                                      "paged_decode_attention": 0, "ssd": 0,
                                      "rglru": 0, "flash_attention_bwd": 0,
-                                     "rmsnorm_bwd": 0,
+                                     "rmsnorm_bwd": 0, "ssd_bwd": 0,
+                                     "rglru_bwd": 0,
                                      "decode_attention_partials": 0,
                                      "paged_decode_attention_partials": 0,
                                      "attention_combine": 0}

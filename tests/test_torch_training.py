@@ -4,8 +4,10 @@ masters), clipping, int8 error feedback, the loss, the plain backward of
 flash attention and of the norm forms (against ``jax.vjp`` of the
 reference functions), the loss gradients and ``make_train_step`` (against
 ``jax.jit(repro.training.steps.make_train_step)``) at the qwen3-4b and
-granite-8b smoke configs in f32, remat against no remat, and the synthetic
-batches.  The reference's ``train_loop`` builds a host mesh that fails on
+granite-8b smoke configs in f32 (the loss gradients also at minicpm-2b's
+and musicgen-medium's, D 64 stacks that train on one card;
+``test_torch_train_recurrent.py`` runs both at the recurrent stacks'),
+remat against no remat, and the synthetic batches.  The reference's ``train_loop`` builds a host mesh that fails on
 its own tests, so the reference functions, not the loop, are the oracle.
 
 Inputs are made with numpy from a seed and the weights bridged with
@@ -323,11 +325,15 @@ def _states(arch: str, tc_kw: dict, seed: int = 0):
     return jc, tcfg, js, tsteps.train_state(model, TTC(**tc_kw))
 
 
-def _batch(rng, vocab, b=4, s=32):
+def _batch(rng, vocab, b=4, s=32, audio=False):
+    """Tokens as labels, or for an audio stack (``audio``) labels drawn
+    apart, as the JAX package's smoke train step draws them."""
     toks = rng.integers(0, vocab, size=(b, s)).astype(np.int32)
+    labels = (rng.integers(0, vocab, size=(b, s)).astype(np.int32) if audio
+              else toks)
     mask = np.ones((b, s), np.float32)
     mask[0, -5:] = 0.0
-    return {"tokens": toks, "labels": toks, "mask": mask}
+    return {"tokens": toks, "labels": labels, "mask": mask}
 
 
 def _as_port(tree, tcfg):
@@ -337,7 +343,8 @@ def _as_port(tree, tcfg):
     return dict(m.named_parameters())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b", "minicpm-2b",
+                                  "musicgen-medium"])
 def test_loss_gradients_match_reference(arch):
     """The loss and every parameter's gradient of one batch, against
     ``jax.value_and_grad`` of the reference's loss; every gradient is
@@ -345,7 +352,8 @@ def test_loss_gradients_match_reference(arch):
     torch.set_num_threads(2)
     tc_kw = dict(total_steps=10)
     jc, tcfg, js, ts = _states(arch, tc_kw)
-    batch = _batch(np.random.default_rng(5), jc.vocab_size)
+    batch = _batch(np.random.default_rng(5), jc.vocab_size,
+                   audio=jc.family == "audio")
     jl = jsteps.make_loss_fn(jc, JTC(**tc_kw))
     (jloss, _), jg = jax.jit(jax.value_and_grad(jl, has_aux=True))(
         js["params"], {k: jnp.asarray(v) for k, v in batch.items()})

@@ -73,7 +73,8 @@ success):
    (the pair at 2048 x 32 and 2048 x 8 rows), 2560 and 2304 at 2048 rows,
    3072 (gated), 999, 64, 4096 and 8192; ``ssd``'s (dx, d dt, d a_log, dB,
    dC, d d_skip) at mamba2-780m's widths, chunks of 128 (B 2, S 1024), 100
-   and 2, one chunk and several; ``rglru``'s (dx, d log_a, d gate) from 1
+   and 2, one chunk and several, and in bf16 at 47 heads (B 2, S 1024,
+   whose last head group is short); ``rglru``'s (dx, d log_a, d gate) from 1
    to 2300 steps on both of its paths at width 4096 and 999, with log_a
    exactly 0 at a few steps (d log_a inf or NaN where the plain version
    has them); bf16 within one bf16 spacing of the f32 oracle, f32 within
@@ -286,8 +287,11 @@ true, "device": {...}}`` as the last line.  ``--details PATH`` also writes
 every measurement (step profiles, nvcc's register and shared-memory
 report) to PATH as JSON.  ``--only 2t,2c,3i,13`` builds and runs only
 those phases of the training slice, then stops without a summary: a quick
-check of a change on the card, not the smoke test (``--only 2t,2c,13``
-for work on the backward kernels, ``--only 2m,3m,14`` for the serving
+check of a change on the card, not the smoke test (``--only 2t,2c,17``
+for work on the backward kernels, 2c printing each launch apart: flash's
+delta, dK/dV, at D 256 ``flash_bwd_dkdv_reduce`` (the head groups'
+partials), dQ; ``ssd``'s ``ssd_bwd_states_tc``, carry, ``ssd_bwd_chunk_tc``,
+reduce, params; ``--only 2m,3m,14`` for the serving
 mesh, ``--only 3p,13,15`` for the distributed trainer, ``--only 16`` for
 the dry run, ``--only 3r,17`` for the recurrent stacks' training).  The summary's decode rows count the partials launches of a mesh
 path with the kernel's (the same kernel, unmerged) and list them, the
@@ -2897,13 +2901,18 @@ def check_backward(dev) -> dict:
             spac["rmsnorm_bwd"] = max(spac["rmsnorm_bwd"], sp)
     # mamba2-780m's widths (48 heads of 64, state 128): its training
     # prompt, chunks of 100 and the narrow chunks of 2, one chunk and
-    # several
-    ssd_cases = [(2, 1024, 128), (1, 100, 100), (1, 300, 100), (1, 2, 2),
-                 (1, 130, 2)]
-    for b, s, chunk in ssd_cases:
-        for dt in (bf, f32):
-            e, sp = check_ssd_bwd(dev, rng, f"B {b} S {s} chunk {chunk}", b, s,
-                                  48, 64, 128, chunk, dt)
+    # several; then, in bf16, 47 heads at the training shape, whose last
+    # head group is short (ssd_bwd_group_cases)
+    ssd_cases = [(2, 1024, 48, 128, dt) for dt in (bf, f32)]
+    ssd_cases += [(1, s, 48, chunk, dt) for s, chunk in (
+        (100, 100), (300, 100), (2, 2), (130, 2)) for dt in (bf, f32)]
+    group_cases = ssd_bwd_group_cases(dev)
+    group_rng = np.random.default_rng(SEED + 26)    # the others' draws kept
+    for ssd_rng, some in ((rng, ssd_cases), (group_rng, group_cases)):
+        for b, s, h, chunk, dt in some:
+            e, sp = check_ssd_bwd(dev, ssd_rng,
+                                  f"B {b} S {s} H {h} chunk {chunk}", b, s,
+                                  h, 64, 128, chunk, dt)
             errs["ssd_bwd"] = max(errs["ssd_bwd"], e)
             spac["ssd_bwd"] = max(spac["ssd_bwd"], sp)
     # recurrentgemma-9b's width 4096 and an odd one, 1 to 2300 steps, both
@@ -2923,7 +2932,8 @@ def check_backward(dev) -> dict:
         f"spacings (limit {BWD_SPACINGS}), lse {lse_worst:.2e}; norm bwd: "
         f"{2 * len(norm_cases)} cases, max abs err {errs['rmsnorm_bwd']:.3e}, "
         f"bf16 {spac['rmsnorm_bwd']:.3f} spacings; ssd bwd: "
-        f"{2 * len(ssd_cases)} cases, max abs err {errs['ssd_bwd']:.3e}, "
+        f"{len(ssd_cases + group_cases)} cases, max abs err "
+        f"{errs['ssd_bwd']:.3e}, "
         f"bf16 {spac['ssd_bwd']:.3f} spacings; rglru bwd: "
         f"{2 * len(rg_cases)} cases, max abs err {errs['rglru_bwd']:.3e}, "
         f"bf16 {spac['rglru_bwd']:.3f} spacings")
@@ -2932,6 +2942,23 @@ def check_backward(dev) -> dict:
                                       lse_err=lse_worst,
                                       bit_identical=repeated)
     return errs
+
+
+def ssd_bwd_group_cases(dev) -> list:
+    """``check_ssd_bwd`` cases (b, s, h, chunk, dtype) whose planned head
+    group leaves the last group short: bf16, B 2, S 1024, chunk 128, 47
+    heads (groups of 6, the last of 5 on 132 SMs), so the kernels' path for
+    heads past H runs on the card.  Raises if the card's plan divides the
+    heads."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as sk
+    b, s, h, chunk = 2, 1024, 47, 128
+    group = sk.bwd_head_group(b, s, h, chunk, build.sm_count(dev.index or 0))
+    if h % group == 0:
+        raise AssertionError(f"ssd bwd: {group} heads a block divide {h}; "
+                             "no short last group to check")
+    return [(b, s, h, chunk, torch.bfloat16)]
 
 
 def same_bits(a, b) -> bool:
@@ -2947,7 +2974,8 @@ def check_bwd_repeat(dev, rng) -> list:
     over 8 heads of 128, causal; the norm and add forms over 2048 rows of
     2560, the pair over q 2048 x 32 and k 2048 x 8 rows of 128; the
     recurrent stacks': the gated norm over 2048 rows of 3072, ``ssd`` at
-    mamba2-780m's (B 2, S 1024, 48 heads, chunk 128), ``rglru`` over
+    mamba2-780m's (B 2, S 1024, 48 heads, chunk 128) and at 47 heads (a
+    short last head group, ``ssd_bwd_group_cases``), ``rglru`` over
     2 x 1024 x 4096, flash at D 256, 16 over 1, window 2048."""
     import numpy as np
     import torch
@@ -2978,6 +3006,11 @@ def check_bwd_repeat(dev, rng) -> list:
     sx, sdt, sal, sbm, scm, sds = ssd_inputs(rng, 2, 1024, 48, 64, 128, bf,
                                              dev)
     sdy = rnd((2, 1024, 48, 64))
+    (sb, ss, sh, sq, _), = ssd_bwd_group_cases(dev)
+    srng = np.random.default_rng(SEED + 27)    # the others' draws kept
+    ssd_short = ssd_inputs(srng, sb, ss, sh, 64, 128, bf, dev)
+    ssd_short_dy = torch.from_numpy(srng.standard_normal(
+        (sb, ss, sh, 64)).astype(np.float32)).to(dev, bf)
     rx, rla, rgt = rglru_inputs(rng, (2, 1024, 4096), bf, dev)
     rdy = rnd((2, 1024, 4096))
     q2, k2, v2, do2, qp2, kp2 = flash_bwd_inputs(rng, 2, 1024, 1024, 16, 1,
@@ -2996,6 +3029,8 @@ def check_bwd_repeat(dev, rng) -> list:
         "rmsnorm_bwd gated": lambda: rk.gated_rmsnorm_bwd(gy, gz, g3, gdo),
         "ssd_bwd": lambda: tuple(t for t in sk.ssd_bwd(
             sx, sdt, sal, sbm, scm, sds, sdy, chunk=128) if t is not None),
+        f"ssd_bwd H {sh}": lambda: tuple(t for t in sk.ssd_bwd(
+            *ssd_short, ssd_short_dy, chunk=sq) if t is not None),
         "rglru_bwd": lambda: rg.rglru_bwd(rx, rla, rgt, rdy),
         "flash_attention_bwd D256": lambda: fk.flash_attention_bwd(
             q2, k2, v2, out2, lse2, do2, **kw2),
@@ -3187,11 +3222,24 @@ def time_backward(dev) -> dict:
 
 
 def ssd_bwd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
-    """Operations of ``ssd``'s backward as the kernel's products count
-    them, per (b, chunk, head): C B^T, dy xb^T (Q x Q x N, P), M1^T dy,
-    M2 B, M2^T C (Q x Q x P, N, N), and the state products (the chunk
-    state, the carried state's local term, B G, dy H^T, xb G^T: five of
-    Q x N x P); two operations a multiply-add."""
+    """Operations ``ssd``'s backward needs, two a multiply-add: per (b,
+    chunk) C B^T once (the heads share B and C), per (b, chunk, head) the
+    lower triangles (the decay mask L is causal) of dy xb^T (Q x Q x P),
+    M1^T dy (P), M2 B and M2^T C (N, N), and the five state products (the
+    chunk state, the carried state's local term, B G, dy H^T, xb G^T: Q x
+    N x P each).  The bound of the ``ssd_bwd`` row."""
+    tri = q * (q + 1) // 2
+    return b * (s // q) * (2 * tri * n + h * (
+        2 * tri * (2 * n + 2 * p) + 10 * q * n * p))
+
+
+def ssd_bwd_f32_route_flops(b: int, s: int, h: int, p: int, n: int,
+                            q: int) -> int:
+    """Operations of ``ssd``'s backward as the f32 route's products count
+    them, per (b, chunk, head): C B^T, dy xb^T, M1^T dy, M2 B, M2^T C as
+    full Q x Q squares and the five state products; kept beside the
+    bound to compare with the rows of the CUDA-core route, whose bound it
+    was."""
     return b * (s // q) * h * (2 * q * q * (3 * n + 2 * p) + 10 * q * n * p)
 
 
@@ -3205,6 +3253,7 @@ def time_recurrent_backward(dev, rng, flush) -> dict:
     single PyTorch call computes ``ssd``'s or ``rglru``'s backward."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rmsnorm as rk
@@ -3225,18 +3274,22 @@ def time_recurrent_backward(dev, rng, flush) -> dict:
     # B, C read, dB, dC written (B S N); a_log, d_skip and theirs (f32)
     nbytes = 2 * (3 * x.numel() + 2 * dt.numel() + 4 * bm.numel()) + 16 * h
     flops = ssd_bwd_flops(b, s, h, p, n, q)
-    # the inputs are bf16: the bound takes their products at the tensor
-    # cores' rate; the kernel's own CUDA-core f32 products are bounded
-    # apart, at 67 TFLOP/s
+    f32_flops = ssd_bwd_f32_route_flops(b, s, h, p, n, q)
+    # the inputs are bf16: the bound takes the products the function needs
+    # at the tensor cores' rate, where the kernel runs them; the f32
+    # route's count at the CUDA cores' 67 TFLOP/s, the rows' bound before
+    # the redesign, is kept beside for comparison with them
     bms, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    sms = build.sm_count(dev.index or 0)
     rows["ssd_bwd"] = dict(
         ms=device_ms(kern, flush), plain_ms=device_ms(plain, flush),
         library_ms=None, bound_ms=bms, bound_by=by,
-        cuda_core_bound_ms=bound(nbytes, flops, PEAK_F32_FLOPS)[0],
-        flops=flops, bytes=nbytes, host_ms=host_ms(kern, flush=flush),
+        cuda_core_bound_ms=bound(nbytes, f32_flops, PEAK_F32_FLOPS)[0],
+        flops=flops, f32_route_flops=f32_flops, bytes=nbytes, host_ms=host_ms(kern, flush=flush),
         split_ms=kernel_breakdown(kern, flush),
         shape=f"B={b} S={s} H={h} P={p} N={n} chunk {q} bf16, products on "
-              "the CUDA cores in f32")
+              f"the tensor cores (mma.sync, f32 operands split hi + lo), "
+              f"{sk.bwd_head_group(b, s, h, q, sms)} heads a block")
     del x, dt, bm, cm, dy
     w = 4096
     x, la, g = rglru_inputs(rng, (b, s, w), bf, dev)
@@ -3305,7 +3358,8 @@ def time_recurrent_backward(dev, rng, flush) -> dict:
         host_ms=host_ms(kern, flush=flush),
         split_ms=kernel_breakdown(kern, flush),
         shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={dh} causal window "
-              f"{window} bf16 (recurrentgemma-9b)")
+              f"{window} bf16 (recurrentgemma-9b), dK/dV over "
+              f"{fk.bwd_kv_groups(b, s, hq, hkv, sms)} head groups")
     return rows
 
 
@@ -5472,6 +5526,9 @@ def main(argv=None) -> int:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
     DETAILS["build_logs"] = {k: build.build_log(k) for k in build.SOURCES}
     if args.only:
+        # the card's context and allocator before any phase: one that resets
+        # the peak memory first (13, 17) fails on a card nothing has used
+        torch.zeros(1, device=dev)
         only = {"2t": check_backward, "2c": time_backward,
                 "3i": train_identity, "13": train_phase,
                 "3p": train_dist_identity, "15": train_sharded_phase,
@@ -5496,7 +5553,8 @@ def main(argv=None) -> int:
           "(flash at qwen3-4b's training shape, D 64 MHA, GQA 1-16 with a "
           "window, ragged S, D 256 MQA; the norm forms at 128, 2304, 2560, "
           "999, 8192, the gated one at 3072; ssd at mamba2-780m's widths, "
-          "chunks 128, 100, 2; rglru 1-2300 steps at 4096 and 999)")
+          "chunks 128, 100, 2, and at 47 heads; rglru 1-2300 steps at 4096 "
+          "and 999)")
     errs.update(check_backward(dev))
     phase("phase 2b: moe_ffn against the reference loop (one layer at full "
         "width: mixtral-8x22b f32 and bf16, arctic-480b bf16)")
@@ -5672,7 +5730,7 @@ def main(argv=None) -> int:
                       "read_flush_ms", "warm_ms", "fixed_ms", "issue_us",
                       "staged_ms", "pair", "add", "gated", "train_lse",
                       "f32", "flops", "bytes", "split_ms", "one_tile_ms",
-                      "cuda_core_bound_ms"):
+                      "cuda_core_bound_ms", "f32_route_flops"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if "mesh" in r:

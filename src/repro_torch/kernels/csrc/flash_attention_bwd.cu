@@ -16,8 +16,9 @@
 //   dV = P^T dO,  dK = dS^T Q * scale                  (flash_bwd_dkdv_*)
 //   dQ = dS K * scale                                  (flash_bwd_dq_*)
 // Deterministic, no float atomics: a dK/dV block owns one key tile of one
-// KV head and walks every query tile of every query head of its GQA group,
-// so the group's sum is taken in a fixed order inside the block; a dQ block owns
+// KV head and walks every query tile of every query head of its GQA group
+// (at D 256 of one head group, whose partial sums a second kernel adds in
+// group order), so the sums are taken in a fixed order; a dQ block owns
 // one query tile of one head and walks the key tiles.  A tile pair that no
 // (query, key) of it can see, by the positions, is skipped.
 //
@@ -43,9 +44,23 @@
 //     256 would be 256 f32 accumulators a thread, past the 255 registers,
 //     so a dK/dV block owns half of their columns (DC = 128) and there are
 //     two blocks a key tile; each recomputes S and dP over all 256 of the
-//     depth (twice the score products, a block's registers as at D 128).
-//     Under MQA (16 query heads over 1) a block walks every query head,
-//     and the grid is 2 x (key tiles x B): 64 blocks at B 2, S 1024;
+//     depth: a pair costs 8 of one 64-key x 32-query x 256 product (S,
+//     dP, and dV and dK as hi + lo, in each half) against 6 for one block
+//     over all the columns, a third more tensor-core work, with a block's
+//     registers as at D 128.  Under MQA (16 query heads over 1) a block that walked every
+//     head of its key tile would make 64 blocks at B 2, S 1024 (half the
+//     132 SMs idle), the first key tile's walking 512 pairs against an
+//     average of 272; what bounds the kernel there is how the pairs spread
+//     over the SMs, not the SM's own rate.  So at D 256 the pairs of a key
+//     tile are split by head group: a block owns (tile pair, head group,
+//     batch row, column half), walks only its group's heads, and takes key
+//     tiles tp and nkt - 1 - tp one after the other, whose causal pair
+//     counts add up to the same for every tp.  The groups are equal, the
+//     fewest that give each SM a block (the wrapper's bwd_kv_groups): 8
+//     groups of 2 heads at B 2, S 1024, 256 blocks of 68 pairs each.  Each
+//     block writes its f32 partial dK, dV to a workspace, and
+//     flash_bwd_dkdv_reduce adds the partials in group order, applies the
+//     scale to dK and rounds once to bf16;
 //   * dQ: four warps, 16 query rows each, of a 64-row tile (Q and dO stay
 //     in shared memory); K/V tiles of 64 keys (32 at D 256, whose 128
 //     accumulators a thread leave room for 32 keys of scores; one block an
@@ -60,7 +75,8 @@
 //     meet the block's own (query tiles for dK/dV, key tiles for dQ);
 //     only those are requested.  Masks are applied score by score;
 //   * grids are 1-D and ordered so that the heaviest causal blocks start
-//     first (low key tiles for dK/dV, late query tiles for dQ).
+//     first (low key tiles for dK/dV at D 64 and 128, late query tiles for
+//     dQ).
 // f32 inputs (the identity checks, held at 2e-5) take a CUDA-core body,
 // flash_bwd_dkdv_f32 / flash_bwd_dq_f32, selected by dtype: 64 x 64 f32
 // tiles in shared memory (32 x 32 at D 256, where four 64-row tiles of 256
@@ -271,183 +287,253 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, size_t stride
   }
 }
 
-// dK, dV of one 64-key tile of KV head kh, batch row b (columns [c0, c0 +
-// DC) of them: both halves at D 256).  Block index: (key tile, batch row,
-// KV head, column half), the key tile slowest, so that the low tiles,
-// which the most causal queries see, start first.  Two sets of
-// four warps (16 keys a warp each) share the K/V tile: set 0 takes the
-// even (query tile, head) pairs and set 1 the odd ones, so a key tile
-// that every query sees takes half as long; at the end set 1's sums are
-// added to set 0's, a fixed order.
+// The warp's 16 rows of acc as f32 into rows row0.. of dst (row r at dst +
+// r * stride), rows >= nrows skipped.
+template <int DC>
+__device__ __forceinline__ void store_part(float* __restrict__ dst, size_t stride,
+                                           const float (&acc)[DC / 8][4], int row0, int nrows) {
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + g + 8 * half;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int nt = 0; nt < DC / 8; ++nt)
+      *reinterpret_cast<float2*>(dst + r * stride + nt * 8 + 2 * tq) =
+          make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+  }
+}
+
+// dK, dV of 64-key tiles of KV head kh, batch row b (columns [c0, c0 + DC)
+// of them: both halves at D 256).  Two sets of four warps (16 keys a warp
+// each) share the K/V tile: set 0 takes the even (query tile, head) pairs
+// and set 1 the odd ones, so a key tile that every query sees takes half as
+// long; at the end set 1's sums are added to set 0's, a fixed order.
+//   D 64, 128: block (key tile, batch row, KV head), the key tile slowest,
+//   so that the low tiles, which the most causal queries see, start first;
+//   it walks every head of the GQA group and rounds dK, dV to bf16.
+//   D 256: block (tile pair, head group, batch row, KV head, column half);
+//   it takes key tiles tp and nkt - 1 - tp one after the other (their
+//   causal pair counts add up to the same for every tp), walks the heads
+//   of its group only, and writes f32 partials that flash_bwd_dkdv_reduce
+//   adds in group order.
 template <int D>
 __global__ void __launch_bounds__(kKvThreads)
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int T_, int hq,
-                  int hkv, int causal, int window, float scale) {
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
+                  int groups, int B, int S, int T_, int hq, int hkv, int causal, int window,
+                  float scale) {
   using L = KvLayout<D>;
+  constexpr bool kSplit = D > 128;
   constexpr int BQ = L::BQ, LD = L::LD, CPR = D / 8, DC = L::DC, NH = D / DC;
   extern __shared__ __align__(16) unsigned char smem[];
   const bf16* Ks = reinterpret_cast<const bf16*>(smem + L::k);
   const bf16* Vs = reinterpret_cast<const bf16*>(smem + L::v);
   uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::bits);
 
-  const int per_tile = B * hkv * NH;
-  const int kt = blockIdx.x / per_tile, rest = blockIdx.x % per_tile / NH;
-  const int b = rest / hkv, kh = rest % hkv, c0 = blockIdx.x % NH * DC;
-  const int rep = hq / hkv, k0 = kt * kRows, nk = min(kRows, T_ - k0);
-  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, tq = lane % 4;
+  int x = blockIdx.x;
+  const int c0 = x % NH * DC;
+  x /= NH;
+  const int kh = x % hkv;
+  x /= hkv;
+  const int b = x % B;
+  x /= B;
+  const int g = kSplit ? x % groups : 0, kt0 = kSplit ? x / groups : x;
+  const int rep = hq / hkv, nkt = (T_ + kRows - 1) / kRows;
+  // the group's heads kh * rep + [hlo, hlo + nh)
+  const int hlo = kSplit ? g * rep / groups : 0;
+  const int nh = kSplit ? (g + 1) * rep / groups - hlo : rep;
+  const int units = kSplit && nkt - 1 - kt0 != kt0 ? 2 : 1;
+  const int tid = threadIdx.x, lane = tid % 32, g4 = lane / 4, tq = lane % 4;
   const int set = tid / kThreads, kw = (tid / 32) % kWarps;  // the warp's keys: kw * 16..
-
-  // the resident K and V tiles (rows >= nk zero)
-  const size_t kbase = (((size_t)b * T_ + k0) * hkv + kh) * D;
-  for (int idx = tid; idx < kRows * CPR; idx += kKvThreads) {
-    const int r = idx / CPR, c = idx % CPR;
-    const bool ok = r < nk;
-    const size_t off = ok ? kbase + (size_t)r * hkv * D + c * 8 : 0;
-    rt::cp_async16(smem + L::k + (r * LD + c * 8) * sizeof(bf16), k + off, ok);
-    rt::cp_async16(smem + L::v + (r * LD + c * 8) * sizeof(bf16), v + off, ok);
-  }
-  rt::cp_async_commit();
-
-  // positions of this thread's two keys, and the tile's live range
-  const int kr = kw * 16 + g;
-  const int* kpb = k_pos + (size_t)b * T_ + k0;
-  const int kp0 = kr < nk ? kpb[kr] : -1, kp1 = kr + 8 < nk ? kpb[kr + 8] : -1;
-  int klo = INT_MAX, khi = INT_MIN;
-  for (int c = lane; c < nk; c += 32) {
-    const int p = kpb[c];
-    if (p >= 0) {
-      klo = min(klo, p);
-      khi = max(khi, p);
-    }
-  }
-  warp_range(klo, khi);
   const int ntq = (S + BQ - 1) / BQ;
-  const int nlive = live_tiles(bits, q_pos + (size_t)b * S, S, BQ, ntq, false, klo, khi, causal,
-                               window);
-
-  // pair (query tile t, head kh * rep + hh) into stage s (0..3)
-  auto request = [&](int t, int hh, int s) {
-    unsigned char* st = smem + L::stage0 + s * L::stage;
-    const int q0 = t * BQ, h = kh * rep + hh;
-    for (int idx = tid; idx < BQ * CPR; idx += kKvThreads) {
-      const int r = idx / CPR, c = idx % CPR;
-      const bool ok = q0 + r < S;
-      const size_t off = ok ? (((size_t)b * S + q0 + r) * hq + h) * D + c * 8 : 0;
-      rt::cp_async16(st + (r * LD + c * 8) * sizeof(bf16), q + off, ok);
-      rt::cp_async16(st + L::s_do + (r * LD + c * 8) * sizeof(bf16), dout + off, ok);
-    }
-    float* ls = reinterpret_cast<float*>(st + L::s_lse);
-    float* dl = reinterpret_cast<float*>(st + L::s_delta);
-    int* qp = reinterpret_cast<int*>(st + L::s_qpos);
-    for (int r = tid; r < BQ; r += kKvThreads) {
-      const int i = q0 + r;
-      if (i < S) {
-        const size_t at = ((size_t)b * hq + h) * S + i;
-        rt::cp_async4(ls + r, lse + at);
-        rt::cp_async4(dl + r, delta + at);
-        rt::cp_async4(qp + r, q_pos + (size_t)b * S + i);
-      } else {  // a row past S: P = exp2(-inf) = 0
-        ls[r] = INFINITY;
-        dl[r] = 0.f;
-        qp[r] = 0;
-      }
-    }
-  };
-  // the pairs in order, query tile by query tile, head by head: pairs
-  // 2i and 2i + 1 go to stages 2 (i % 2) and 2 (i % 2) + 1
-  int rt_ = next_live(bits, 0, ntq), rh = 0;  // the next pair to request
-  auto request_two = [&](int parity) {
-#pragma unroll
-    for (int s2 = 0; s2 < 2; ++s2) {
-      if (rt_ >= ntq) break;
-      request(rt_, rh, 2 * parity + s2);
-      if (++rh == rep) rh = 0, rt_ = next_live(bits, rt_ + 1, ntq);
-    }
-  };
-
-  float dka[DC / 8][4], dva[DC / 8][4];
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
   const float c2 = scale * rt::kLog2e;
 
-  const int pairs = nlive * rep;
-  request_two(0);
-  rt::cp_async_commit();
-  for (int it = 0; 2 * it < pairs; ++it) {
-    rt::cp_async_wait<0>();
-    __syncthreads();  // pairs 2 it, 2 it + 1 have landed; the stages read at it - 1 are free
-    request_two((it + 1) % 2);
+  for (int u = 0; u < units; ++u) {
+    const int kt = u == 0 ? kt0 : nkt - 1 - kt0;
+    const int k0 = kt * kRows, nk = min(kRows, T_ - k0);
+    // the resident K and V tiles (rows >= nk zero)
+    const size_t kbase = (((size_t)b * T_ + k0) * hkv + kh) * D;
+    for (int idx = tid; idx < kRows * CPR; idx += kKvThreads) {
+      const int r = idx / CPR, c = idx % CPR;
+      const bool ok = r < nk;
+      const size_t off = ok ? kbase + (size_t)r * hkv * D + c * 8 : 0;
+      rt::cp_async16(smem + L::k + (r * LD + c * 8) * sizeof(bf16), k + off, ok);
+      rt::cp_async16(smem + L::v + (r * LD + c * 8) * sizeof(bf16), v + off, ok);
+    }
     rt::cp_async_commit();
-    if (2 * it + set >= pairs) continue;  // set 1 past an odd count (warp-uniform)
 
-    const unsigned char* st = smem + L::stage0 + (2 * (it % 2) + set) * L::stage;
-    const bf16* Qs = reinterpret_cast<const bf16*>(st);
-    const bf16* Os = reinterpret_cast<const bf16*>(st + L::s_do);
-    const float* ls = reinterpret_cast<const float*>(st + L::s_lse);
-    const float* dl = reinterpret_cast<const float*>(st + L::s_delta);
-    const int* qp = reinterpret_cast<const int*>(st + L::s_qpos);
-
-    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x BQ queries
-    float sc[BQ / 8][4], dp[BQ / 8][4];
-    scores16<D, BQ, LD>(sc, Ks + kw * 16 * LD, Qs);
-    scores16<D, BQ, LD>(dp, Vs + kw * 16 * LD, Os);
-    // P^T and dS^T = P^T * (dP^T - delta) in place; query column c
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = nt * 8 + 2 * tq + e;
-        const int qq = qp[c];
-        const float l2 = ls[c] * rt::kLog2e, d = dl[c];
-        const float p0 = visible(kp0, qq, causal, window)
-                             ? rt::exp2_approx(fmaf(sc[nt][e], c2, -l2)) : 0.f;
-        const float p1 = visible(kp1, qq, causal, window)
-                             ? rt::exp2_approx(fmaf(sc[nt][e + 2], c2, -l2)) : 0.f;
-        sc[nt][e] = p0;
-        sc[nt][e + 2] = p1;
-        dp[nt][e] = p0 * (dp[nt][e] - d);
-        dp[nt][e + 2] = p1 * (dp[nt][e + 2] - d);
+    // positions of this thread's two keys, and the tile's live range
+    const int kr = kw * 16 + g4;
+    const int* kpb = k_pos + (size_t)b * T_ + k0;
+    const int kp0 = kr < nk ? kpb[kr] : -1, kp1 = kr + 8 < nk ? kpb[kr + 8] : -1;
+    int klo = INT_MAX, khi = INT_MIN;
+    for (int c = lane; c < nk; c += 32) {
+      const int p = kpb[c];
+      if (p >= 0) {
+        klo = min(klo, p);
+        khi = max(khi, p);
       }
     }
-    accumulate_split<DC, BQ, LD>(dva, sc, Os + c0);  // dV += P^T dO
-    accumulate_split<DC, BQ, LD>(dka, dp, Qs + c0);  // dK += dS^T Q
-  }
-  rt::cp_async_wait<0>();
-  __syncthreads();  // every stage is consumed: they carry set 1's sums
+    warp_range(klo, khi);
+    const int nlive = live_tiles(bits, q_pos + (size_t)b * S, S, BQ, ntq, false, klo, khi, causal,
+                                 window);
 
-  // set 1 hands its fragments to the set-0 thread of the same (warp,
-  // lane), which holds the same elements; lanes on consecutive words
-  float* xk = reinterpret_cast<float*>(smem + L::stage0);
-  float* xv = xk + kRows * DC;
-  auto at = [&](int nt, int e) { return ((kw * (DC / 8) + nt) * 4 + e) * 32 + lane; };
-  if (set == 1) {
-#pragma unroll
-    for (int nt = 0; nt < DC / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xk[at(nt, e)] = dka[nt][e];
-        xv[at(nt, e)] = dva[nt][e];
+    // pair (query tile t, head kh * rep + hlo + hh) into stage s (0..3)
+    auto request = [&](int t, int hh, int s) {
+      unsigned char* st = smem + L::stage0 + s * L::stage;
+      const int q0 = t * BQ, h = kh * rep + hlo + hh;
+      for (int idx = tid; idx < BQ * CPR; idx += kKvThreads) {
+        const int r = idx / CPR, c = idx % CPR;
+        const bool ok = q0 + r < S;
+        const size_t off = ok ? (((size_t)b * S + q0 + r) * hq + h) * D + c * 8 : 0;
+        rt::cp_async16(st + (r * LD + c * 8) * sizeof(bf16), q + off, ok);
+        rt::cp_async16(st + L::s_do + (r * LD + c * 8) * sizeof(bf16), dout + off, ok);
       }
-  }
-  __syncthreads();
-  if (set == 0) {
-#pragma unroll
-    for (int nt = 0; nt < DC / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dka[nt][e] += xk[at(nt, e)];
-        dva[nt][e] += xv[at(nt, e)];
+      float* ls = reinterpret_cast<float*>(st + L::s_lse);
+      float* dl = reinterpret_cast<float*>(st + L::s_delta);
+      int* qp = reinterpret_cast<int*>(st + L::s_qpos);
+      for (int r = tid; r < BQ; r += kKvThreads) {
+        const int i = q0 + r;
+        if (i < S) {
+          const size_t at = ((size_t)b * hq + h) * S + i;
+          rt::cp_async4(ls + r, lse + at);
+          rt::cp_async4(dl + r, delta + at);
+          rt::cp_async4(qp + r, q_pos + (size_t)b * S + i);
+        } else {  // a row past S: P = exp2(-inf) = 0
+          ls[r] = INFINITY;
+          dl[r] = 0.f;
+          qp[r] = 0;
+        }
       }
-    const size_t stride = (size_t)hkv * D;
-    store_rows<DC>(dk + kbase + c0, stride, dka, kw * 16, nk, scale);
-    store_rows<DC>(dv + kbase + c0, stride, dva, kw * 16, nk, 1.f);
+    };
+    // the pairs in order, query tile by query tile, head by head: pairs
+    // 2i and 2i + 1 go to stages 2 (i % 2) and 2 (i % 2) + 1
+    int rt_ = next_live(bits, 0, ntq), rh = 0;  // the next pair to request
+    auto request_two = [&](int parity) {
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        if (rt_ >= ntq) break;
+        request(rt_, rh, 2 * parity + s2);
+        if (++rh == nh) rh = 0, rt_ = next_live(bits, rt_ + 1, ntq);
+      }
+    };
+
+    float dka[DC / 8][4], dva[DC / 8][4];
+#pragma unroll
+    for (int i = 0; i < DC / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+    const int pairs = nlive * nh;
+    request_two(0);
+    rt::cp_async_commit();
+    for (int it = 0; 2 * it < pairs; ++it) {
+      rt::cp_async_wait<0>();
+      __syncthreads();  // pairs 2 it, 2 it + 1 have landed; the stages read at it - 1 are free
+      request_two((it + 1) % 2);
+      rt::cp_async_commit();
+      if (2 * it + set >= pairs) continue;  // set 1 past an odd count (warp-uniform)
+
+      const unsigned char* st = smem + L::stage0 + (2 * (it % 2) + set) * L::stage;
+      const bf16* Qs = reinterpret_cast<const bf16*>(st);
+      const bf16* Os = reinterpret_cast<const bf16*>(st + L::s_do);
+      const float* ls = reinterpret_cast<const float*>(st + L::s_lse);
+      const float* dl = reinterpret_cast<const float*>(st + L::s_delta);
+      const int* qp = reinterpret_cast<const int*>(st + L::s_qpos);
+
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x BQ queries
+      float sc[BQ / 8][4], dp[BQ / 8][4];
+      scores16<D, BQ, LD>(sc, Ks + kw * 16 * LD, Qs);
+      scores16<D, BQ, LD>(dp, Vs + kw * 16 * LD, Os);
+      // P^T and dS^T = P^T * (dP^T - delta) in place; query column c
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = nt * 8 + 2 * tq + e;
+          const int qq = qp[c];
+          const float l2 = ls[c] * rt::kLog2e, d = dl[c];
+          const float p0 = visible(kp0, qq, causal, window)
+                               ? rt::exp2_approx(fmaf(sc[nt][e], c2, -l2)) : 0.f;
+          const float p1 = visible(kp1, qq, causal, window)
+                               ? rt::exp2_approx(fmaf(sc[nt][e + 2], c2, -l2)) : 0.f;
+          sc[nt][e] = p0;
+          sc[nt][e + 2] = p1;
+          dp[nt][e] = p0 * (dp[nt][e] - d);
+          dp[nt][e + 2] = p1 * (dp[nt][e + 2] - d);
+        }
+      }
+      accumulate_split<DC, BQ, LD>(dva, sc, Os + c0);  // dV += P^T dO
+      accumulate_split<DC, BQ, LD>(dka, dp, Qs + c0);  // dK += dS^T Q
+    }
+    rt::cp_async_wait<0>();
+    __syncthreads();  // every stage is consumed: they carry set 1's sums
+
+    // set 1 hands its fragments to the set-0 thread of the same (warp,
+    // lane), which holds the same elements; lanes on consecutive words
+    float* xk = reinterpret_cast<float*>(smem + L::stage0);
+    float* xv = xk + kRows * DC;
+    auto at = [&](int nt, int e) { return ((kw * (DC / 8) + nt) * 4 + e) * 32 + lane; };
+    if (set == 1) {
+#pragma unroll
+      for (int nt = 0; nt < DC / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xk[at(nt, e)] = dka[nt][e];
+          xv[at(nt, e)] = dva[nt][e];
+        }
+    }
+    __syncthreads();
+    if (set == 0) {
+#pragma unroll
+      for (int nt = 0; nt < DC / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dka[nt][e] += xk[at(nt, e)];
+          dva[nt][e] += xv[at(nt, e)];
+        }
+      const size_t stride = (size_t)hkv * D;
+      if (kSplit) {  // group g's partials: planes [groups][B][T][hkv][D], dK's then dV's
+        const size_t plane = (size_t)B * T_ * hkv * D;
+        store_part<DC>(part + g * plane + kbase + c0, stride, dka, kw * 16, nk);
+        store_part<DC>(part + (groups + g) * plane + kbase + c0, stride, dva, kw * 16, nk);
+      } else {
+        store_rows<DC>(dk + kbase + c0, stride, dka, kw * 16, nk, scale);
+        store_rows<DC>(dv + kbase + c0, stride, dva, kw * 16, nk, 1.f);
+      }
+    }
+    __syncthreads();  // the exchange is read and the tiles free before the next unit
   }
+}
+
+// dK = scale * (sum of the groups' partials), dV = their sum, each added in
+// group order and rounded once to bf16: four elements a thread.
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_reduce(const float* __restrict__ part, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, long long n4, int groups, float scale) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const size_t plane = (size_t)n4 * 4;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int gg = 0; gg < groups; ++gg) {
+    const float4 a = reinterpret_cast<const float4*>(part + gg * plane)[i];
+    const float4 c = reinterpret_cast<const float4*>(part + (groups + gg) * plane)[i];
+    sk.x += a.x;
+    sk.y += a.y;
+    sk.z += a.z;
+    sk.w += a.w;
+    sv.x += c.x;
+    sv.y += c.y;
+    sv.z += c.z;
+    sv.w += c.w;
+  }
+  reinterpret_cast<uint2*>(dk)[i] =
+      make_uint2(rt::pack_bf16(sk.x * scale, sk.y * scale), rt::pack_bf16(sk.z * scale, sk.w * scale));
+  reinterpret_cast<uint2*>(dv)[i] = make_uint2(rt::pack_bf16(sv.x, sv.y), rt::pack_bf16(sv.z, sv.w));
 }
 
 // dQ of one 64-query tile of head h, batch row b.  Block index: (query
@@ -884,22 +970,34 @@ void launch_delta(const T* out, const T* dout, float* delta, int B, int S, int h
 template <int D>
 cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
                       const bf16* dout, const float* lse, const int* qp, const int* kp,
-                      float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int S, int T_, int hq,
-                      int hkv, int causal, int window, float scale, cudaStream_t st) {
+                      float* delta, float* part, int groups, bf16* dq, bf16* dk, bf16* dv, int B,
+                      int S, int T_, int hq, int hkv, int causal, int window, float scale,
+                      cudaStream_t st) {
   using LK = KvLayout<D>;
   using LQ = QLayout<D>;
+  constexpr bool kSplit = D > 128;
   if ((S + LK::BQ - 1) / LK::BQ > kMaxTiles || (T_ + LQ::BK - 1) / LQ::BK > kMaxTiles)
     return cudaErrorInvalidValue;
+  if (kSplit && (part == nullptr || groups < 1 || groups > hq / hkv)) return cudaErrorInvalidValue;
   static const cudaError_t a1 = allow_smem(flash_bwd_dkdv_tc<D>, LK::bytes);
   static const cudaError_t a2 = allow_smem(flash_bwd_dq_tc<D>, LQ::bytes);
   if (a1 != cudaSuccess) return a1;
   if (a2 != cudaSuccess) return a2;
   launch_delta<bf16>(out, dout, delta, B, S, hq, D, st);
-  const long long kv_blocks = (long long)((T_ + kRows - 1) / kRows) * B * hkv * (D / LK::DC);
+  const long long nkt = (T_ + kRows - 1) / kRows;
+  // D 256: tile pairs x head groups; otherwise key tiles
+  const long long kv_blocks =
+      (kSplit ? (nkt + 1) / 2 * groups : nkt) * B * hkv * (D / LK::DC);
   const long long q_blocks = (long long)((S + kRows - 1) / kRows) * B * hq;
-  if (kv_blocks > INT_MAX || q_blocks > INT_MAX) return cudaErrorInvalidValue;
+  const long long n4 = (long long)B * T_ * hkv * D / 4;
+  if (kv_blocks > INT_MAX || q_blocks > INT_MAX || (n4 + 255) / 256 > INT_MAX)
+    return cudaErrorInvalidValue;
   flash_bwd_dkdv_tc<D><<<(unsigned)kv_blocks, kKvThreads, LK::bytes, st>>>(
-      q, k, v, dout, lse, delta, qp, kp, dk, dv, B, S, T_, hq, hkv, causal, window, scale);
+      q, k, v, dout, lse, delta, qp, kp, dk, dv, part, groups, B, S, T_, hq, hkv, causal, window,
+      scale);
+  if (kSplit)
+    flash_bwd_dkdv_reduce<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(part, dk, dv, n4, groups,
+                                                                         scale);
   flash_bwd_dq_tc<D><<<(unsigned)q_blocks, kThreads, LQ::bytes, st>>>(
       q, k, v, dout, lse, delta, qp, kp, dq, B, S, T_, hq, hkv, causal, window, scale);
   return cudaGetLastError();
@@ -929,19 +1027,23 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 // q, out, dout, dq (B,S,Hq,D); k, v, dk, dv (B,T,Hkv,D): contiguous, one
 // dtype, 16-byte aligned.  lse (B,Hq,S) f32 from the forward; q_pos (B,S),
 // k_pos (B,T) int32; delta: B * Hq * S floats of scratch.  D 64, 128 or 256.
-// Three launches on `stream`: delta, dK/dV, dQ.  Returns cudaGetLastError().
+// bf16 at D 256: part holds 2 * groups * B * T * Hkv * D floats, groups in
+// 1..Hq/Hkv (the dK/dV grid's head groups); ignored otherwise.  Launches on
+// `stream`: delta, dK/dV, (bf16 D 256) the partials' sum, dQ.  Returns
+// cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* out, const void* dout, const void* lse,
                                           const void* q_pos, const void* k_pos, void* delta,
-                                          void* dq, void* dk, void* dv, int B, int S, int T,
-                                          int hq, int hkv, int d, int dtype, int causal,
-                                          int window, float scale, void* stream) {
+                                          void* part, void* dq, void* dk, void* dv, int B, int S,
+                                          int T, int hq, int hkv, int d, int dtype, int causal,
+                                          int window, int groups, float scale, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || hkv <= 0 || hq % hkv != 0 || hq > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
   float* dl = static_cast<float*>(delta);
+  float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kFloat32) {
     auto c = [](const void* p) { return static_cast<const float*>(p); };
@@ -961,14 +1063,14 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     auto c = [](const void* p) { return static_cast<const bf16*>(p); };
     auto m = [](void* p) { return static_cast<bf16*>(p); };
     if (d == 64)
-      return launch_tc<64>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
-                           m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+      return launch_tc<64>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, 1, m(dq),
+                           m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale, st);
     if (d == 128)
-      return launch_tc<128>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
-                            m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+      return launch_tc<128>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, 1, m(dq),
+                            m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale, st);
     if (d == 256)
-      return launch_tc<256>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
-                            m(dv), B, S, T, hq, hkv, causal, window, scale, st);
+      return launch_tc<256>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, groups, m(dq),
+                            m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale, st);
     return cudaErrorInvalidValue;
   }
   return cudaErrorInvalidValue;

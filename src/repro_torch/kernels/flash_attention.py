@@ -22,8 +22,10 @@ so its gradient is one too.  ``FlashAttentionFn`` is the
 call through when an input needs a gradient: its forward launches the
 forward kernel with the log-sum-exp, its backward the backward kernel.
 The backward takes no ring, no softcap and D 64, 128 or 256 (at D 256 a
-dK/dV block owns half of the columns, ROADMAP §3); a call under grad
-outside that raises ``NotImplementedError`` before anything runs.
+dK/dV block owns half of the columns and one group of the GQA group's
+heads, ``bwd_kv_groups``, and a second launch adds the groups' f32
+partials in order); a call under grad outside that raises
+``NotImplementedError`` before anything runs.
 
 It is bound by the bytes of q, K, V and out at the main path's shapes.  In
 bf16 a block owns 64 *packed rows* of one KV head (packed row r is query
@@ -63,9 +65,10 @@ _count_lock = threading.Lock()
 
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
                  + [ctypes.c_float, ctypes.c_void_p])
 _BWD_HEAD_DIMS = (64, 128, 256)
+BWD_KEY_TILE = 64            # keys of a dK/dV block's tile
 _BWD_TODO = "ROADMAP.md §3 (backward kernels: softcap, the ring)"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Launch geometry, as csrc/flash_attention.cu has it: a bf16 block owns
@@ -249,6 +252,17 @@ def _bwd_supported(q, k_cache, softcap) -> None:
             f"{_BWD_HEAD_DIMS}, no softcap and no ring ({_BWD_TODO})")
 
 
+def bwd_kv_groups(b: int, t: int, hq: int, hkv: int, sms: int) -> int:
+    """Head groups of the bf16 dK/dV grid at D 256, whose blocks are (pair
+    of key tiles, head group, batch row, KV head, column half): the fewest
+    groups that give each of ``sms`` SMs a block, rounded up to a divisor
+    of the GQA group's ``hq / hkv`` heads so that the groups are equal."""
+    rep = hq // hkv
+    units = (-(-t // BWD_KEY_TILE) + 1) // 2 * b * hkv * 2
+    want = min(rep, -(-sms // units))
+    return next(g for g in range(want, rep + 1) if rep % g == 0)
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, *, q_pos, k_pos,
                         causal=True, window=0, scale, softcap=0.0):
     """Launch the backward kernel: (dq, dk, dv) in the inputs' shapes and
@@ -277,14 +291,22 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, q_pos, k_pos,
     kp = _positions(k_pos, b, t, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    # bf16 at D 256: the head groups' f32 partials of dK and dV
+    groups, part = 1, None
+    if q.dtype == torch.bfloat16 and d == 256:
+        sms = build.sm_count(q.device.index or 0)
+        groups = bwd_kv_groups(b, t, hq, hkv, sms)
+        part = torch.empty(2 * groups * k.numel(), dtype=torch.float32,
+                           device=q.device)
     fn = build.library("flash_attention_bwd",
                        _BWD_ARGTYPES).flash_attention_bwd_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), qp.data_ptr(),
-                 kp.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 kp.data_ptr(), delta.data_ptr(),
+                 None if part is None else part.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), b, s, t, hq, hkv, d,
-                 _DTYPES[q.dtype], int(bool(causal)), int(window),
+                 _DTYPES[q.dtype], int(bool(causal)), int(window), groups,
                  float(scale), build.current_stream(q.device))
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "

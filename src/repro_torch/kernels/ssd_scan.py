@@ -21,20 +21,24 @@ recomputes it (``models.ssm._final_ssd_state``).
 function in plain PyTorch (``ref.ssd_chunked``), which the CPU path runs
 and the kernel is held against.
 
-Backward: ``csrc/ssd_scan_bwd.cu`` (CUDA cores, f32 for bf16 and f32
-inputs alike), launched by ``ssd_bwd``: the gradients with respect to x,
-dt, ``a_log``, B, C and ``d_skip`` of the function ``ref.ssd_chunked``
-computes, from the inputs alone (the forward's output is rounded, so the
-chunk states and each chunk's incoming state are recomputed in f32).
-Four steps: every chunk's state and its local share of the carried
-state's gradient ``sum_i exp(cum_i) C_i dy_i^T``; a sequential pass over
-chunks, forward for the incoming states and in reverse for the carried
-state's gradient ``dh_c = exp(total_c) dh_{c+1} + local_c``; every
-chunk's dx, d(dt), and its per-head shares of dB and dC from the
-intra-chunk and carried terms, the cumulative decay's gradient turned into
-d(dt) by a reverse cumsum inside the chunk; then dB and dC summed over the
-heads and ``d a_log``, ``d d_skip`` over every (batch row, chunk), in a
-fixed order (no float atomics: two runs give the same bits).
+Backward: ``csrc/ssd_scan_bwd.cu``, launched by ``ssd_bwd``: the
+gradients with respect to x, dt, ``a_log``, B, C and ``d_skip`` of the
+function ``ref.ssd_chunked`` computes, from the inputs alone (the
+forward's output is rounded, so the chunk states and each chunk's incoming
+state are recomputed in f32).  Four steps: every chunk's state and its
+local share of the carried state's gradient ``sum_i exp(cum_i) C_i
+dy_i^T``; a sequential pass over chunks, forward for the incoming states
+and in reverse for the carried state's gradient ``dh_c = exp(total_c)
+dh_{c+1} + local_c``; every chunk's dx, d(dt), and its shares of dB and
+dC from the intra-chunk and carried terms, the cumulative decay's
+gradient turned into d(dt) by a reverse cumsum inside the chunk; then dB
+and dC summed over the shares and ``d a_log``, ``d d_skip`` over every
+(batch row, chunk), in a fixed order (no float atomics: two runs give the
+same bits).  In bf16 the products run on the tensor cores as the
+forward's do (one exact bf16 operand, the f32 one split into hi + lo), a
+block takes a group of heads (``bwd_head_group``), forms C·Bᵀ once for
+them and adds their dB and dC shares into one plane a group; f32 inputs
+take a CUDA-core body with a plane a head, selected by dtype.
 ``ssd_bwd_plain`` is the same decomposition in plain PyTorch
 (``ssd_bwd_states``, ``ssd_bwd_carry``, ``ssd_bwd_chunks``).  The TPU
 kernel has no backward (the JAX package differentiates its jnp path).
@@ -56,8 +60,8 @@ _count_lock = threading.Lock()
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # x, dt, a_log, b, c, d_skip, dy; dx, ddt, db, dc, da_log, dd; work;
-# B, S, H, P, N, chunk, dtype; stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# B, S, H, P, N, chunk, group, dtype; stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 BWD_MAX_HEAD_DIM = 64        # the backward's tile widths: P and N at most
 BWD_MAX_STATE = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,6 +69,7 @@ MAX_CHUNK = 128
 P_BLOCK = 16                 # f32: head-dim columns per block (P a multiple)
 TC_HEAD_DIMS = (16, 32, 64)  # bf16: the head dims of the tensor-core route
 TC_MAX_STATE = 128           # bf16: state widths, multiples of 16 up to this
+BWD_MAX_GROUP = 8            # bf16 backward: heads a block takes, at most
 
 
 def _counted(bwd: bool = False) -> None:
@@ -153,13 +158,28 @@ def ssd_plain(x, dt, a_log, b_mat, c_mat, d_skip=None, *, chunk=128):
 
 
 # ------------------------------------------------------------- backward
-def bwd_workspace(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+def bwd_head_group(b: int, s: int, h: int, chunk: int, sms: int) -> int:
+    """Heads a block of the bf16 backward takes (C·Bᵀ is formed once for
+    them), one block an SM: of 1 to ``BWD_MAX_GROUP``, the group whose
+    waves of ``b * (s // chunk) * ceil(h / group)`` blocks over ``sms`` SMs
+    take the fewest head-steps, the largest of those that tie."""
+    blocks = b * (s // chunk)
+
+    def steps(g):
+        return -(-blocks * -(-h // g) // sms) * g
+    return min(range(1, min(BWD_MAX_GROUP, h) + 1),
+               key=lambda g: (steps(g), -g))
+
+
+def bwd_workspace(b: int, s: int, h: int, p: int, n: int, chunk: int,
+                  group: int = 1) -> int:
     """Floats of the backward's f32 workspace: two (B, NC, H, N, P) state
-    planes (the incoming states, the carried state's gradient), the
-    per-head dB and dC (B, S, H, N), and three (B, NC, H) planes (the
-    chunks' log-decay totals, the partials of d a_log and d d_skip)."""
+    planes (the incoming states, the carried state's gradient), dB's and
+    dC's shares (B, S, ceil(H / group), N) of each head (f32, ``group``
+    1) or group of heads (bf16), and three (B, NC, H) planes (the chunks'
+    log-decay totals, the partials of d a_log and d d_skip)."""
     nc = s // chunk
-    return b * nc * h * (2 * n * p + 3) + 2 * b * s * h * n
+    return b * nc * h * (2 * n * p + 3) + 2 * b * s * -(-h // group) * n
 
 
 def ssd_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk=128):
@@ -167,7 +187,7 @@ def ssd_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk=128):
     ``ssd(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk)`` for the output
     gradient ``dy``, each in its input's dtype (dd None without
     ``d_skip``).  CUDA tensors only; the forward's shapes, P a multiple of
-    16 up to 64 and N of 16 up to 128."""
+    16 up to 64 (16, 32 or 64 in bf16) and N of 16 up to 128."""
     if x.device.type != "cuda":
         raise RuntimeError("ssd_bwd kernel needs CUDA tensors; use "
                            "ssd_bwd_plain on the CPU")
@@ -185,11 +205,16 @@ def ssd_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk=128):
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"ssd_bwd: dy {tuple(dy.shape)} {dy.dtype} for x "
                          f"{tuple(x.shape)} {x.dtype}")
+    if dy.data_ptr() % 16:      # bf16 rows are vector copies
+        dy = dy.clone()
+    group = (bwd_head_group(b, s, h, chunk, build.sm_count(x.device.index
+                                                           or 0))
+             if x.dtype == torch.bfloat16 else 1)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     db, dc = torch.empty_like(b_mat), torch.empty_like(c_mat)
     da = torch.empty(h, dtype=torch.float32, device=x.device)
     dd = None if d32 is None else torch.empty_like(da)
-    work = torch.empty(bwd_workspace(b, s, h, p, n, chunk),
+    work = torch.empty(bwd_workspace(b, s, h, p, n, chunk, group),
                        dtype=torch.float32, device=x.device)
     ptr = (lambda t: None if t is None else t.data_ptr())
     fn = build.launcher("ssd_scan_bwd", "ssd_scan_bwd_launch", _BWD_ARGTYPES)
@@ -198,7 +223,8 @@ def ssd_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk=128):
                  b_mat.data_ptr(), c_mat.data_ptr(), ptr(d32), dy.data_ptr(),
                  dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
                  da.data_ptr(), ptr(dd), work.data_ptr(), b, s, h, p, n,
-                 chunk, _DTYPES[x.dtype], build.current_stream(x.device))
+                 chunk, group, _DTYPES[x.dtype],
+                 build.current_stream(x.device))
     if err:
         raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
     _counted(bwd=True)

@@ -9,9 +9,14 @@ tiles that its keys' positions can meet (32 rows at D 128, 64 at D 64):
 it forms ``Sᵀ = K Qᵀ`` and ``dPᵀ = V dOᵀ`` from bf16 operands with f32
 sums, ``P = exp(S scale - lse)`` and ``dS = P (dP - delta)`` in f32, and
 adds ``Pᵀ dO`` into dV and ``dSᵀ Q`` into dK, the even pairs in one sum
-and the odd ones in another, which are added at the end (at D 256 two
-blocks share a key tile, each owning half of dK's and dV's columns over
-the same S and dP: the columns' sums are the ones below).  The dQ kernel
+and the odd ones in another, which are added at the end.  At D 256 the
+pairs of a key tile are split by head group (``bwd_kv_groups``: equal
+groups of the GQA group's heads), a block walking its group's heads
+only; each group's sum is an f32 partial, and a second kernel adds the
+partials in group order before dK's scale and the one rounding (two
+blocks also share each key tile there, each owning half of dK's and dV's
+columns over the same S and dP, and a block takes two key tiles one
+after the other: neither changes a sum).  The dQ kernel
 owns a 64-row query tile of one head and walks the 64-key tiles (32 at D
 256) in order, adding ``dS K``.  P and dS enter their products split into bf16 ``hi =
 bf16(x)`` and ``lo = bf16(x - hi)``, both multiplied by the bf16 operand.
@@ -41,7 +46,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fk
 
 SPACINGS = 1.0          # chip_smoke.BWD_SPACINGS
-KEY_TILE = 64           # keys of a dK/dV block and of a dQ step
+KEY_TILE = fk.BWD_KEY_TILE  # keys of a dK/dV block and of a dQ step
+# the SMs the D 256 head groups are planned for: at these small shapes a
+# plan for the H100's 132 gives one head a group, one for 16 several
+SMS = 16
 DQ_ROWS = 64            # queries of a dQ block
 REPS = (1, 2, 4, 6, 16)
 
@@ -83,6 +91,7 @@ def _render(q, k, v, out, lse, dout, q_pos, k_pos, causal, window, scale,
     bq = 32 if d >= 128 else 64
     dk = torch.zeros(b, t, hkv, d)
     dv = torch.zeros(b, t, hkv, d)
+    groups = fk.bwd_kv_groups(b, t, hq, hkv, SMS) if d > 128 else 1
     for bb in range(b):                                        # dK/dV blocks
         for k0 in range(0, t, KEY_TILE):
             ks = slice(k0, k0 + KEY_TILE)
@@ -93,26 +102,30 @@ def _render(q, k, v, out, lse, dout, q_pos, k_pos, causal, window, scale,
                      if _meet(qpos[bb, q0:q0 + bq].min().item(),
                               qpos[bb, q0:q0 + bq].max().item(), klo, khi,
                               causal, window)]
-            pairs = [(q0, hh) for q0 in tiles for hh in range(rep)]
-            sums = torch.zeros(2, 2, min(KEY_TILE, t - k0), hkv, d)  # set, dk/dv
-            for i, (q0, hh) in enumerate(pairs):
-                qs = slice(q0, q0 + bq)
-                heads = torch.arange(hkv) * rep + hh           # one per block
-                qq = q[bb, qs][:, heads]
-                oo = dout[bb, qs][:, heads]                    # q H d
-                st = torch.einsum("khd,qhd->hkq", k[bb, ks], qq)
-                seen = m[bb, qs, ks].T[None]
-                lq = lse[bb, heads, qs][:, None, :]
-                p = torch.where(seen, torch.exp(st * scale - lq), 0.0)
-                dpt = torch.einsum("khd,qhd->hkq", v[bb, ks], oo)
-                dl = delta[bb, qs][:, heads].T[:, None]
-                ds = p * (dpt - dl)
-                sums[i % 2, 1] += torch.einsum("hkq,qhd->khd",
-                                               _operand(p, mode), oo)
-                sums[i % 2, 0] += torch.einsum("hkq,qhd->khd",
-                                               _operand(ds, mode), qq)
-            dk[bb, ks] = sums[0, 0] + sums[1, 0]
-            dv[bb, ks] = sums[0, 1] + sums[1, 1]
+            total = torch.zeros(2, min(KEY_TILE, t - k0), hkv, d)  # dk/dv
+            for g in range(groups):                            # group order
+                heads_g = range(g * rep // groups, (g + 1) * rep // groups)
+                pairs = [(q0, hh) for q0 in tiles for hh in heads_g]
+                sums = torch.zeros(2, 2, min(KEY_TILE, t - k0), hkv, d)
+                for i, (q0, hh) in enumerate(pairs):           # set i % 2
+                    qs = slice(q0, q0 + bq)
+                    heads = torch.arange(hkv) * rep + hh       # one per block
+                    qq = q[bb, qs][:, heads]
+                    oo = dout[bb, qs][:, heads]                # q H d
+                    st = torch.einsum("khd,qhd->hkq", k[bb, ks], qq)
+                    seen = m[bb, qs, ks].T[None]
+                    lq = lse[bb, heads, qs][:, None, :]
+                    p = torch.where(seen, torch.exp(st * scale - lq), 0.0)
+                    dpt = torch.einsum("khd,qhd->hkq", v[bb, ks], oo)
+                    dl = delta[bb, qs][:, heads].T[:, None]
+                    ds = p * (dpt - dl)
+                    sums[i % 2, 1] += torch.einsum("hkq,qhd->khd",
+                                                   _operand(p, mode), oo)
+                    sums[i % 2, 0] += torch.einsum("hkq,qhd->khd",
+                                                   _operand(ds, mode), qq)
+                total = total + (sums[0] + sums[1])            # the partial
+            dk[bb, ks] = total[0]
+            dv[bb, ks] = total[1]
     kx, vx = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
     dq = torch.zeros_like(q)
     bk = 32 if d > 128 else KEY_TILE

@@ -71,13 +71,16 @@ success):
    causal); the norm's (the norm, the qk pair, the residual add and
    Mamba2's gated norm; dx, dz and the gains' gradients) at widths 128
    (the pair at 2048 x 32 and 2048 x 8 rows), 2560 and 2304 at 2048 rows,
-   3072 (gated), 999, 64, 4096 and 8192; ``ssd``'s (dx, d dt, d a_log, dB,
+   3072 (gated; also 1536 and 4096, whose tiles differ), 999, 64, 4096
+   and 8192; ``ssd``'s (dx, d dt, d a_log, dB,
    dC, d d_skip) at mamba2-780m's widths, chunks of 128 (B 2, S 1024), 100
    and 2, one chunk and several, and in bf16 at 47 heads (B 2, S 1024,
    whose last head group is short); ``rglru``'s (dx, d log_a, d gate) from 1
    to 2300 steps on both of its paths at width 4096 and 999, with log_a
    exactly 0 at a few steps (d log_a inf or NaN where the plain version
-   has them); bf16 within one bf16 spacing of the f32 oracle, f32 within
+   has them), and the forward's checkpoint for it (y bit-identical with and
+   without, the checkpoint against the plain f32 states at the tile
+   boundaries); bf16 within one bf16 spacing of the f32 oracle, f32 within
    2e-5 (a per-head sum over every (b, s) within 1e-5 of its terms'
    magnitudes; d log_a plus its 1 / (1 - a^2) conditioning); two launches
    of each at the training shapes bit-identical; then (phase 2c) their
@@ -87,8 +90,9 @@ success):
    autograd backward of SDPA and of ``F.rms_norm`` as yardsticks (the
    add form's is the norm's alone: no PyTorch call adds the sum's
    gradient), each launch of a call apart (flash: delta, dK/dV, dQ; the
-   norm: row pass, dscale pass), and the flash forward with its
-   log-sum-exp;
+   norm: row pass, dscale pass), the flash forward with its
+   log-sum-exp and the ``rglru`` forward with its checkpoint (``rglru_bwd``
+   is timed given it, as training runs it);
    (2b) the MoE FFN (``models.moe.moe_ffn``, plain PyTorch around the
    kernels) against ``ref.moe_ffn_reference``, a loop over tokens and
    choices, on one layer at full width (mixtral-8x22b in f32 and bf16,
@@ -2893,7 +2897,8 @@ def check_backward(dev) -> dict:
                   ("add", 300, 999, 0), ("pair", 300, 999, 77),
                   ("pair", 40, 64, 12), ("norm", 64, 8192, 0),
                   ("add", 7, 4096, 0), ("gated", 2048, 3072, 0),
-                  ("gated", 300, 999, 0), ("gated", 3, 64, 0)]
+                  ("gated", 300, 999, 0), ("gated", 3, 64, 0),
+                  ("gated", 512, 1536, 0), ("gated", 512, 4096, 0)]
     for form, rows, d, krows in norm_cases:
         for dt in (bf, f32):
             e, sp = check_norm_bwd(dev, rng, form, rows, d, dt, krows)
@@ -2927,6 +2932,7 @@ def check_backward(dev) -> dict:
                                     dt, staged, zeros)
             errs["rglru_bwd"] = max(errs["rglru_bwd"], e)
             spac["rglru_bwd"] = max(spac["rglru_bwd"], sp)
+    ckpt_cases = check_rglru_checkpoint(dev, rng)
     log(f"  flash bwd: {len(cases)} cases, max abs err "
         f"{errs['flash_attention_bwd']:.3e}, bf16 {spac['flash_attention_bwd']:.3f} "
         f"spacings (limit {BWD_SPACINGS}), lse {lse_worst:.2e}; norm bwd: "
@@ -2936,12 +2942,49 @@ def check_backward(dev) -> dict:
         f"{errs['ssd_bwd']:.3e}, "
         f"bf16 {spac['ssd_bwd']:.3f} spacings; rglru bwd: "
         f"{2 * len(rg_cases)} cases, max abs err {errs['rglru_bwd']:.3e}, "
-        f"bf16 {spac['rglru_bwd']:.3f} spacings")
+        f"bf16 {spac['rglru_bwd']:.3f} spacings; the rglru forward's "
+        f"checkpoint: {ckpt_cases} cases, y bit-identical with and without")
     repeated = check_bwd_repeat(dev, rng)
     DETAILS["backward_checks"] = dict(errs=errs, spacings=spac,
                                       lse_err=lse_worst,
                                       bit_identical=repeated)
     return errs
+
+
+def check_rglru_checkpoint(dev, rng) -> int:
+    """``rglru(..., checkpoint=True)``: y bit-identical to the launch
+    without the checkpoint, and the checkpoint (each tile's incoming f32
+    state) against ``rglru_checkpoint_plain`` on the same inputs, 2e-5 of
+    max(1, max|ref|) (f32 sums in another order); then the backward
+    given that checkpoint bit-identical to the one that makes its own.
+    Returns the number of cases."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    cases = [(2, 1024, 4096, torch.bfloat16), (8, 300, 999, torch.bfloat16),
+             (1, 2300, 4096, torch.float32), (1, 100, 4096, torch.bfloat16)]
+    for b, s, d, dt in cases:
+        x, la, g = rglru_inputs(rng, (b, s, d), dt, dev)
+        y0 = rg.rglru(x, la, g)
+        y1, ckpt = rg.rglru(x, la, g, checkpoint=True)
+        want = rg.rglru_checkpoint_plain(x.float(), la.float(), g.float())
+        dy = torch.from_numpy(rng.standard_normal((b, s, d)).astype(
+            "float32")).to(dev, dt)
+        b0 = rg.rglru_bwd(x, la, g, dy)
+        b1 = rg.rglru_bwd(x, la, g, dy, ckpt=ckpt)
+        torch.cuda.synchronize()
+        label = f"rglru checkpoint B {b} S {s} D {d} {dt}"
+        if not same_bits(y0, y1):
+            raise AssertionError(f"{label}: y differs with the checkpoint")
+        if ckpt.shape != want.shape or ckpt.shape[1] != rg.tiles(s) - 1:
+            raise AssertionError(f"{label}: checkpoint {tuple(ckpt.shape)}")
+        if ckpt.numel() and (ckpt - want).abs().max().item() > \
+                2e-5 * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"{label}: checkpoint off by "
+                                 f"{(ckpt - want).abs().max().item():.3e}")
+        if not all(same_bits(u, v) for u, v in zip(b0, b1)):
+            raise AssertionError(f"{label}: the backward differs given the "
+                                 "checkpoint")
+    return len(cases)
 
 
 def ssd_bwd_group_cases(dev) -> list:
@@ -3211,6 +3254,10 @@ def time_backward(dev) -> dict:
                     f"{k} {v:.4f}" for k, v in at["split_ms"].items())
             if "one_tile_ms" in at:
                 extra += f"; 32 steps {at['one_tile_ms']:.4f}"
+            if "fwd_ckpt_ms" in at:
+                extra += (f"; forward with its checkpoint "
+                          f"{at['fwd_ckpt_ms']:.4f}, without "
+                          f"{at['fwd_ms']:.4f}")
             lib = at["library_ms"]
             log(f"  {name:22s} {key:5s} {at['ms']:.4f} ms; bound "
                 f"{at['bound_ms']:.4f} ({at['bound_by']}), plain "
@@ -3294,10 +3341,12 @@ def time_recurrent_backward(dev, rng, flush) -> dict:
     w = 4096
     x, la, g = rglru_inputs(rng, (b, s, w), bf, dev)
     dy = rnd((b, s, w))
-    kern = (lambda: rg.rglru_bwd(x, la, g, dy))
-    # x, log_a, gate, dy read; dx, dlog_a, dgate written; about forty f32
-    # operations an element (the forward recomputed, the reverse scan)
-    nbytes = 7 * x.numel() * 2
+    _, ckpt = rg.rglru(x, la, g, checkpoint=True)
+    kern = (lambda: rg.rglru_bwd(x, la, g, dy, ckpt=ckpt))
+    # x, log_a, gate, dy and the forward's checkpoint read; dx, dlog_a,
+    # dgate written; about forty f32 operations an element (the forward
+    # recomputed, the reverse scan)
+    nbytes = 7 * x.numel() * 2 + ckpt.numel() * 4
     bms, by = bound(nbytes, 40 * x.numel(), PEAK_F32_FLOPS)
     rows["rglru_bwd"] = dict(
         ms=device_ms(kern, flush),
@@ -3307,8 +3356,14 @@ def time_recurrent_backward(dev, rng, flush) -> dict:
         one_tile_ms=device_ms(lambda: rg.rglru_bwd(
             x[:, :32].contiguous(), la[:, :32].contiguous(),
             g[:, :32].contiguous(), dy[:, :32].contiguous()), flush),
-        shape=f"B={b} S={s} D={w} bf16 (one_tile_ms: the same over 32 "
-              "steps)")
+        # the forward at the training shape, as autograd runs it (with
+        # the checkpoint) and as serving does (without)
+        fwd_ckpt_ms=device_ms(lambda: rg.rglru(x, la, g, checkpoint=True),
+                              flush),
+        fwd_ms=device_ms(lambda: rg.rglru(x, la, g), flush),
+        shape=f"B={b} S={s} D={w} bf16, given the forward's checkpoint "
+              f"(one_tile_ms: the same over 32 steps; fwd_ckpt_ms, fwd_ms: "
+              f"the forward with and without it)")
     del x, la, g, dy
     rows_n, d = 2048, 3072
     y, z, do = rnd((rows_n, d)), rnd((rows_n, d)), rnd((rows_n, d))
@@ -5730,6 +5785,7 @@ def main(argv=None) -> int:
                       "read_flush_ms", "warm_ms", "fixed_ms", "issue_us",
                       "staged_ms", "pair", "add", "gated", "train_lse",
                       "f32", "flops", "bytes", "split_ms", "one_tile_ms",
+                      "fwd_ckpt_ms", "fwd_ms",
                       "cuda_core_bound_ms", "f32_route_flops"):
             if extra in r:
                 kernels[-1][extra] = r[extra]

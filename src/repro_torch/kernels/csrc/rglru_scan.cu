@@ -37,6 +37,9 @@
 //     from L2): a version with the look-back ran slower on the H100, its
 //     blocks each loading, scanning and storing in one burst, all in step,
 //     while here the next tiles' loads are in flight during each scan.
+//     Under autograd the staged path also writes each tile's incoming f32
+//     state (the carry, tile 1 on) to a small checkpoint, so that the
+//     backward kernel reads each input once; y does not change with it.
 // A warp's row of a tile is 32 channels, 64 bytes in bf16.  Two channels a
 // lane (a 128-byte row, 64 blocks at D 4096) ran slower at every shape
 // tried: the chunk and the one-token launch are held by how many SMs issue
@@ -205,7 +208,8 @@ __device__ __forceinline__ void stage_tile(const Ctx& k, int b, int g, const T* 
 template <typename T>
 __global__ void __launch_bounds__(kSegs * 32)
 rglru_staged_kernel(const T* __restrict__ x, const T* __restrict__ log_a,
-                    const T* __restrict__ gate, T* __restrict__ y, int S, int D, bool vec) {
+                    const T* __restrict__ gate, T* __restrict__ y, float* __restrict__ ckpt,
+                    int S, int D, bool vec) {
   constexpr int kStages = Stages<T>::kCount;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Stages<T>& st = *reinterpret_cast<Stages<T>*>(smem_raw);
@@ -246,6 +250,9 @@ rglru_staged_kernel(const T* __restrict__ x, const T* __restrict__ log_a,
     s_seg[k.seg][k.lane] = make_float2(prod, state);
     __syncthreads();
     segment_states(k, s_seg, s_in, carry);
+    // the next tile's incoming state, for the backward kernel
+    if (ckpt != nullptr && t + 1 < tiles && k.lane == 0 && g * kGroup + k.seg < D)
+      ckpt[((size_t)b * (tiles - 1) + t) * D + g * kGroup + k.seg] = carry;
     write_segment(k, y, t_lo, n, s_in[k.seg][k.lane], a, h);
   }
 }
@@ -253,8 +260,8 @@ rglru_staged_kernel(const T* __restrict__ x, const T* __restrict__ log_a,
 bool aligned(const void* p, size_t n) { return (reinterpret_cast<uintptr_t>(p) % n) == 0; }
 
 template <typename T>
-cudaError_t launch_t(const void* x, const void* la, const void* g, void* y, int B, int S,
-                     int D, int segs, int per, cudaStream_t st) {
+cudaError_t launch_t(const void* x, const void* la, const void* g, void* y, float* ckpt, int B,
+                     int S, int D, int segs, int per, cudaStream_t st) {
   const long long blocks = (long long)((D + kGroup - 1) / kGroup) * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
@@ -272,7 +279,7 @@ cudaError_t launch_t(const void* x, const void* la, const void* g, void* y, int 
   const bool vec = D % (16 / sizeof(T)) == 0 && aligned(x, 16) && aligned(la, 16) &&
                    aligned(g, 16);
   rglru_staged_kernel<T><<<(unsigned)blocks, kSegs * 32, sizeof(Stages<T>), st>>>(
-      xt, lt, gt, yt, S, D, vec);
+      xt, lt, gt, yt, ckpt, S, D, vec);
   return cudaGetLastError();
 }
 
@@ -281,17 +288,21 @@ cudaError_t launch_t(const void* x, const void* la, const void* g, void* y, int 
 // x, log_a, gate, y: (B,S,D) contiguous, one dtype.  segs x per: the cut of
 // time (the wrapper's `plan`): one tile of segs <= 16 warps of per <= 8
 // steps covering S, or (32, 8), tiles of 256 steps through the staged
-// pipeline.  Returns cudaGetLastError().
+// pipeline.  ckpt: null, or (B, tiles - 1, D) f32 that the staged
+// pipeline fills with each tile's incoming state, tile 1 on (the backward
+// kernel's checkpoint; y is the same either way).  Returns
+// cudaGetLastError().
 extern "C" int rglru_scan_launch(const void* x, const void* log_a, const void* gate,
-                                 void* y, int B, int S, int D, int segs, int per, int dtype,
-                                 void* stream) {
+                                 void* y, void* ckpt, int B, int S, int D, int segs, int per,
+                                 int dtype, void* stream) {
   const bool one = segs >= 1 && segs <= kOneSegs && per >= 1 && per <= kSteps &&
                    (long long)segs * per >= S;
   const bool staged = segs == kSegs && per == kSteps;
   if (B <= 0 || S <= 0 || D <= 0 || !(one || staged)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kFloat32) return launch_t<float>(x, log_a, gate, y, B, S, D, segs, per, st);
+  float* c = static_cast<float*>(ckpt);
+  if (dtype == rt::kFloat32) return launch_t<float>(x, log_a, gate, y, c, B, S, D, segs, per, st);
   if (dtype == rt::kBFloat16)
-    return launch_t<__nv_bfloat16>(x, log_a, gate, y, B, S, D, segs, per, st);
+    return launch_t<__nv_bfloat16>(x, log_a, gate, y, c, B, S, D, segs, per, st);
   return cudaErrorInvalidValue;
 }

@@ -28,6 +28,19 @@
 //     columns a thread, four or five), so a block of 256 threads has
 //     256 / G rows in flight, and a narrow group (G <= 32) takes R rows
 //     at once; bf16 keeps to 128 registers a thread, two blocks an SM;
+//   * the gated form is an instantiation of its own (the form, and the
+//     block's threads, are template parameters), with tiles that leave no
+//     chunk of a thread dead; at 3072 a block of 384 threads owns one row,
+//     a chunk each, three blocks an SM (36 warps; 56 registers; 16 warps
+//     of two rows a block ran 23% slower).  Its gate is computed once an
+//     element, in the sums' loop: e = exp(-z), d = 1 + e, silu = round(z /
+//     d) (the forward's expression, so v = round(y silu) is bit-equal to
+//     what the forward normalised), sigmoid = 1 / d and silu's derivative
+//     from it; silu (exact in T, packed as T) and the derivative (f32) are
+//     kept for the output loop, and z is then dead.  One exp, one divide
+//     and one reciprocal an element, where the form shared with the norm
+//     took four exps and four divides, with the same arithmetic, so the
+//     same bits;
 //   * every load of a row (x, dy, dres or z) is issued, 16 bytes a thread,
 //     before the row's reduction, so their latencies overlap;
 //   * the row's two sums are reduced by warp shuffles; a group of two to
@@ -45,7 +58,7 @@
 
 namespace {
 
-constexpr int NT = 256;
+constexpr int kThreads = 256;  // a block of the norm, pair and add forms
 
 struct Seg {
   const void* x;     // rows of D (kAdd: the sum s)
@@ -86,15 +99,20 @@ __device__ __forceinline__ float elem<__nv_bfloat16>(const Chunk<__nv_bfloat16>&
 template <typename T>
 __device__ __forceinline__ float round_t(float x) { return rt::to_f32(rt::from_f32<T>(x)); }
 
-// silu(z) rounded to T: the factor the forward multiplied y by.
+// Eight floats (each exact in T where T is bf16) packed as a Chunk.
 template <typename T>
-__device__ __forceinline__ float silu_t(float z) { return round_t<T>(z / (1.f + expf(-z))); }
-
-// The normalised input v of one element: x, or kGated's y * silu(z)
-// (x = y, r = z) rounded as the forward rounds it.
-template <typename T>
-__device__ __forceinline__ float input_v(float x, float r, bool gated) {
-  return gated ? round_t<T>(x * silu_t<T>(r)) : x;
+__device__ __forceinline__ Chunk<T> pack_chunk(const float (&v)[8]) {
+  Chunk<T> c;
+  if constexpr (sizeof(T) == 2) {
+    c.w[0] = make_uint4(rt::pack_bf16(v[0], v[1]), rt::pack_bf16(v[2], v[3]),
+                        rt::pack_bf16(v[4], v[5]), rt::pack_bf16(v[6], v[7]));
+  } else {
+    c.w[0] = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                        __float_as_uint(v[3]));
+    c.w[1] = make_uint4(__float_as_uint(v[4]), __float_as_uint(v[5]), __float_as_uint(v[6]),
+                        __float_as_uint(v[7]));
+  }
+  return c;
 }
 
 __device__ __forceinline__ uint32_t bits_of(float x) { return __float_as_uint(x); }
@@ -198,9 +216,10 @@ __device__ __forceinline__ float2 group_sum2(float2 v, float2* slot, int grp) {
 // Groups of G threads, R rows a group at a time; a thread owns the chunks
 // of columns (lane + G k) * 8, k < KC, and adds its rows' dscale terms
 // into its group's row of acc_s.  Partials: (gridDim.x, 2, D) floats.
-// bf16 holds its registers to two blocks an SM.
-template <typename T, int G, int KC, int R>
-__global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
+// Gated: segment 0 is the gated form (Seg::z set), else the norm, pair or
+// add form.  MinB blocks an SM bound the registers.
+template <typename T, bool Gated, int NT, int G, int KC, int R, int MinB>
+__global__ void __launch_bounds__(NT, MinB)
 norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ partial) {
   static_assert(G <= 32 || R == 1, "a row wider than a warp is reduced one at a time");
   extern __shared__ __align__(16) float acc_s[];  // (groups, D) partial sums
@@ -221,8 +240,7 @@ norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ p
     const float* gain = seg ? s1.gain : s0.gain;
     T* dxs = static_cast<T*>(seg ? s1.dx : s0.dx);
     T* dzs = static_cast<T*>(seg ? s1.dz : s0.dz);
-    const bool gated = zs != nullptr;  // uniform: rv then holds z, not dres
-    const T* rs = gated ? zs : dres;
+    const T* rs = Gated ? zs : dres;  // rv holds z (gated) or dres
     for (int c = threadIdx.x; c < groups * D; c += NT) acc_s[c] = 0.f;
     __syncthreads();
 
@@ -248,8 +266,11 @@ norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ p
                                          : zero_chunk<T>();
         }
       }
-      // (sum x^2, sum dy w x) of each row
+      // (sum v^2, sum dy w v) of each row; gated: silu(z) and its
+      // derivative kept, z then dead
       float2 sums[R];
+      Chunk<T> sq[Gated ? R : 1][Gated ? KC : 1];
+      float dsq[Gated ? R : 1][Gated ? KC : 1][8];
 #pragma unroll
       for (int j = 0; j < R; ++j) sums[j] = make_float2(0.f, 0.f);
 #pragma unroll
@@ -259,14 +280,27 @@ norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ p
         float w[8];
         load_w(gain, c0, D, vec, w);
 #pragma unroll
-        for (int j = 0; j < R; ++j)
+        for (int j = 0; j < R; ++j) {
+          float sf[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            const float xf = input_v<T>(elem<T>(xv[j][k], e), elem<T>(rv[j][k], e), gated);
+            float xf = elem<T>(xv[j][k], e);
+            if constexpr (Gated) {
+              // the gate once: e = exp(-z), d = 1 + e; silu = round(z / d),
+              // the forward's; sigmoid = 1 / d for silu's derivative
+              const float z = elem<T>(rv[j][k], e);
+              const float d = 1.f + expf(-z);
+              const float sig = 1.f / d;
+              sf[e] = round_t<T>(z / d);
+              dsq[j][k][e] = sig * (1.f + z * (1.f - sig));
+              xf = round_t<T>(xf * sf[e]);
+            }
             const float gf = elem<T>(gv[j][k], e);
             sums[j].x = fmaf(xf, xf, sums[j].x);
             sums[j].y = fmaf(gf * w[e], xf, sums[j].y);
           }
+          if constexpr (Gated) sq[j][k] = pack_chunk<T>(sf);
+        }
       }
       float r[R], coef[R];
 #pragma unroll
@@ -289,21 +323,22 @@ norm_bwd_kernel(Seg s0, Seg s1, int D, float eps, int vec, float* __restrict__ p
           float o[8], oz[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            const float yf = elem<T>(xv[j][k], e), rf = elem<T>(rv[j][k], e);
-            const float xf = input_v<T>(yf, rf, gated), gf = elem<T>(gv[j][k], e);
+            const float yf = elem<T>(xv[j][k], e);
+            float xf = yf;
+            if constexpr (Gated) xf = round_t<T>(yf * elem<T>(sq[j][k], e));  // v again
+            const float gf = elem<T>(gv[j][k], e);
             o[e] = r[j] * (gf * w[e] - xf * coef[j]);
-            if (gated) {
+            if constexpr (Gated) {
               // through v = y * silu(z): dy = dv silu(z), dz = dv y silu'(z)
-              const float sig = 1.f / (1.f + expf(-rf));
-              oz[e] = o[e] * yf * (sig * (1.f + rf * (1.f - sig)));
-              o[e] *= silu_t<T>(rf);
-            } else if (dres != nullptr) {
-              o[e] += rf;
+              oz[e] = o[e] * yf * dsq[j][k][e];
+              o[e] *= elem<T>(sq[j][k], e);
+            } else {
+              if (dres != nullptr) o[e] += elem<T>(rv[j][k], e);
             }
             a[e] = fmaf(gf, xf * r[j], a[e]);
           }
           store_chunk<T>(dxs + (size_t)(base + j) * D, c0, D, vec, o);
-          if (gated) store_chunk<T>(dzs + (size_t)(base + j) * D, c0, D, vec, oz);
+          if constexpr (Gated) store_chunk<T>(dzs + (size_t)(base + j) * D, c0, D, vec, oz);
         }
         // the group's own row of acc_s: no other thread touches these
         if (vec) {
@@ -357,19 +392,34 @@ dscale_kernel(const float* __restrict__ partial, int blocks, int D, float* __res
   }
 }
 
-template <typename T, int G, int KC, int R>
+// The SMs of the current device (the gated form sizes its grid by them).
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev] > 0 ? counts[dev] : 132;
+}
+
+template <typename T, bool Gated, int G, int KC, int R, int NT = kThreads>
 cudaError_t launch_k(const Seg& s0, const Seg& s1, int D, float eps, int vec, float* partial,
                      int max_blocks, int& blocks, cudaStream_t st) {
   // f32 (the identity checks) takes one row at a time: its chunks are
   // twice as many registers
   constexpr int RR = sizeof(T) == 2 ? R : 1;
   constexpr int per_pass = (NT / G) * RR;
+  // blocks an SM: bf16 two of 256 threads (128 registers a thread), or
+  // three of 384 (the gated form's one-row blocks: 56); f32 one
+  constexpr int MinB = sizeof(T) != 2 ? 1 : NT == kThreads ? 2 : 3;
   // the groups' partials: (NT / G) rows of at most G * KC * 8 columns
   static_assert((size_t)NT * KC * 8 * sizeof(float) <= 48 * 1024, "partials within 48 KB");
   const int rows = max(s0.rows, s1.rows);
-  blocks = max(1, min((rows + per_pass - 1) / per_pass, max_blocks));
+  blocks = max(1, min((rows + per_pass - 1) / per_pass,
+                      Gated ? min(max_blocks, MinB * sm_count()) : max_blocks));
   const size_t smem = (size_t)(NT / G) * D * sizeof(float);
-  norm_bwd_kernel<T, G, KC, RR><<<blocks, NT, smem, st>>>(s0, s1, D, eps, vec, partial);
+  norm_bwd_kernel<T, Gated, NT, G, KC, RR, MinB><<<blocks, NT, smem, st>>>(s0, s1, D, eps, vec,
+                                                                          partial);
   return cudaGetLastError();
 }
 
@@ -377,18 +427,55 @@ cudaError_t launch_k(const Seg& s0, const Seg& s1, int D, float eps, int vec, fl
 // four to five chunks of each input in flight a thread (bf16: 48 to 60
 // registers of data), so that two blocks fit an SM.
 template <typename T>
+cudaError_t launch_norm(const Seg& s0, const Seg& s1, int D, float eps, int vec, float* partial,
+                        int max_blocks, int& blocks, cudaStream_t st) {
+  const int chunks = (D + 7) / 8;
+#define NORM_K(G, KC, R) \
+  return launch_k<T, false, G, KC, R>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st)
+  if (chunks <= 8) NORM_K(8, 1, 4);
+  if (chunks <= 16) NORM_K(16, 1, 4);
+  if (chunks <= 32) NORM_K(32, 1, 4);
+  if (chunks <= 64) NORM_K(32, 2, 2);
+  if (chunks <= 128) NORM_K(32, 4, 1);
+  if (chunks <= 256) NORM_K(64, 4, 1);
+  if (chunks <= 320) NORM_K(64, 5, 1);
+  if (chunks <= 512) NORM_K(128, 4, 1);
+  NORM_K(256, 4, 1);
+#undef NORM_K
+}
+
+// The gated form's tiles: the widest group whose chunks a thread (three,
+// else four) are all live at the width's multiples of three groups; past
+// 2048 columns up to 3072 (mamba2-780m's 3072), one row a block of 384
+// threads, a chunk each, three blocks an SM.
+template <typename T>
+cudaError_t launch_gated(const Seg& s0, const Seg& s1, int D, float eps, int vec, float* partial,
+                         int max_blocks, int& blocks, cudaStream_t st) {
+  const int chunks = (D + 7) / 8;
+#define GATED_K(G, KC, R) \
+  return launch_k<T, true, G, KC, R>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st)
+  if (chunks <= 8) GATED_K(8, 1, 3);
+  if (chunks <= 16) GATED_K(16, 1, 3);
+  if (chunks <= 32) GATED_K(32, 1, 3);
+  if (chunks <= 96) GATED_K(32, 3, 1);
+  if (chunks <= 128) GATED_K(32, 4, 1);
+  if (chunks <= 192) GATED_K(64, 3, 1);
+  if (chunks <= 256) GATED_K(64, 4, 1);
+  if (chunks <= 384)
+    return launch_k<T, true, 384, 1, 1, 384>(s0, s1, D, eps, vec, partial, max_blocks, blocks,
+                                             st);
+  if (chunks <= 512) GATED_K(128, 4, 1);
+  if (chunks <= 768) GATED_K(256, 3, 1);
+  GATED_K(256, 4, 1);
+#undef GATED_K
+}
+
+template <typename T>
 cudaError_t launch_t(const Seg& s0, const Seg& s1, int D, float eps, int vec, float* partial,
                      int max_blocks, int& blocks, cudaStream_t st) {
-  const int chunks = (D + 7) / 8;
-  if (chunks <= 8) return launch_k<T, 8, 1, 4>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
-  if (chunks <= 16) return launch_k<T, 16, 1, 4>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
-  if (chunks <= 32) return launch_k<T, 32, 1, 4>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
-  if (chunks <= 64) return launch_k<T, 32, 2, 2>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
-  if (chunks <= 128) return launch_k<T, 32, 4, 1>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
-  if (chunks <= 256) return launch_k<T, 64, 4, 1>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
-  if (chunks <= 320) return launch_k<T, 64, 5, 1>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
-  if (chunks <= 512) return launch_k<T, 128, 4, 1>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
-  return launch_k<T, 256, 4, 1>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
+  if (s0.z != nullptr)
+    return launch_gated<T>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
+  return launch_norm<T>(s0, s1, D, eps, vec, partial, max_blocks, blocks, st);
 }
 
 bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -400,7 +487,8 @@ bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_
 // out (kGated: the gradient of y), dz0 out (kGated only); segment 1
 // (rows1 > 0: the pair's k): x1, dy1, gain1, dx1.  All rows contiguous, one
 // dtype, D <= 8192.  The first kernel runs at most `blocks` blocks of 256
-// threads, each striding over both segments' rows; partial: blocks * 2 * D
+// threads (at most two an SM; the gated form's one-row blocks of 384, three
+// an SM), each striding over both segments' rows; partial: blocks * 2 * D
 // floats of scratch.  dgain0/dgain1: (D,) f32 out (dgain1 null without
 // segment 1).  Two launches.  Returns cudaGetLastError().
 extern "C" int rmsnorm_bwd_launch(int dtype, int D, float eps, const void* x0, const void* dy0,
@@ -410,7 +498,7 @@ extern "C" int rmsnorm_bwd_launch(int dtype, int D, float eps, const void* x0, c
                                   int blocks, float* dgain0, float* dgain1, void* stream) {
   if (D <= 0 || D > 8192 || rows0 < 0 || rows1 < 0 || blocks <= 0 || partial == nullptr ||
       dgain0 == nullptr || (rows1 > 0 && dgain1 == nullptr) ||
-      (z0 != nullptr && (dz0 == nullptr || dres0 != nullptr)))
+      (z0 != nullptr && (dz0 == nullptr || dres0 != nullptr || rows1 > 0)))
     return cudaErrorInvalidValue;
   const Seg s0{x0, dy0, dres0, z0, static_cast<const float*>(gain0), dx0, dz0, rows0};
   const Seg s1{x1, dy1, nullptr, nullptr, static_cast<const float*>(gain1), dx1, nullptr, rows1};

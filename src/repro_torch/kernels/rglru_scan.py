@@ -23,13 +23,18 @@ dh_t h_{t-1}`` and ``db_t = dh_t``, carried through ``a = exp(log_a)`` and
 rounded once to x's dtype).  ``h_{t-1}`` is the f32 state, recomputed
 forward inside the kernel (the forward's output is rounded).  It keeps
 the forward's cut of time (``plan``), run backward: the tiles are walked
-last to first, the carry of ``a dh`` coming from the later tile, each
-tile's incoming state recomputed from a checkpoint that a first forward
-pass over the tiles leaves in a small workspace.  ``rglru_bwd_plain`` is
+last to first through a ring of shared-memory stages, the carry of ``a
+dh`` coming from the later tile, each tile's incoming state taken from a
+checkpoint that the forward kernel writes when asked (``rglru(...,
+checkpoint=True)``: a (B, tiles - 1, D) f32 tensor); the segments of a
+tile meet in warp-shuffle scans, forward and in reverse (the source's
+header has the design).  ``rglru_checkpoint_plain`` is the checkpoint in
+plain PyTorch.  ``rglru_bwd_plain`` is
 the same function in plain PyTorch, with the gradient ``jax.grad`` of
 ``ref.rglru_chunked`` gives where ``1 - a^2 = 0`` (``_dlog_a``).
 ``RGLRUFn`` is the ``torch.autograd.Function`` ``ops.rglru`` routes a CUDA
-call through when an input needs a gradient.
+call through when an input needs a gradient; it keeps the checkpoint as
+flash keeps its lse.
 """
 from __future__ import annotations
 
@@ -44,8 +49,9 @@ launches = 0                 # kernel launches (plain-version calls excluded)
 bwd_launches = 0             # backward kernel launches
 _count_lock = threading.Lock()
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# x, log_a, gate, dy, dx, dlog_a, dgate, work; B, S, D, segs, per, dtype;
+# x, log_a, gate, y, ckpt; B, S, D, segs, per, dtype; stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# x, log_a, gate, dy, dx, dlog_a, dgate, ckpt; B, S, D, segs, per, dtype;
 # stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,6 +76,13 @@ def plan(s: int, staged: bool = None):
     return -(-s // per), per
 
 
+def tiles(s: int, staged: bool = None) -> int:
+    """Tiles of ``plan(s, staged)`` over ``s`` steps: the checkpoint holds
+    the incoming state of each but the first."""
+    segs, per = plan(s, staged)
+    return -(-s // (segs * per))
+
+
 def _counted(bwd: bool = False) -> None:
     global launches, bwd_launches
     with _count_lock:
@@ -92,9 +105,11 @@ def _check(name, x, *others):
                              "one device")
 
 
-def rglru(x, log_a, gate_x, staged: bool = None):
+def rglru(x, log_a, gate_x, staged: bool = None, checkpoint: bool = False):
     """Launch the Hopper kernel.  x, log_a (<= 0) and gate_x: (B,S,D), one
-    dtype, contiguous.  Returns the hidden states (B,S,D) in x's dtype.
+    dtype, contiguous.  Returns the hidden states (B,S,D) in x's dtype;
+    with ``checkpoint`` also each tile's incoming f32 state, (B, tiles -
+    1, D), which ``rglru_bwd`` takes (the states do not change with it).
     ``staged`` forces a path (``plan``).  CUDA tensors only."""
     if x.device.type != "cuda":
         raise RuntimeError("rglru kernel needs CUDA tensors; use rglru_plain "
@@ -103,15 +118,18 @@ def rglru(x, log_a, gate_x, staged: bool = None):
     b, s, d = x.shape
     segs, per = plan(s, staged)
     y = torch.empty_like(x)
+    ckpt = torch.empty((b, tiles(s, staged) - 1, d), dtype=torch.float32,
+                       device=x.device) if checkpoint else None
     fn = build.library("rglru_scan", _ARGTYPES).rglru_scan_launch
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), log_a.data_ptr(), gate_x.data_ptr(),
-                 y.data_ptr(), b, s, d, segs, per, _DTYPES[x.dtype],
+                 y.data_ptr(), None if ckpt is None or ckpt.numel() == 0
+                 else ckpt.data_ptr(), b, s, d, segs, per, _DTYPES[x.dtype],
                  build.current_stream(x.device))
     if err:
         raise RuntimeError(f"rglru launch failed: CUDA error {err}")
     _counted()
-    return y
+    return (y, ckpt) if checkpoint else y
 
 
 def rglru_plain(x, log_a, gate_x):
@@ -119,11 +137,39 @@ def rglru_plain(x, log_a, gate_x):
     return ref.rglru_chunked(x, log_a, gate_x)
 
 
+def _states_f32(x, log_a, gate_x):
+    """The f32 states h (f64 for f64 inputs), by the forward's scan."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    la = log_a.to(f32)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * la), 0.0))
+    a, bx = torch.exp(la), beta * gate_x.to(f32) * x.to(f32)
+
+    def combine(c1, c2):
+        return [c1[0] * c2[0], c1[1] * c2[0] + c2[1]]
+
+    _, h = ref._associative_scan(combine, [a, bx], dim=1)
+    return a, beta, h
+
+
+def rglru_checkpoint_plain(x, log_a, gate_x, staged: bool = None):
+    """``rglru(..., checkpoint=True)``'s checkpoint in plain PyTorch: the
+    f32 state after the last step of each tile but the last, (B, tiles -
+    1, D)."""
+    segs, per = plan(x.shape[1], staged)
+    rows = segs * per
+    _, _, h = _states_f32(x, log_a, gate_x)
+    return h[:, rows - 1::rows][:, :tiles(x.shape[1], staged) - 1] \
+        .contiguous()
+
+
 # ------------------------------------------------------------- backward
-def rglru_bwd(x, log_a, gate_x, dy, staged: bool = None):
+def rglru_bwd(x, log_a, gate_x, dy, staged: bool = None, ckpt=None):
     """Launch the backward kernel: (dx, dlog_a, dgate_x) of ``rglru(x,
     log_a, gate_x)`` for the output gradient ``dy``, in x's dtype.
-    ``staged`` forces a path (``plan``).  CUDA tensors only."""
+    ``ckpt``: the forward's checkpoint (``rglru(..., checkpoint=True)`` on
+    the same inputs and path); without it, where there are several tiles,
+    a forward launch makes it first.  ``staged`` forces a path (``plan``).
+    CUDA tensors only."""
     if x.device.type != "cuda":
         raise RuntimeError("rglru_bwd kernel needs CUDA tensors; use "
                            "rglru_bwd_plain on the CPU")
@@ -131,18 +177,21 @@ def rglru_bwd(x, log_a, gate_x, dy, staged: bool = None):
     _check("rglru_bwd", x, log_a, gate_x, dy)
     b, s, d = x.shape
     segs, per = plan(s, staged)
-    tiles = -(-s // (segs * per))
+    n = tiles(s, staged)
+    if n > 1 and ckpt is None:
+        _, ckpt = rglru(x, log_a, gate_x, staged, checkpoint=True)
+    if n > 1 and (ckpt.shape != (b, n - 1, d) or ckpt.dtype != torch.float32
+                  or ckpt.device != x.device or not ckpt.is_contiguous()):
+        raise ValueError(f"rglru_bwd: checkpoint {tuple(ckpt.shape)} "
+                         f"{ckpt.dtype} for {n} tiles of {tuple(x.shape)}")
     dx, dla, dg = (torch.empty_like(x) for _ in range(3))
-    # each tile's incoming f32 state, from the first, forward pass
-    work = torch.empty(max(1, b * (tiles - 1) * d), dtype=torch.float32,
-                       device=x.device)
     fn = build.launcher("rglru_scan_bwd", "rglru_scan_bwd_launch",
                         _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), log_a.data_ptr(), gate_x.data_ptr(),
                  dy.data_ptr(), dx.data_ptr(), dla.data_ptr(), dg.data_ptr(),
-                 work.data_ptr(), b, s, d, segs, per, _DTYPES[x.dtype],
-                 build.current_stream(x.device))
+                 ckpt.data_ptr() if n > 1 else None, b, s, d, segs, per,
+                 _DTYPES[x.dtype], build.current_stream(x.device))
     if err:
         raise RuntimeError(f"rglru backward launch failed: CUDA error {err}")
     _counted(bwd=True)
@@ -171,13 +220,11 @@ def rglru_bwd_plain(x, log_a, gate_x, dy):
     the gradients of the inputs, rounded once to x's dtype."""
     f32 = torch.promote_types(x.dtype, torch.float32)
     la, xf, gf = log_a.to(f32), x.to(f32), gate_x.to(f32)
-    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * la), 0.0))
-    a, bx = torch.exp(la), beta * gf * xf
+    a, beta, h = _states_f32(x, log_a, gate_x)
 
     def combine(c1, c2):
         return [c1[0] * c2[0], c1[1] * c2[0] + c2[1]]
 
-    _, h = ref._associative_scan(combine, [a, bx], dim=1)
     h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
     a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
     _, dh = ref._associative_scan(
@@ -191,15 +238,16 @@ def rglru_bwd_plain(x, log_a, gate_x, dy):
 
 
 class RGLRUFn(torch.autograd.Function):
-    """``rglru`` under autograd on the card: forward kernel, backward
-    kernel (from the saved inputs)."""
+    """``rglru`` under autograd on the card: forward kernel (writing its
+    checkpoint), backward kernel (from the saved inputs and checkpoint)."""
 
     @staticmethod
     def forward(ctx, x, log_a, gate_x):
-        y = rglru(x, log_a, gate_x)
-        ctx.save_for_backward(x, log_a, gate_x)
+        y, ckpt = rglru(x, log_a, gate_x, checkpoint=True)
+        ctx.save_for_backward(x, log_a, gate_x, ckpt)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        return rglru_bwd(*ctx.saved_tensors, dy)
+        x, log_a, gate_x, ckpt = ctx.saved_tensors
+        return rglru_bwd(x, log_a, gate_x, dy, ckpt=ckpt)

@@ -28,7 +28,10 @@ output's gradient for the add form, and the gain's gradient summed over
 rows in f32 by a second, deterministic pass.  The gated form recomputes
 its input ``v = y * silu(z)`` from the saved y and z, rounded as the
 forward rounds it, and carries ``dv`` on to ``dy = dv silu(z)`` and
-``dz = dv y silu'(z)``.
+``dz = dv y silu'(z)``; it is an instantiation of its own, which computes
+the gate once an element, keeps ``v`` and ``silu(z)`` between the row's
+two loops and, in bf16, copies the next rows into shared memory while it
+computes the current ones.
 Rows go to groups of 8 to 128 threads, several rows in flight a block
 with 16-byte loads, all issued before the row's reduction (the source's
 header has the design).
@@ -262,10 +265,11 @@ def _bwd_launch(x0, dy0, scale0, dres0=None, x1=None, dy1=None, scale1=None,
         dx1 = _empty(x1)
         dg1 = torch.empty(d, dtype=torch.float32, device=x0.device)
         rows1 = x1.numel() // d
-    # at most two blocks of 256 threads an SM; the launcher takes fewer
-    # where the rows run out, and its partials fill the first ones
+    # at most two blocks of 256 threads an SM (the gated form three of
+    # 384); the launcher takes fewer where the rows run out or its tile
+    # holds more registers, and its partials fill the first ones
     dev = x0.device
-    blocks = 2 * build.sm_count(dev.index or 0)
+    blocks = (2 if z0 is None else 3) * build.sm_count(dev.index or 0)
     partial = torch.empty(blocks * 2 * d, dtype=torch.float32, device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
     fn = build.library("rmsnorm_bwd", _BWD_ARGTYPES).rmsnorm_bwd_launch

@@ -69,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import threading
 import time
 import traceback
 import weakref
@@ -382,7 +383,18 @@ class Trace(TorchDispatchMode):
     adds a decode combine's rank-0 partial states as an ``all-reduce``),
     and live bytes (each storage from its first op to its release,
     ``meta`` tensors left out) with their ``peak``, ``resident`` counted
-    from the start."""
+    from the start.
+
+    A gloo process group's worker thread holds a collective's tensors
+    until just after the collective completes.  Where the step has dropped
+    one by then, the worker releases it, and that release waits for the
+    interpreter's lock, which the step's thread hands over at a time that
+    depends on the threads: it could land after the next op's allocations
+    and count toward their peak.  So in a gloo world the trace hands the
+    lock over before the first op after a collective, for as long as the
+    worker's releases keep arriving (``_await_workers``): they then land
+    where a fake world, whose collectives hold nothing, releases the same
+    tensors."""
 
     def __init__(self, resident: Iterable[torch.Tensor] = ()):
         super().__init__()
@@ -394,6 +406,12 @@ class Trace(TorchDispatchMode):
         self.calls: List[Tuple[str, int]] = []
         self._live: Dict[int, int] = {}
         self.live = self.peak = 0
+        self._owner = threading.get_ident()
+        self._foreign = 0            # releases run by another thread
+        self._after_collective = False
+        self._real = torch.distributed.is_available() and \
+            torch.distributed.is_initialized() and \
+            torch.distributed.get_backend() == "gloo"
         for t in resident:
             self._hold(t, t.numel() * t.element_size())
         self.argument_bytes = self.live
@@ -412,18 +430,36 @@ class Trace(TorchDispatchMode):
         weakref.finalize(st, self._release, key)
 
     def _release(self, key: int) -> None:
+        if threading.get_ident() != self._owner:
+            self._foreign += 1
         self.live -= self._live.pop(key, 0)
+
+    def _await_workers(self, step_s: float = 0.002, most_s: float = 0.2
+                       ) -> None:
+        """Hand the interpreter's lock to the process group's threads
+        until a wait of ``step_s`` brings no release from them (at most
+        ``most_s`` in all)."""
+        deadline = time.monotonic() + most_s
+        while True:
+            seen = self._foreign
+            time.sleep(step_s)
+            if self._foreign == seen or time.monotonic() > deadline:
+                return
 
     def combine(self, states) -> None:
         self.calls.append(("all-reduce", _nbytes(states[0][0])))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._after_collective:
+            self._after_collective = False
+            self._await_workers()
         out = func(*args, **kwargs)
         kind = _collective_kind(func)
         if kind is not None:
             result = out if func.namespace == "_c10d_functional" else args[0]
             self.calls.append((kind, _nbytes(tree_leaves(result))))
+            self._after_collective = self._real
             return out
         formula = self._formulas.get(func._overloadpacket)
         if formula is not None:

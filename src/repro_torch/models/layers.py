@@ -9,6 +9,7 @@ the residual add in ``blocks``, the gate in ``ssm``).
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -41,12 +42,37 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
 
 
 # ----------------------------------------------------------------------- mlps
+_cpu_exp_lock = threading.Lock()
+_cpu_exp_ready = False
+
+
+def _first_cpu_exp() -> None:
+    """The process's first CPU ``torch.exp``, on one element and so on this
+    thread alone, once.  PyTorch's CPU ``exp`` is MKL's VML ``vmsExp`` in
+    its high-accuracy mode, run by each of PyTorch's threads on its share
+    of the tensor.  When the first call of a process runs on several
+    threads at once, now and then (3% of fresh processes at two threads)
+    the calling thread computes the first ~15k elements of its share with
+    a far coarser approximation, up to 1.5e-4 relative, and the same call
+    again is exact.  No process whose first call ran on one thread showed
+    it."""
+    global _cpu_exp_ready
+    with _cpu_exp_lock:
+        if not _cpu_exp_ready:
+            torch.exp(torch.zeros(1))
+            _cpu_exp_ready = True
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as the reference rounds it: the logistic as
     ``1 / (1 + exp(-x))``, then the product, each operation rounded to x's
     dtype (XLA's expansion of ``lax.logistic``; ``F.silu`` rounds once,
     which moves a bf16 product by a spacing now and then).  The MoE FFNs
-    use it; ``mlp`` keeps ``F.silu`` (one launch in place of four)."""
+    use it; ``mlp`` keeps ``F.silu`` (one launch in place of four).  On the
+    CPU the process's first ``exp`` runs serially first
+    (``_first_cpu_exp``)."""
+    if x.device.type == "cpu" and not _cpu_exp_ready:
+        _first_cpu_exp()
     return x * torch.reciprocal(torch.exp(-x) + 1.0)
 
 

@@ -16,6 +16,18 @@ the unfused norms.  The CUDA kernel runs only on the card, where
 Tolerances: f32 2e-5 (the same f32 math summed in another order); bf16
 two roundings of the largest |output| (2^-7 relative), as
 ``test_torch_kernels.py`` holds the norm.
+
+The gated form's backward kernel computes the gate once an element
+(``csrc/rmsnorm_bwd.cu``): ``e = exp(-z)``, ``d = 1 + e``, silu rounded
+as ``z / d`` (the forward kernel's expression), ``sigmoid = 1 / d``, ``v``
+once.  ``_gated_bwd_once`` is that arithmetic in plain PyTorch: against
+``jax.vjp`` of the reference ``rmsnorm(y * silu(z))`` in f32 within 1e-5
+of the largest |gradient| + 1e-5 relative; with bf16 inputs, each
+gradient within one bf16 spacing (``chip_smoke.bwd_spacings``) of the f32
+chain through ``jax.vjp`` of the reference norm at the forward's rounded
+``v``, and the gain's within 1e-5 of its column's sum of |terms|; its
+rounded silu (bf16) equal element for element to ``F.silu``, the
+forward's plain route.
 """
 import os
 import sys
@@ -217,3 +229,88 @@ def test_model_calls_the_fused_forms_with_tokens_unchanged(monkeypatch,
     assert calls == {k: v * (1 + steps) for k, v in per_step.items()}
     want_launches = chip_smoke.expected_launches(tc, steps, 1, 0)["rmsnorm"]
     assert sum(calls.values()) == want_launches
+
+
+def _gated_bwd_once(y, z, scale, dout, eps=EPS):
+    """The gated backward kernel's arithmetic, the gate computed once an
+    element: (dy, dz in y's dtype, dscale f32, the rounded silu)."""
+    t = y.dtype
+    yf, zf, gf = y.float(), z.float(), dout.float()
+    d = 1.0 + torch.exp(-zf)
+    silu = (zf / d).to(t).float()
+    sig = 1.0 / d
+    v = (yf * silu).to(t).float()
+    w = 1.0 + scale.float()
+    r = torch.rsqrt(v.square().mean(-1, keepdim=True) + eps)
+    coef = r * r * (gf * w * v).mean(-1, keepdim=True)
+    dv = r * (gf * w - v * coef)
+    dz = dv * yf * (sig * (1.0 + zf * (1.0 - sig)))
+    dscale = (gf * (v * r)).reshape(-1, v.shape[-1]).sum(0)
+    return (dv * silu).to(t), dz.to(t), dscale, silu
+
+
+def _gated_inputs(seed, rows, d, dt):
+    rng = np.random.default_rng(seed)
+    y, z, dout = (rng.standard_normal((rows, d)).astype(np.float32)
+                  for _ in range(3))
+    z[0, :4] = [-30.0, 30.0, 0.0, -1e-3]       # far tails, zero, near zero
+    scale = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    return [torch.from_numpy(a).to(TDT[dt]) for a in (y, z, dout)] + \
+        [torch.from_numpy(scale)]
+
+
+GATED_WIDTHS = [64, 999, 1536, 3072, 4096]
+
+
+@pytest.mark.parametrize("d", GATED_WIDTHS)
+def test_gated_bwd_gate_once_matches_jax_vjp_f32(d):
+    y, z, dout, scale = _gated_inputs(d, 6, d, "f32")
+
+    def f(y_, z_, s_):                    # as repro.models.ssm gates its norm
+        return jlayers.rmsnorm({"scale": s_}, y_ * jax.nn.silu(z_), EPS)
+    _, vjp = jax.vjp(f, *(jnp.asarray(t.numpy()) for t in (y, z, scale)))
+    want = vjp(jnp.asarray(dout.numpy()))
+    got = _gated_bwd_once(y, z, scale, dout)
+    for name, g, w in zip(("dy", "dz", "dscale"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(w).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("d", GATED_WIDTHS)
+def test_gated_bwd_gate_once_bf16_within_one_spacing(d):
+    """bf16 inputs: the f32 chain rule through ``jax.vjp`` of the reference
+    norm at the forward's v (silu rounded, then the product rounded)."""
+    y, z, dout, scale = _gated_inputs(100 + d, 6, d, "bf16")
+    got = _gated_bwd_once(y, z, scale, dout)
+    silu = got[3]
+    v = (y.float() * silu).to(torch.bfloat16).float()
+    _, vjp = jax.vjp(lambda v_, s_: jlayers.rmsnorm({"scale": s_}, v_, EPS),
+                     jnp.asarray(v.numpy()), jnp.asarray(scale.numpy()))
+    dv, dscale = (torch.from_numpy(np.array(a)) for a in
+                  vjp(jnp.asarray(dout.float().numpy())))
+    zf = z.double()
+    sig = torch.sigmoid(zf)
+    want = (dv.double() * silu.double(),
+            dv.double() * y.double() * (sig * (1.0 + zf * (1.0 - sig))))
+    for name, g, w in zip(("dy", "dz"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        assert chip_smoke.bwd_spacings(g, w.float()) <= 1.0, name
+    vr = v * torch.rsqrt(v.square().mean(-1, keepdim=True) + EPS)
+    terms = (dout.float() * vr).abs().sum(0)
+    assert ((got[2] - dscale).abs() <= 1e-5 * terms).all()
+
+
+def test_gated_bwd_silu_is_the_forwards():
+    """bf16, the training dtype: the rounded silu of the gate-once
+    arithmetic equals ``F.silu``'s, element for element, the factor the
+    plain forward multiplies y by.  (In f32 ``F.silu`` differs from ``z /
+    (1 + exp(-z))`` in the last bit now and then; the kernels, forward and
+    backward, both take the latter.)"""
+    z = torch.from_numpy(np.concatenate([
+        np.random.default_rng(5).standard_normal(1 << 16) * 4,
+        np.linspace(-90, 90, 4001)]).astype(np.float32)).to(torch.bfloat16)
+    one = torch.ones_like(z)
+    silu = _gated_bwd_once(one, z, torch.zeros(z.shape[-1]), one)[3]
+    assert torch.equal(silu.to(torch.bfloat16), torch.nn.functional.silu(z))

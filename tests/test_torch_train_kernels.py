@@ -58,8 +58,11 @@ NORM = {"rmsnorm": rk.rmsnorm_plain, "rmsnorm_pair": rk.rmsnorm_pair_plain,
         "gated_rmsnorm_bwd": rk.gated_rmsnorm_bwd_plain}
 SSD = {"ssd": lambda *a, **k: sk.ssd_plain(*a, **k),
        "ssd_bwd": sk.ssd_bwd_plain}
-RGLRU = {"rglru": lambda *a, staged=None: rg.rglru_plain(*a),
-         "rglru_bwd": lambda *a, staged=None: rg.rglru_bwd_plain(*a)}
+RGLRU = {"rglru": lambda *a, staged=None, checkpoint=False: (
+    (rg.rglru_plain(*a), rg.rglru_checkpoint_plain(*a, staged))
+    if checkpoint else rg.rglru_plain(*a)),
+         "rglru_bwd": lambda *a, staged=None, ckpt=None:
+         rg.rglru_bwd_plain(*a)}
 
 
 def _fake_card(monkeypatch, calls=None):

@@ -12,8 +12,10 @@ against the JAX package on the CPU.
     states, the reverse pass for the carried state's gradient, the
     per-chunk terms and the reverse cumsum into d(dt)) against autograd
     through the same forward cut into those pieces, and the RG-LRU
-    backward's cut of time (``rglru_scan.plan``: a checkpoint pass, then
-    tiles last to first, segments scanned from zero and folded) against
+    backward's cut of time (``rglru_scan.plan``: each tile's incoming
+    state from the forward's checkpoint, tiles last to first, segments
+    scanned forward and in reverse from zero and their pairs folded)
+    against
     ``rglru_bwd_plain``, both in float64 to 1e-10;
   * the loss and every parameter's gradient of the mamba2-780m and
     recurrentgemma-9b smoke configs (f32) against ``jax.value_and_grad``
@@ -258,75 +260,70 @@ def test_ssd_bwd_decomposition(chunk, nc):
 
 # ------------------------------------------ the RG-LRU backward's cut of time
 def _rglru_bwd_tiled(x, la, g, dy, segs, per):
-    """The kernel's walk in plain PyTorch (float64): a forward pass over
-    the tiles leaving each one's incoming state, then the tiles last to
-    first; in each, every segment scanned forward and in reverse from zero
-    and the pairs of the earlier / later segments folded in turn onto the
-    tile's carries."""
+    """The kernel's walk in plain PyTorch (float64): each tile's incoming
+    state from the forward's checkpoint (the states after each tile but
+    the last), then the tiles last to first; in each, every segment
+    scanned forward from zero, the earlier segments' pairs folded onto the
+    checkpoint for its incoming state and the segment run again from it;
+    every segment folded in reverse from zero to (product of its a's, a_0
+    dh_0), the later segments' pairs folded onto the carry from the later
+    tile, and the segment walked in reverse from that carry."""
     b, s, d = x.shape
     rows = segs * per
     tiles = -(-s // rows)
     a = torch.exp(la)
     bx = torch.sqrt(torch.clamp_min(1 - torch.exp(2 * la), 0)) * g * x
+    h, hs = [], torch.zeros(b, d, dtype=x.dtype)
+    for t in range(s):
+        hs = a[:, t] * hs + bx[:, t]
+        h.append(hs)
+    ckpt = [torch.zeros(b, d, dtype=x.dtype)] + [h[t * rows - 1]
+                                                 for t in range(1, tiles)]
 
     def seg_range(t, sg):
         lo = t * rows + sg * per
         return lo, max(0, min(per, s - lo))
 
-    def forward(t, carry):
-        """Each segment's (local states, prefixes, incoming state); the
-        tile's outgoing state."""
-        out, pairs = [], []
-        for sg in range(segs):
-            lo, n = seg_range(t, sg)
-            hl, pre, hs, pr = [], [], torch.zeros(b, d, dtype=x.dtype), 1.0
-            for u in range(n):
-                hs = a[:, lo + u] * hs + bx[:, lo + u]
-                pr = pr * a[:, lo + u]
-                hl.append(hs)
-                pre.append(pr)
-            pairs.append((pr, hs))
-            out.append((lo, n, hl, pre))
-        hin, res = carry, []
-        for (lo, n, hl, pre), (pr, hs) in zip(out, pairs):
-            res.append((lo, n, hl, pre, hin))
-            hin = pr * hin + hs
-        return res, hin
-
-    ckpt, carry = [], torch.zeros(b, d, dtype=x.dtype)
-    for t in range(tiles - 1):
-        ckpt.append(carry)
-        _, carry = forward(t, carry)
-    ckpt.append(carry)
     dx, dla, dg = (torch.zeros_like(x) for _ in range(3))
     gcarry = torch.zeros(b, d, dtype=x.dtype)
     for t in reversed(range(tiles)):
-        res, _ = forward(t, ckpt[t])
-        revs = []                 # each segment's reverse scan and pair
-        for lo, n, hl, pre, hin in res:
-            dl, q, run, qq = [None] * n, [None] * n, 0.0, 1.0
+        hin, pairs = ckpt[t], []
+        for sg in range(segs):        # forward pairs, folded in order
+            lo, n = seg_range(t, sg)
+            hl, pr = torch.zeros(b, d, dtype=x.dtype), 1.0
+            for u in range(n):
+                hl = a[:, lo + u] * hl + bx[:, lo + u]
+                pr = pr * a[:, lo + u]
+            pairs.append(hin)
+            hin = pr * hin + hl
+        revs = []                     # reverse pairs from zero
+        for sg in range(segs):
+            lo, n = seg_range(t, sg)
+            run, pr = 0.0, 1.0
             for u in reversed(range(n)):
-                if u + 1 < n:
-                    run = run * a[:, lo + u + 1]
-                    qq = qq * a[:, lo + u + 1]
-                run = run + dy[:, lo + u]
-                dl[u], q[u] = run, qq
-            pair = (a[:, lo] * q[0], a[:, lo] * dl[0]) if n else (1.0, 0.0)
-            revs.append((dl, q, pair))
+                run = (a[:, lo + u + 1] * run if u + 1 < n else 0.0) \
+                    + dy[:, lo + u]
+                pr = pr * a[:, lo + u]
+            revs.append((pr, a[:, lo] * run) if n else (1.0, 0.0))
         gin = gcarry
         for sg in reversed(range(segs)):
-            lo, n, hl, pre, hin = res[sg]
-            dl, q, (prod, start) = revs[sg]
+            lo, n = seg_range(t, sg)
+            hprev, c = [], pairs[sg]
             for u in range(n):
-                hprev = hin if u == 0 else hl[u - 1] + pre[u - 1] * hin
-                dh = dl[u] + q[u] * gin
+                hprev.append(c)
+                c = a[:, lo + u] * c + bx[:, lo + u]
+            c = gin
+            for u in reversed(range(n)):
                 tt = lo + u
+                dh = dy[:, tt] + c
+                c = a[:, tt] * dh
                 beta = torch.sqrt(torch.clamp_min(1 - torch.exp(2 * la[:, tt]),
                                                   0))
                 dx[:, tt] = dh * beta * g[:, tt]
                 dg[:, tt] = dh * x[:, tt] * beta
-                dla[:, tt] = rg._dlog_a(la[:, tt], dh * hprev,
+                dla[:, tt] = rg._dlog_a(la[:, tt], dh * hprev[u],
                                         dh * x[:, tt] * g[:, tt])
+            prod, start = revs[sg]
             gin = start + prod * gin
         gcarry = gin
     return dx, dla, dg

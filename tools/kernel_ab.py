@@ -18,7 +18,9 @@ it:
   fused norm call site at its decode shape, or where the tree has no fused
   form, the expression it replaces (the qk pair: two norms; the residual
   add: ``x + y`` then the norm; Mamba2's gate: ``y * silu(z)`` then the
-  norm); ``rglru`` at one token, 32, 1024 and 2300 tokens of width 4096.
+  norm); ``rglru`` at one token, 32, 1024 and 2300 tokens of width 4096,
+  and at the training shape (2 x 1024 x 4096) without and, where the tree
+  has it, with the checkpoint the backward takes.
   Metrics: device ms (the profiler's sum over the row's kernels), the
   device operations a call issues, and the host issue cost
   (``chip_smoke.issue_us``: N back-to-back calls between two syncs, over
@@ -27,11 +29,20 @@ it:
   (phase 2c) times them: ``flash_attention_bwd`` at qwen3-4b's (B 2, S
   1024, 32 over 8 heads of 128, causal) and at recurrentgemma-9b's (16
   over 1 of 256, window 2048), ``ssd_bwd`` at mamba2-780m's (48 heads of
-  64, state 128, chunk 128).  Metric: device ms, and its split by launch.
+  64, state 128, chunk 128), ``rglru_bwd`` at recurrentgemma-9b's (B 2, S
+  1024, width 4096; given the forward's checkpoint where the tree's
+  backward takes one, else as the tree runs it) and the gated norm's
+  backward at mamba2-780m's (2048 rows of 3072); the norm, add and pair
+  forms' backward at qwen3-4b's (2048 rows of 2560; the pair over 2048 x
+  32 and 2048 x 8 rows of 128).  Metric: device ms, and its split by
+  launch.
+
+A row one tree lacks is printed for the other alone.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -99,14 +110,22 @@ def fwd_rows(cs, dev, flush) -> dict:
     for s in (1, 32, 1024, 2300):
         args = cs.rglru_inputs(rng, (1, s, 4096), bf, dev)
         out[f"rglru 1x{s}x4096"] = row(lambda: gk.rglru(*args))
+    args = cs.rglru_inputs(rng, (2, 1024, 4096), bf, dev)
+    out["rglru 2x1024x4096"] = row(lambda: gk.rglru(*args))
+    if "checkpoint" in inspect.signature(gk.rglru).parameters:
+        out["rglru 2x1024x4096 ckpt"] = row(
+            lambda: gk.rglru(*args, checkpoint=True))
     return out
 
 
 def bwd_rows(cs, dev, flush) -> dict:
-    """The flash and SSD backward kernels at their training shapes."""
+    """The flash, SSD, RG-LRU and gated norm backward kernels at their
+    training shapes."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rmsnorm as rk
     from repro_torch.kernels import ssd_scan as sk
 
     rng = np.random.default_rng(cs.SEED + 26)
@@ -133,6 +152,35 @@ def bwd_rows(cs, dev, flush) -> dict:
                           ).to(dev, bf)
     out["ssd bwd"] = row(lambda: sk.ssd_bwd(x, dt, a_log, bm, cm, dsk, dy,
                                             chunk=128))
+    del x, dt, a_log, bm, cm, dsk, dy
+
+    def rnd(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dev, bf)
+    x, la, g = cs.rglru_inputs(rng, (2, 1024, 4096), bf, dev)
+    dy = rnd((2, 1024, 4096))
+    kw = {}
+    if "ckpt" in inspect.signature(rg.rglru_bwd).parameters:
+        kw["ckpt"] = rg.rglru(x, la, g, checkpoint=True)[1]
+    out["rglru bwd"] = row(lambda: rg.rglru_bwd(x, la, g, dy, **kw))
+    del x, la, g, dy, kw
+    y, z, do = rnd((2048, 3072)), rnd((2048, 3072)), rnd((2048, 3072))
+    gain = torch.from_numpy((rng.standard_normal(3072) * 0.1).astype(
+        np.float32)).to(dev)
+    out["gated norm bwd"] = row(lambda: rk.gated_rmsnorm_bwd(y, z, gain, do))
+    del y, z, do
+    # qwen3-4b's norm forms: the norm and the add over 2048 rows of 2560,
+    # the qk pair over 2048 x 32 and 2048 x 8 rows of 128
+    x, dn, ds = rnd((2048, 2560)), rnd((2048, 2560)), rnd((2048, 2560))
+    g2 = torch.from_numpy((rng.standard_normal(2560) * 0.1).astype(
+        np.float32)).to(dev)
+    out["norm bwd"] = row(lambda: rk.rmsnorm_bwd(x, g2, dn))
+    out["add bwd"] = row(lambda: rk.add_rmsnorm_bwd(x, g2, ds, dn))
+    q, k = rnd((2048 * 32, 128)), rnd((2048 * 8, 128))
+    dq, dk = rnd((2048 * 32, 128)), rnd((2048 * 8, 128))
+    gq, gk_ = (torch.from_numpy((rng.standard_normal(128) * 0.1).astype(
+        np.float32)).to(dev) for _ in range(2))
+    out["pair bwd"] = row(lambda: rk.rmsnorm_pair_bwd(q, k, gq, gk_, dq, dk))
     return out
 
 
@@ -167,6 +215,12 @@ def compare(other: str, groups, out_path: str) -> int:
     print(f"{'row':30s} {'metric':10s} {'other':>10s} {'this':>10s} "
           f"{'this/other':>10s}   (runs: other, this, this, other)")
     for name in (k for k, v in runs[1].items() if isinstance(v, dict)):
+        if name not in runs[0]:
+            print(f"{name:30s} this tree only: " + ", ".join(
+                f"{m} {(runs[1][name][m] + runs[2][name][m]) / 2:.4f}"
+                for m, v in runs[1][name].items()
+                if not isinstance(v, dict)))
+            continue
         for metric, v in runs[1][name].items():
             if isinstance(v, dict):
                 continue
@@ -194,8 +248,8 @@ def main(argv=None) -> int:
                     "this checkout")
     ap.add_argument("--rows", default=",".join(GROUPS),
                     help="groups of rows, comma-separated: fwd (the norm "
-                         "call sites, rglru), bwd (the flash and SSD "
-                         "backward kernels)")
+                         "call sites, rglru), bwd (the backward kernels: "
+                         "flash, ssd, rglru, the four norm forms)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "kernel_ab.json"))
     args = ap.parse_args(argv)

@@ -68,7 +68,12 @@ success):
    ratios 1-16 at D 64/128 with a window and empty key slots, S 77 and
    1000, and 100 queries over 333 keys not causal, and recurrentgemma-9b's
    D 256, 16 over 1, window 2048 (S 1024 and 2300, GQA 4 with holes, not
-   causal); the norm's (the norm, the qk pair, the residual add and
+   causal), and with a softcap of 50 (q drawn 16 times wider, so that the
+   cap bites) at D 64, 128 and 256, causal and windowed, GQA and MQA, not
+   causal over more keys with holes, in both dtypes; ``ops.flash_attention``
+   under grad with the softcap launching the forward and the backward
+   kernel once each, its gradients within one spacing, and with a ring
+   still raising ``NotImplementedError``; the norm's (the norm, the qk pair, the residual add and
    Mamba2's gated norm; dx, dz and the gains' gradients) at widths 128
    (the pair at 2048 x 32 and 2048 x 8 rows), 2560 and 2304 at 2048 rows,
    3072 (gated; also 1536 and 4096, whose tiles differ), 999, 64, 4096
@@ -87,6 +92,8 @@ success):
    times at qwen3-4b's and the recurrent stacks' (``ssd``, ``rglru``, the
    gated norm, flash at D 256)
    training shapes beside their bounds, their plain versions and the
+   flash backward at D 128 and D 256 also with the softcap (by launch, and
+   the forward with it), the
    autograd backward of SDPA and of ``F.rms_norm`` as yardsticks (the
    add form's is the norm's alone: no PyTorch call adds the sum's
    gradient), each launch of a call apart (flash: delta, dK/dV, dQ; the
@@ -131,14 +138,17 @@ success):
    paged mode), and the prefix cache is refused;
    then minicpm-2b at full width (D 64, MHA, vocab 122753), 4 layers, in
    f32: the same checks as qwen3-4b's ring path, card against CPU;
-   then (3e, 3f) the MoE archs at full width in f32, mixtral-8x22b at 2
-   layers and arctic-480b at 1 (the depth one card holds in f32, and the
-   host beside it): B=1 greedy streams of 40 and 200 prompt tokens on the
+   then (3e, 3f) the MoE archs at full width in f32, mixtral-8x22b and
+   arctic-480b at 1 layer (the depth one card holds in f32, and the host
+   beside it): B=1 greedy streams of 40 and 200 prompt tokens on the
    card equal to the CPU's, last logits within 1e-3, and a fixed batch of
    8 lanes (6 with one prompt, so the batched MoE drops choices) over 8
    decode steps, tokens equal and logits within 1e-3; whether the fleet's
    stream equals ``generate_sequential`` is logged, since MoE couples a
-   batch's lanes once an expert overflows;
+   batch's lanes once an expert overflows; for mixtral-8x22b (3e) also
+   the loss, ce, aux and every parameter's gradient of one batch of 1 x
+   136 tokens card against CPU within 1e-3, with the (token, choice) pairs
+   its MoE calls drop counted;
    then (3g) llama-3.2-vision-90b at full width, one period (4 self + 1
    cross layers, 25.5 GB of f32 weights on the card and again on the host)
    through the model functions, since no replica serves a cross stack: 4
@@ -174,8 +184,9 @@ success):
    layer 4 straight ``train_loop(mesh=...)`` steps equal to 2, a checkpoint, a
    restore placed leaf by leaf (``ft.elastic.reshard_leaf``) and 2 more,
    bit for bit;
-4. serve: qwen3-4b at full config (36 layers, d_model 2560, vocab 151936,
-   bf16), 2 replicas sharing weights, 8 slots, capacity 2048, DDS; 12
+4. serve: qwen3-4b at full width, depth cut to 18 of its 36 layers
+   (``SERVE_LAYERS``; d_model 2560, vocab 151936, bf16), 2 replicas
+   sharing weights, 8 slots, capacity 2048, DDS; 12
    requests (one sampled) must all come back ``ok``, and the launch
    counters must prove every kernel ran on that path, as often as the
    engine's own step and chunk counters say;
@@ -183,16 +194,19 @@ success):
    of 16, 512 pages per replica), 12 requests sharing a 512-token system
    prompt, one equal to it: all ``ok``, prefix hits, fewer tokens
    prefilled than the prompts hold, at least one copy-on-write, the paged
-   kernel launched 36 times per decode step, and no page held by a lane
+   kernel launched 18 times per decode step, and no page held by a lane
    once the fleet stops;
-6. serve mamba2-780m at full config (48 layers, bf16, capacity 2048) as
-   in phase 4: 48 ``ssd`` launches per prefill chunk, no attention launch;
-7. serve recurrentgemma-9b at full config (38 layers, bf16, capacity
-   4096, one prompt of 2300 tokens) as in phase 4: 26 ``rglru`` and 12
-   ``flash_attention`` launches per chunk, 12 ``decode_attention`` per
+6. serve mamba2-780m at full width, depth cut to 12 of its 48 layers
+   (``SERVE_LAYERS``; bf16, capacity 2048) as in phase 4: 12 ``ssd``
+   launches per prefill chunk, no attention launch;
+7. serve recurrentgemma-9b at full width, depth cut to 9 of its 38
+   layers (three (rglru, rglru, attn) periods; bf16, capacity 4096, one
+   prompt of 2300 tokens) as in phase 4: 6 ``rglru`` and 3
+   ``flash_attention`` launches per chunk, 3 ``decode_attention`` per
    decode step;
-8. chaos: minicpm-2b at full config (40 layers, d_model 2304, 36 heads of
-   64 over 36 KV heads, vocab 122753, bf16), two DDS replicas over one set
+8. chaos: minicpm-2b at full width, depth cut to 10 of its 40 layers
+   (``CHAOS_LAYERS``; d_model 2304, 36 heads of 64 over 36 KV heads, vocab
+   122753, bf16), two DDS replicas over one set
    of weights (8 lanes, capacity 2048), fresh for each fault, which lands
    on ``replica0`` once it decodes (heartbeat 20 ms, staleness alarm
    100 ms, progress timeout 1000 ms): a crash under phase 4's 12 requests
@@ -210,18 +224,19 @@ success):
    the same replica's kernels here; phase 2 holds those kernels against
    their plain versions at these shapes, and phase 3 the 4-layer stack on
    the card against the CPU;
-9. serve mixtral-8x22b at full width, depth cut to 8 layers (bf16, 41 GB
-   of weights; 56 layers do not fit one card) as in phase 4, capacity
-   8192 so the local rings hold the whole 4096 window, the last prompt
-   4600 tokens so they wrap: per step 8 ``decode_attention`` and 17
-   ``rmsnorm`` launches, per chunk 8 ``flash_attention`` and 17;
+9. serve mixtral-8x22b at full width, depth cut to 4 layers
+   (``SERVE_LAYERS``; bf16, 20 GB of weights; 56 layers do not fit one
+   card) as in phase 4, capacity 8192 so the local rings hold the whole
+   4096 window, the last prompt 4600 tokens so they wrap: per step 4
+   ``decode_attention`` and 9 ``rmsnorm`` launches, per chunk 4
+   ``flash_attention`` and 9;
 10. paged serve with the prefix cache, arctic-480b at full width, depth
    cut to 2 layers (bf16, 55 GB of weights) as in phase 5: per step 2
    ``paged_decode_attention`` and 5 ``rmsnorm`` launches;
-11. serve musicgen-medium at full config (48 layers, bf16, 2.7 GB of
-   weights, capacity 2048) as in phase 4: per step 48
-   ``decode_attention`` and 97 ``rmsnorm`` launches, per chunk 48
-   ``flash_attention`` and 97;
+11. serve musicgen-medium at full width, depth cut to 12 of its 48 layers
+   (``SERVE_LAYERS``; bf16, capacity 2048) as in phase 4: per step 12
+   ``decode_attention`` and 25 ``rmsnorm`` launches, per chunk 12
+   ``flash_attention`` and 25;
 12. llama-3.2-vision-90b generation at full width, depth cut to 20 layers
    (16 self + 4 cross, bf16, 38.4 GB of weights; 100 layers need about
    176 GB): 8 lanes with their own stub encoder states, 512-token prompts,
@@ -236,7 +251,8 @@ success):
    launches (``expected_train_launches``); step wall ms, tokens/s, one
    profiled step's device-busy ms and idle share, model operations against
    989 TFLOP/s, peak memory;
-14. (about 73 s) serve qwen3-4b at full config (bf16) from a DDS fleet of
+14. serve qwen3-4b at full width, depth cut to 9 of its 36 layers
+   (``MESH_SERVE_LAYERS``; bf16), from a DDS fleet of
    two replicas sharing weights: ``replica0`` sharded on a (1, 4) mesh of
    the card, ``replica1`` unsharded, both 8 lanes at capacity 8192 (2048
    slots a shard); 12 requests of 64-6000 prompt tokens, 32 new tokens
@@ -283,7 +299,15 @@ success):
    against CPU as 3i holds qwen3-4b (f32, full width, without the
    resume): mamba2-780m at 2 layers over 2 x 256 tokens, 3 steps;
    recurrentgemma-9b at 3 layers, one (rglru, rglru, attn) period, over
-   1 x 136 tokens, 1 step.
+   1 x 136 tokens, 1 step;
+18. train mixtral-8x22b at full width, 1 of its 56 layers (2.91 B
+   parameters: ~47 GB of bf16 weights, f32 masters and moments; 2 layers
+   would hold 86.6 GB), as phase 13 through ``train_loop``: 4 steps of 2 x
+   1024 tokens, launches equal to ``expected_train_launches`` (the MoE FFN
+   launches no kernel), finite losses and a positive aux loss at every
+   step; step time, tokens/s, the share of 989 TFLOP/s (the experts
+   counted for their capacity slots), one profiled step's device-busy time
+   and idle share, AdamW alone, peak memory.
 
 Standard output ends with the JSON ``{"kernels": ...}`` summary (the six
 forward kernels and the four backward ones), the card line, and ``{"ok":
@@ -297,7 +321,8 @@ delta, dK/dV, at D 256 ``flash_bwd_dkdv_reduce`` (the head groups'
 partials), dQ; ``ssd``'s ``ssd_bwd_states_tc``, carry, ``ssd_bwd_chunk_tc``,
 reduce, params; ``--only 2m,3m,14`` for the serving
 mesh, ``--only 3p,13,15`` for the distributed trainer, ``--only 16`` for
-the dry run, ``--only 3r,17`` for the recurrent stacks' training).  The summary's decode rows count the partials launches of a mesh
+the dry run, ``--only 3r,17`` for the recurrent stacks' training,
+``--only 2t,2c,3e,18`` for the softcap backward and MoE training).  The summary's decode rows count the partials launches of a mesh
 path with the kernel's (the same kernel, unmerged) and list them, the
 combine's and the sharded call's times under ``mesh``.
 """
@@ -324,8 +349,23 @@ SEED = 0
 DETAILS = {}
 
 
+# The depths of the serve phases, which check what does not depend on the
+# depth (the engine's path, the launch counts, the streams, paging), cut to
+# a half or a quarter so that the whole script ends within its 1,200 s on a
+# slow host: each keeps its arch's full width, and an identity phase holds
+# that width card against the CPU.  qwen3-4b trains at its full config in
+# phases 13 and 15.
+SERVE_LAYERS = {"qwen3-4b": 18, "mamba2-780m": 12, "recurrentgemma-9b": 9,
+                "mixtral-8x22b": 4, "musicgen-medium": 12}
+MESH_SERVE_LAYERS = 9
+
+
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -2006,6 +2046,41 @@ def nothing_visible(kw: dict) -> dict:
 
 
 # ---------------------------------------------------------------- phase 3
+def cpu_copy(model, cfg):
+    """``model``'s copy on the CPU: ``M.Model(cfg, "cpu")`` with every
+    parameter copied from the card.  Eight threads take slices of at most
+    256 MB, zero each (which faults its fresh host pages in) and copy into
+    it: about 3 GB/s on the card machine's host, where
+    ``load_state_dict`` into fresh pages moves about 1.9."""
+    import torch
+    from repro_torch.models import model as M
+    cpu = M.Model(cfg, "cpu")
+    src, dst = model.state_dict(), cpu.state_dict()
+    if list(src) != list(dst):
+        raise AssertionError("the CPU model's parameters differ in name")
+    parts = []
+    for name, d in dst.items():
+        g = src[name]
+        rows = 1 if d.dim() == 0 else d.shape[0]
+        row_bytes = d.numel() * d.element_size() // max(rows, 1)
+        step = max(1, (256 << 20) // max(row_bytes, 1))
+        if d.dim() == 0:
+            parts.append((d, g))
+        else:
+            parts += [(d[i:i + step], g[i:i + step])
+                      for i in range(0, rows, step)]
+
+    def one(pair):
+        d, g = pair
+        with torch.no_grad():
+            d.zero_()
+            d.copy_(g)
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(one, parts))
+    return cpu
+
+
 def cpu_plain_stream(model, cfg, prompt, new_tokens, ceiling, capacity=1024):
     """The port's path on ``model``'s device without the engine: chunked
     prefill in the replica's bucket widths, then greedy decode steps.
@@ -2049,8 +2124,7 @@ def identity_phase(dev, arch="qwen3-4b", layers=4, paged=True):
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch).replace(num_layers=layers, dtype=torch.float32)
     model = M.init_model(cfg, SEED, dev)
-    cpu_model = M.Model(cfg, "cpu")
-    cpu_model.load_state_dict(model.state_dict())
+    cpu_model = cpu_copy(model, cfg)
     rep = Replica("identity0", cfg, model, slots=4, capacity=1024,
                   prefill_chunk_tokens=32)
     fleet = ServingFleet(make_policy("DDS"), source="identity0",
@@ -2200,8 +2274,7 @@ def recurrent_identity(dev, arch: str, layers: int, capacity: int,
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch).replace(num_layers=layers, dtype=torch.float32)
     model = M.init_model(cfg, SEED, dev)
-    cpu_model = M.Model(cfg, "cpu")
-    cpu_model.load_state_dict(model.state_dict())
+    cpu_model = cpu_copy(model, cfg)
     name = f"{arch}-ring"
     rep = Replica(name, cfg, model, slots=4, capacity=capacity,
                   prefill_chunk_tokens=32)
@@ -2292,7 +2365,7 @@ def host_mem_gb(field: str = "MemAvailable") -> float:
     raise RuntimeError(f"/proc/meminfo has no {field}")
 
 
-def moe_identity(dev, arch: str, layers: int):
+def moe_identity(dev, arch: str, layers: int, grads: bool = False):
     """Phases 3e and 3f: an MoE arch at full width with its depth cut to
     ``layers``, in f32 with TF32 off, on the card against the CPU.
     Greedy B=1 streams of 4 tokens after prompts of 40 and 200 (chunked
@@ -2306,8 +2379,14 @@ def moe_identity(dev, arch: str, layers: int):
     give the same tokens and every step's logits within 1e-3.  MoE does not
     promise that a fleet's stream equals ``generate_sequential`` (every
     lane's choices compete for the same expert capacity), so that equality
-    is logged, not required.  The phase fails at once where the host cannot
-    hold the CPU copy (MemAvailable below its size plus 16 GB)."""
+    is logged, not required.  With ``grads`` (3e) the same two models also
+    give the loss, ce, aux and every parameter's gradient of one batch of 1
+    x ``MOE_GRAD_TOKENS`` tokens (``make_loss_fn``, remat as the config
+    has it), each within 1e-3 (per tensor, of its largest |gradient| on
+    the CPU) and nonzero on the card, and the dropped (token, choice) pairs
+    of that forward are counted (``moe.dropped_choices``).  The phase fails
+    at once where the host cannot hold the CPU copy (MemAvailable below its
+    size, twice that with ``grads``, plus 16 GB)."""
     import gc
     import numpy as np
     import torch
@@ -2322,11 +2401,12 @@ def moe_identity(dev, arch: str, layers: int):
     t0 = time.perf_counter()
     model = M.init_model(cfg, SEED, dev)
     need_gb = sum(p.numel() * 4 for p in model.parameters()) / 1e9
+    host_gb = need_gb * (2 if grads else 1)        # weights (and gradients)
     avail_gb = host_mem_gb()
     log(f"  {arch}: {layers} layers, {need_gb:.1f} GB of f32 weights; host "
         f"MemAvailable {avail_gb:.1f} GB")
-    if avail_gb < need_gb + 16.0:
-        raise AssertionError(f"{arch}: the CPU copy needs {need_gb:.1f} GB "
+    if avail_gb < host_gb + 16.0:
+        raise AssertionError(f"{arch}: the CPU copy needs {host_gb:.1f} GB "
                              f"and 16 GB beside it; the host has "
                              f"{avail_gb:.1f} GB available")
     rng = np.random.default_rng(SEED + 8)
@@ -2365,8 +2445,7 @@ def moe_identity(dev, arch: str, layers: int):
     if not parted:
         raise AssertionError(f"{arch} batched: the 6 identical lanes kept "
                              f"equal logits, so no choice dropped")
-    cpu_model = M.Model(cfg, "cpu")
-    cpu_model.load_state_dict(model.state_dict())
+    cpu_model = cpu_copy(model, cfg)
     worst = 0.0
     for p in prompts:
         cpu_t, cpu_last = cpu_plain_stream(cpu_model, cfg, p, new, 32)
@@ -2388,6 +2467,8 @@ def moe_identity(dev, arch: str, layers: int):
                              f"{cpu_toks}, logits {berr}")
     stats.update(last_logits_max_abs_diff=worst,
                  batch_logits_max_abs_diff=berr)
+    if grads:
+        stats["gradients"] = moe_gradients(model, cpu_model, cfg)
     del cpu_model
     gc.collect()
 
@@ -2416,6 +2497,97 @@ def moe_identity(dev, arch: str, layers: int):
     del model, rep, fleet
     gc.collect()
     torch.cuda.empty_cache()
+
+
+MOE_GRAD_TOKENS = 136
+
+
+def moe_identity_grads(dev) -> None:
+    """Phase 3e: ``moe_identity`` of mixtral-8x22b at 1 layer (11.6 GB of
+    f32 weights), serving and gradients."""
+    moe_identity(dev, "mixtral-8x22b", 1, grads=True)
+
+
+def moe_gradients(gpu, cpu, cfg) -> dict:
+    """Phase 3e's gradients: the loss, ce, aux and every parameter's
+    gradient of one batch of 1 x ``MOE_GRAD_TOKENS`` synthetic tokens on
+    the card (flash and the norms through their backward kernels, the MoE
+    FFN's batched products by autograd) against the CPU (plain versions),
+    both f32 from the same weights: each within 1e-3, a gradient per
+    tensor of its largest |gradient| on the CPU, and nonzero on the card.
+    Counts the (token, choice) pairs the card's forward drops in each MoE
+    call (``moe.dropped_choices``; remat's recompute calls it again).  The
+    gradients are freed and the parameters set back to need none."""
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.training import steps as S
+
+    t0 = time.perf_counter()
+    tc = TrainConfig()
+    batch = SyntheticDataset(cfg, DataConfig(global_batch=1,
+                                             seq_len=MOE_GRAD_TOKENS,
+                                             seed=SEED)).batch(0)
+    loss_fn = S.make_loss_fn(cfg, tc)
+    drops, ffn = {}, moe.moe_ffn
+
+    def counted(p, x, cfg_, num_groups=1):
+        if x.device.type == "cuda":
+            drops.setdefault("calls", []).append(
+                int(moe.dropped_choices(p, x, cfg_, num_groups)))
+        return ffn(p, x, cfg_, num_groups)
+    metrics = []
+    moe.moe_ffn = counted
+    try:
+        ops.reset_kernel_launches()
+        for m in (gpu, cpu):
+            for p in m.parameters():
+                p.requires_grad_(True)
+            loss, aux = loss_fn(m, S.to_device(batch, m.device))
+            loss.backward()
+            metrics.append({k: float(v.detach()) for k, v in aux.items()})
+    finally:
+        moe.moe_ffn = ffn
+    launches = ops.kernel_launches()
+    if not launches["flash_attention_bwd"] or not launches["rmsnorm_bwd"]:
+        raise AssertionError(f"{cfg.name} gradients: launches {launches}")
+    for k in ("loss", "ce", "aux"):
+        a, b = metrics[0][k], metrics[1][k]
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f"{cfg.name} gradients: {k} card {a} CPU {b}")
+    worst, worst_name = 0.0, ""
+    for (name, g), c in zip(gpu.named_parameters(), cpu.parameters()):
+        if g.grad is None or not (g.grad != 0).any():
+            raise AssertionError(f"{cfg.name}: {name} has no gradient on the "
+                                 "card")
+        cg = c.grad.to(g.device)
+        rel = ((g.grad - cg).abs().max() / cg.abs().max()).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+        if not rel <= 1e-3:
+            raise AssertionError(f"{cfg.name}: {name} gradient off by "
+                                 f"{rel:.2e} of its max")
+        del cg
+    for m in (gpu, cpu):
+        for p in m.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+    out = dict(tokens=MOE_GRAD_TOKENS, card=metrics[0], cpu=metrics[1],
+               grad_rel_err=worst, worst_leaf=worst_name,
+               dropped_per_call=drops.get("calls", []),
+               capacity=moe.expert_capacity(MOE_GRAD_TOKENS, cfg),
+               launches=launches, seconds=time.perf_counter() - t0)
+    log(f"  {cfg.name} gradients of 1 x {MOE_GRAD_TOKENS} tokens: loss "
+        f"{metrics[0]['loss']:.6f}/{metrics[1]['loss']:.6f}, ce "
+        f"{metrics[0]['ce']:.6f}/{metrics[1]['ce']:.6f}, aux "
+        f"{metrics[0]['aux']:.6f}/{metrics[1]['aux']:.6f} (card/CPU); every "
+        f"gradient nonzero, within {worst:.2e} of its max ({worst_name}); "
+        f"dropped (token, choice) pairs per MoE call {out['dropped_per_call']}"
+        f" of {2 * MOE_GRAD_TOKENS}, capacity {out['capacity']} an expert; "
+        f"{out['seconds']:.1f} s")
+    return out
 
 
 VISION = "llama-3.2-vision-90b"
@@ -2480,8 +2652,7 @@ def vision_identity(dev, layers: int = 5):
         raise AssertionError(f"{VISION} identity: lanes 0 and 1 share a "
                              f"prompt and differ in enc, but their logits "
                              f"differ by {apart}")
-    cpu_model = M.Model(cfg, "cpu")
-    cpu_model.load_state_dict(model.state_dict())
+    cpu_model = cpu_copy(model, cfg)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2609,14 +2780,18 @@ def bwd_spacings(got, exp32) -> float:
 BWD_SPACINGS = 1.0
 
 
-def flash_bwd_inputs(rng, b, s, t, hq, hkv, d, dtype, dev, holes=0.0):
+def flash_bwd_inputs(rng, b, s, t, hq, hkv, d, dtype, dev, holes=0.0,
+                     qscale=1.0):
+    """q, k, v, dout normal (q times ``qscale``), the queries the last s
+    positions of t keys' ``arange``, a share ``holes`` of key slots empty."""
     import numpy as np
     import torch
 
-    def rnd(shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
-                                ).to(dev, dtype)
-    q, k, v = rnd((b, s, hq, d)), rnd((b, t, hkv, d)), rnd((b, t, hkv, d))
+    def rnd(shape, sc=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * sc)
+                                .astype(np.float32)).to(dev, dtype)
+    q, k, v = (rnd((b, s, hq, d), qscale), rnd((b, t, hkv, d)),
+               rnd((b, t, hkv, d)))
     dout = rnd((b, s, hq, d))
     kp = np.tile(np.arange(t, dtype=np.int32), (b, 1))
     if holes:
@@ -2626,16 +2801,20 @@ def flash_bwd_inputs(rng, b, s, t, hq, hkv, d, dtype, dev, holes=0.0):
 
 
 def check_flash_bwd(dev, rng, label, b, s, t, hq, hkv, d, dtype, causal=True,
-                    window=0, holes=0.0) -> float:
+                    window=0, holes=0.0, softcap=0.0) -> float:
     """The forward kernel's lse against the plain version's, then the
     backward kernel against ``flash_attention_bwd_plain`` on the kernel's
-    own out and lse (f32 oracle for bf16).  Returns the max abs error."""
+    own out and lse (f32 oracle for bf16).  With a ``softcap``, q is drawn
+    ``SOFTCAP_QSCALE`` times wider, so that the logits reach the cap's
+    range and its derivative 1 - t^2 is far from 1.  Returns the max abs
+    error, the bf16 spacings and the lse's error."""
     import torch
     from repro_torch.kernels import flash_attention as fk
-    q, k, v, dout, qp, kp = flash_bwd_inputs(rng, b, s, t, hq, hkv, d, dtype,
-                                             dev, holes)
+    q, k, v, dout, qp, kp = flash_bwd_inputs(
+        rng, b, s, t, hq, hkv, d, dtype, dev, holes,
+        SOFTCAP_QSCALE if softcap else 1.0)
     kw = dict(q_pos=qp, k_pos=kp, causal=causal, window=window,
-              scale=d ** -0.5)
+              scale=d ** -0.5, softcap=softcap)
     out, lse = fk.flash_attention(q, k, v, splits=1, return_lse=True, **kw)
     f = [x.float() for x in (q, k, v)]
     out_p, lse_p = fk.flash_attention_plain(*f, return_lse=True, **kw)
@@ -2849,9 +3028,65 @@ def check_rglru_bwd(dev, rng, label, b, s, d, dtype, staged=None,
     return err, worst
 
 
+# Phase 2t's softcap (gemma-style, the value gemma-2 sets) and the width of
+# its q draws: |q.k| * scale then spreads ~16, past the cap at the tails,
+# and 1 - t^2 falls to ~0.3, so a kernel without the cap's derivative fails
+# by far more than a spacing.
+SOFTCAP = 50.0
+SOFTCAP_QSCALE = 16.0
+
+
+def check_softcap_grad(dev) -> dict:
+    """Flash under autograd with a softcap on the card: ``ops.flash_attention``
+    at qwen3-4b's heads (32 over 8 of 128, B 1, S 256, bf16) launches the
+    forward kernel once and the backward kernel once (the counters), its
+    gradients within one bf16 spacing of ``flash_attention_bwd_plain``'s in
+    f32 on the forward kernel's own out and lse; with a ring it still
+    raises ``NotImplementedError``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 28)
+    q, k, v, dout, qp, kp = flash_bwd_inputs(rng, 1, 256, 256, 32, 8, 128,
+                                             torch.bfloat16, dev,
+                                             qscale=SOFTCAP_QSCALE)
+    kw = dict(q_pos=qp, k_pos=kp, causal=True, window=0, scale=128 ** -0.5,
+              softcap=SOFTCAP)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ops.reset_kernel_launches()
+    out = ops.flash_attention(*leaves, **kw)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    n = ops.kernel_launches()
+    counts = {key: n[key] for key in ("flash_attention", "flash_attention_bwd")}
+    if counts != {"flash_attention": 1, "flash_attention_bwd": 1}:
+        raise AssertionError(f"softcap under grad: launches {counts}")
+    o, lse = fk.flash_attention(q, k, v, splits=1, return_lse=True, **kw)
+    want = fk.flash_attention_bwd_plain(*(x.float() for x in (q, k, v)),
+                                        o.float(), lse, dout.float(), **kw)
+    worst = max(bwd_spacings(x.grad, w) for x, w in zip(leaves, want))
+    if worst > BWD_SPACINGS:
+        raise AssertionError(f"softcap under grad: {worst:.2f} spacings")
+    ring = torch.zeros((1, 8, 8, 128), dtype=torch.bfloat16, device=dev)
+    try:
+        ops.flash_attention(*leaves, k_cache=ring, v_cache=ring,
+                            cache_pos=torch.zeros((1, 8), dtype=torch.int32,
+                                                  device=dev), **kw)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("flash with a ring under grad did not raise")
+    log(f"  flash under grad with softcap {SOFTCAP}: launches {counts}, "
+        f"gradients within {worst:.3f} spacings of the plain backward; with a "
+        f"ring: NotImplementedError ({refused})")
+    return dict(launches=counts, spacings=worst, ring_refused=refused)
+
+
 def check_backward(dev) -> dict:
     """Phase 2t: the four backward kernels against their plain versions on
-    the card.  Returns each one's max abs error."""
+    the card (flash also with a softcap, and under autograd with one).
+    Returns each one's max abs error."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 20)
@@ -2891,6 +3126,34 @@ def check_backward(dev) -> dict:
         errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
         spac["flash_attention_bwd"] = max(spac["flash_attention_bwd"], sp)
         lse_worst = max(lse_worst, le)
+    # with a softcap of 50: D 64, 128 and 256, causal and windowed, GQA and
+    # MQA, both dtypes (drawn apart, so the cases above keep their inputs)
+    cap_rng = np.random.default_rng(SEED + 29)
+    cap_cases = [(f"softcap qwen3-4b heads {dt}", 1, 512, 512, 32, 8, 128, dt,
+                  True, 0, 0.0) for dt in (bf, f32)]
+    cap_cases += [(f"softcap GQA 4 D {d} window 100 {dt}", 2, 300, 300, 8, 2,
+                   d, dt, True, 100, 0.05) for d in (64, 128, 256)
+                  for dt in (bf, f32)]
+    cap_cases += [(f"softcap recurrentgemma-9b D256 MQA window 2048 {dt}", 1,
+                   1024, 1024, 16, 1, 256, dt, True, 2048, 0.0)
+                  for dt in (bf, f32)]
+    cap_cases += [("softcap MQA D 64 window 64", 2, 200, 200, 8, 1, 64, bf,
+                   True, 64, 0.0),
+                  ("softcap not causal, 100 over 333 keys with holes", 2, 100,
+                   333, 16, 4, 128, bf, False, 0, 0.1)]
+    cap_err = cap_sp = cap_lse = 0.0
+    for label, b, s, t, hq, hkv, d, dt, causal, window, holes in cap_cases:
+        e, sp, le = check_flash_bwd(dev, cap_rng, label, b, s, t, hq, hkv, d,
+                                    dt, causal, window, holes, SOFTCAP)
+        cap_err, cap_sp, cap_lse = (max(cap_err, e), max(cap_sp, sp),
+                                    max(cap_lse, le))
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], cap_err)
+    spac["flash_attention_bwd"] = max(spac["flash_attention_bwd"], cap_sp)
+    lse_worst = max(lse_worst, cap_lse)
+    log(f"  flash bwd with softcap {SOFTCAP}: {len(cap_cases)} cases, max abs "
+        f"err {cap_err:.3e}, bf16 {cap_sp:.3f} spacings (limit "
+        f"{BWD_SPACINGS}), lse {cap_lse:.2e}")
+    softcap_grad = check_softcap_grad(dev)
     norm_cases = [("norm", 2048, 2560, 0), ("add", 2048, 2560, 0),
                   ("pair", 2048 * 32, 128, 2048 * 8), ("norm", 2048, 2304, 0),
                   ("add", 2048, 2304, 0), ("norm", 300, 999, 0),
@@ -2947,7 +3210,12 @@ def check_backward(dev) -> dict:
     repeated = check_bwd_repeat(dev, rng)
     DETAILS["backward_checks"] = dict(errs=errs, spacings=spac,
                                       lse_err=lse_worst,
-                                      bit_identical=repeated)
+                                      bit_identical=repeated,
+                                      softcap=dict(cases=len(cap_cases),
+                                                   max_abs_err=cap_err,
+                                                   spacings=cap_sp,
+                                                   lse_err=cap_lse,
+                                                   under_grad=softcap_grad))
     return errs
 
 
@@ -3089,6 +3357,22 @@ def check_bwd_repeat(dev, rng) -> list:
     return list(runs)
 
 
+def softcap_rows(q, k, v, dout, kw, flush) -> dict:
+    """The flash backward's time with a softcap of ``SOFTCAP`` at ``kw``'s
+    shape (the forward's lse and out under the cap; q and the rest as the
+    uncapped row has them), by launch, and the forward's with the cap."""
+    from repro_torch.kernels import flash_attention as fk
+    kc = dict(kw, softcap=SOFTCAP)
+    out, lse = fk.flash_attention(q, k, v, splits=1, return_lse=True, **kc)
+
+    def kern():
+        return fk.flash_attention_bwd(q, k, v, out, lse, dout, **kc)
+    return dict(softcap_ms=device_ms(kern, flush),
+                softcap_split_ms=kernel_breakdown(kern, flush),
+                softcap_fwd_ms=device_ms(lambda: fk.flash_attention(
+                    q, k, v, splits=1, return_lse=True, **kc), flush))
+
+
 def time_backward(dev) -> dict:
     """Phase 2c's rows for the backward kernels at qwen3-4b's training
     shapes (bf16; B 2, S 1024, 32 over 8 heads of 128; norms over 2048
@@ -3138,6 +3422,7 @@ def time_backward(dev) -> dict:
         row["split_ms"] = kernel_breakdown(lambda: fk.flash_attention_bwd(
             q, k, v, out, lse, dout, **kw), flush)
         if key == "ms":
+            row.update(softcap_rows(q, k, v, dout, kw, flush))
             row["host_ms"] = host_ms(lambda: fk.flash_attention_bwd(
                 q, k, v, out, lse, dout, **kw), flush=flush)
             rows["flash_attention_bwd"] = row
@@ -3258,6 +3543,12 @@ def time_backward(dev) -> dict:
                 extra += (f"; forward with its checkpoint "
                           f"{at['fwd_ckpt_ms']:.4f}, without "
                           f"{at['fwd_ms']:.4f}")
+            if "softcap_ms" in at:
+                extra += (f"; softcap {SOFTCAP}: {at['softcap_ms']:.4f} "
+                          f"({at['softcap_ms'] / at['ms']:.3f}x; by launch "
+                          + ", ".join(f"{k} {v:.4f}" for k, v in
+                                      at["softcap_split_ms"].items())
+                          + f"; forward {at['softcap_fwd_ms']:.4f})")
             lib = at["library_ms"]
             log(f"  {name:22s} {key:5s} {at['ms']:.4f} ms; bound "
                 f"{at['bound_ms']:.4f} ({at['bound_by']}), plain "
@@ -3403,6 +3694,7 @@ def time_recurrent_backward(dev, rng, flush) -> dict:
     flops = 5 * 2 * b * hq * dh * (s * (s + 1) // 2)
     bms, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     rows["flash_attention_bwd_d256"] = dict(
+        **softcap_rows(q_, k_, v_, do_, kw, flush),
         ms=device_ms(kern, flush),
         plain_ms=device_ms(lambda: fk.flash_attention_bwd_plain(
             q_, k_, v_, out, lse, do_, **kw), flush),
@@ -3448,10 +3740,7 @@ def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
     tc = TrainConfig(learning_rate=lr, total_steps=10, warmup_steps=2)
     t0 = time.perf_counter()
     gpu = M.init_model(cfg, SEED, dev)
-    cpu = M.Model(cfg, "cpu")
-    with torch.no_grad():
-        for a, b in zip(cpu.parameters(), gpu.parameters()):
-            a.copy_(b)
+    cpu = cpu_copy(gpu, cfg)
     gs, cs = S.train_state(gpu, tc), S.train_state(cpu, tc)
     ds = SyntheticDataset(cfg, DataConfig(global_batch=batch, seq_len=seq,
                                           seed=SEED))
@@ -3579,18 +3868,30 @@ def train_identity(dev, layers: int = 2, batch: int = 2, seq: int = 256,
 def train_flops(model, cfg, batch: int, seq: int) -> float:
     """Model operations of one train step (forward and backward, remat's
     recompute not counted): 6 per weight per token over every projection
-    (the leaves of two or more axes but the embedding, an untied head and
-    the conv taps; dense stacks: an MoE's experts would count whole) and
-    the head, and 6 S D per query head and attention layer per token for
-    causal attention's two products (S at most the window).  The
-    recurrent scans are not counted."""
+    (the leaves of two or more axes but the embedding, an untied head, the
+    conv taps and an MoE's experts; the router counts) and the head, and
+    6 S D per query head and attention layer per token for causal
+    attention's two products (S at most the window).  An MoE layer's
+    experts count for the slots they run, not the tokens: 6 per weight of
+    one expert per capacity slot of every expert (``moe.expert_capacity``
+    of the step's one group of ``batch * seq`` tokens), empty slots
+    included, as ``moe_ffn`` computes them.  The recurrent scans are not
+    counted."""
+    from repro_torch.models import moe
+    experts = ("moe.w_gate", "moe.w_up", "moe.w_down")
     mats = sum(p.numel() for n, p in model.named_parameters()
                if p.dim() >= 2 and n not in ("embed", "head")
-               and "conv" not in n)
+               and "conv" not in n and not n.endswith(experts))
+    per_expert = sum(p.numel() for n, p in model.named_parameters()
+                     if n.endswith(experts)) // max(1, cfg.num_experts)
+    slots = (min(moe.expert_capacity(batch * seq, cfg),
+                 batch * seq * cfg.num_experts_per_tok) * cfg.num_experts
+             if per_expert else 0)
     span = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
     attn = (cfg.layer_kinds().count("attn") * cfg.num_heads * 6 * span
             * cfg.resolved_head_dim)
-    return batch * seq * (6 * (mats + cfg.d_model * cfg.vocab_size) + attn)
+    return (batch * seq * (6 * (mats + cfg.d_model * cfg.vocab_size) + attn)
+            + 6 * slots * per_expert)
 
 
 def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
@@ -3600,7 +3901,8 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
     (bf16 weights, f32 masters, remat, AdamW, cosine) through
     ``launch.train.train_loop``: ``steps`` steps of ``batch`` x ``seq``
     tokens, the launches of every kernel equal to
-    ``expected_train_launches``, finite losses; step wall ms (median
+    ``expected_train_launches``, finite losses (and for an MoE stack a
+    positive aux loss at every step); step wall ms (median
     after the first), tokens/s, one profiled step's device-busy ms and
     idle share, model operations over step time against 989 TFLOP/s, peak
     memory; kept under ``DETAILS[key]``."""
@@ -3636,6 +3938,9 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
     if not all(np.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"train {arch}: losses "
                              f"{[h['loss'] for h in hist]}")
+    if cfg.num_experts and not all(h["aux"] > 0 for h in hist):
+        raise AssertionError(f"train {arch}: aux losses "
+                             f"{[h['aux'] for h in hist]}")
     walls = sorted(h["ms"] for h in hist[1:])
     step_ms = walls[len(walls) // 2]
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -3657,6 +3962,7 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
     flops = train_flops(state["model"], cfg, batch, seq)
     stats = dict(arch=arch, layers=cfg.num_layers, batch=batch, seq=seq,
                  losses=[h["loss"] for h in hist],
+                 aux=[h["aux"] for h in hist],
                  step_ms=[h["ms"] for h in hist], step_ms_median=step_ms,
                  tokens_per_s=batch * seq / (step_ms / 1e3),
                  model_flops=flops,
@@ -3679,6 +3985,16 @@ def train_phase(dev, steps: int = 6, batch: int = 2, seq: int = 1024,
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def moe_train_phase(dev) -> dict:
+    """Phase 18: 4 steps of mixtral-8x22b at full width, 1 of its 56 layers
+    (2.91 B parameters, ~47 GB of weights, masters and moments; 2 layers
+    would hold 86.6 GB), through ``train_phase``.  Returns its launches by
+    path."""
+    return {"train_mixtral": train_phase(dev, steps=4, layers=1,
+                                         arch="mixtral-8x22b",
+                                         key="train_mixtral")}
 
 
 def recurrent_train_phases(dev) -> dict:
@@ -4406,8 +4722,7 @@ def mesh_identity(dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("qwen3-4b").replace(num_layers=4, dtype=torch.float32)
     model = M.init_model(cfg, SEED, dev)
-    cpu_model = M.Model(cfg, "cpu")
-    cpu_model.load_state_dict(model.state_dict())
+    cpu_model = cpu_copy(model, cfg)
     mesh = card_mesh(dev)
     n_seq = MESH_SHAPE[1]
     cap, new = 1024, 16
@@ -4512,8 +4827,9 @@ def mesh_identity(dev) -> dict:
     return paged_launches
 
 
-def mesh_serve_phase(dev) -> dict:
-    """Phase 14: qwen3-4b at its full config (bf16) in a DDS fleet of two
+def mesh_serve_phase(dev, layers: int = MESH_SERVE_LAYERS) -> dict:
+    """Phase 14: qwen3-4b at full width, ``layers`` deep (bf16), in a DDS
+    fleet of two
     replicas sharing weights: ``replica0`` sharded on a (1, 4) mesh of the
     card, ``replica1`` unsharded, both 8 lanes at capacity 8192 (2048 slots
     a shard); 12 requests of 64-6000 prompt tokens (the longest spans three
@@ -4535,7 +4851,7 @@ def mesh_serve_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg = get_config("qwen3-4b")
+    cfg = get_config("qwen3-4b").replace(num_layers=layers)
     cap = 8192
     t0 = time.perf_counter()
     model = M.init_model(cfg, SEED, dev)
@@ -4831,7 +5147,10 @@ def expected_train_launches(cfg, remat: bool, steps: int = 1) -> dict:
     mixer's kernel once (flash, ``ssd`` or ``rglru``), and the pre-norm,
     the qk pair (attention with qk-norm), Mamba2's gated norm and the
     residual add with the MLP's norm once each (each a ``rmsnorm``
-    launch); the backward launches each one's backward kernel once."""
+    launch); the backward launches each one's backward kernel once.  An
+    MoE layer is an attention layer whose channel mixer, ``moe_ffn``,
+    launches no kernel of its own (batched products, gathers and an
+    ``index_add_``), so its norms count as a dense layer's."""
     kinds = cfg.layer_kinds()
     if not set(kinds) <= {"attn", "ssm", "rglru"}:
         raise ValueError(f"{cfg.name}: a train step is counted for stacks "
@@ -5091,6 +5410,10 @@ CHAOS_PROGRESS_MS = 1000.0
 # victim's one-lane steps, so that the window in which its loop must be seen
 # to run on holds several steps whatever the host's speed
 CHAOS_PARTITION_STEPS = 8.0
+# minicpm-2b's depth in phase 8: a quarter of its 40 layers.  The phase
+# checks failover, eviction and lost requests, which do not depend on the
+# depth; phase 3d holds minicpm-2b's full width card against CPU.
+CHAOS_LAYERS = 10
 
 
 def wait_until(cond, what: str, timeout_s: float = 120.0) -> None:
@@ -5106,8 +5429,9 @@ def decoding(rep) -> bool:
 
 
 def chaos_phase(dev):
-    """Phase 8: fault injection on the card.  minicpm-2b at its full config
-    in bf16 (head_dim 64, 36 heads over 36 KV heads), fleets of two DDS
+    """Phase 8: fault injection on the card.  minicpm-2b at full width,
+    ``CHAOS_LAYERS`` deep, in bf16 (head_dim 64, 36 heads over 36 KV
+    heads), fleets of two DDS
     replicas over one set of weights, 8 lanes, capacity 2048, a 32-token
     chunk ceiling, built afresh for each scenario (a crash is permanent):
     crash, hang, slow(4x) and partition-then-heal against ``replica0``,
@@ -5132,7 +5456,7 @@ def chaos_phase(dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t_phase = time.perf_counter()
-    cfg = get_config("minicpm-2b")
+    cfg = get_config("minicpm-2b").replace(num_layers=CHAOS_LAYERS)
     params = M.init_model(cfg, SEED, dev)
     log(f"  fleet timings: heartbeat {CHAOS_HEARTBEAT_MS:.0f} ms, staleness "
         f"alarm {CHAOS_HEARTBEAT_MS * CHAOS_STALENESS:.0f} ms, progress "
@@ -5548,7 +5872,7 @@ def main(argv=None) -> int:
                          "of the serving mesh; 3p, 15 of the distributed "
                          "trainer, 15 held against 13 when 13 runs first; "
                          "16, the dry run; 3r, 17 of the recurrent stacks' "
-                         "training) "
+                         "training; 3e, 18 of MoE training) "
                          "and stop, with no summary: a quick check of a "
                          "change, not the smoke test")
     args = ap.parse_args(argv)
@@ -5575,12 +5899,25 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}; {torch.cuda.device_count()} device(s); host "
         f"MemTotal {host_mem_gb('MemTotal'):.1f} GB")
     DETAILS["host_mem_total_gb"] = host_mem_gb("MemTotal")
+    # every nvcc starts now; phase 2 runs the forward kernels only, so it
+    # starts once they are built while the backward ones go on building
+    # until phase 2t waits for them
     t0 = time.perf_counter()
-    took = build.build_all()
-    log(f"  kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
-    DETAILS["build_logs"] = {k: build.build_log(k) for k in build.SOURCES}
+    bwd = [n for n in build.SOURCES if n.endswith("_bwd")]
+    builder = ThreadPoolExecutor(1)
+    bwd_built = builder.submit(build.build_all, bwd)
+    took = build.build_all([n for n in build.SOURCES if n not in bwd])
+
+    def built(what: str) -> None:
+        log(f"  {what} built in {time.perf_counter() - t0:.1f} s "
+            f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
+
+    built("forward kernels")
     if args.only:
+        took = bwd_built.result()
+        builder.shutdown()
+        built("backward kernels")
+        DETAILS["build_logs"] = {k: build.build_log(k) for k in build.SOURCES}
         # the card's context and allocator before any phase: one that resets
         # the peak memory first (13, 17) fails on a card nothing has used
         torch.zeros(1, device=dev)
@@ -5589,7 +5926,8 @@ def main(argv=None) -> int:
                 "3p": train_dist_identity, "15": train_sharded_phase,
                 "2m": check_mesh_kernels, "3m": mesh_identity,
                 "14": mesh_serve_phase, "16": dryrun_phase,
-                "3r": recurrent_train_identity, "17": recurrent_train_phases}
+                "3r": recurrent_train_identity, "17": recurrent_train_phases,
+                "3e": moe_identity_grads, "18": moe_train_phase}
         for key in args.only.split(","):
             phase(f"phase {key} (--only)")
             only[key](dev)
@@ -5604,6 +5942,10 @@ def main(argv=None) -> int:
 
     phase("phase 2: kernels against their plain versions")
     errs = check_kernels(dev)
+    took = bwd_built.result()
+    builder.shutdown()
+    built("backward kernels")
+    DETAILS["build_logs"] = {k: build.build_log(k) for k in build.SOURCES}
     phase("phase 2t: the backward kernels against their plain versions "
           "(flash at qwen3-4b's training shape, D 64 MHA, GQA 1-16 with a "
           "window, ragged S, D 256 MQA; the norm forms at 128, 2304, 2560, "
@@ -5638,8 +5980,9 @@ def main(argv=None) -> int:
         "heads over 36 KV heads, vocab 122753; 4 layers, f32, TF32 off)")
     identity_phase(dev, "minicpm-2b", 4, paged=False)
     phase("phase 3e: identity of mixtral-8x22b (full width: 8 experts of "
-        "6144 x 16384, GQA 48/8, window 4096; 2 layers, f32, TF32 off)")
-    moe_identity(dev, "mixtral-8x22b", 2)
+        "6144 x 16384, GQA 48/8, window 4096; 1 layer, f32, TF32 off), "
+        "serving and gradients")
+    moe_identity_grads(dev)
     phase("phase 3f: identity of arctic-480b (full width: 128 experts of "
         "7168 x 4864 and a dense FFN, GQA 56/8; 1 layer, f32, TF32 off)")
     moe_identity(dev, "arctic-480b", 1)
@@ -5670,49 +6013,55 @@ def main(argv=None) -> int:
           "resume through reshard_leaf")
     train_dist_identity(dev)
 
-    phase("phase 4: serve (qwen3-4b full config, bf16, 2 replicas, DDS)")
-    launches = {"ring": serve_phase(dev)}
+    phase("phase 4: serve (qwen3-4b full width, 18 of 36 layers, bf16, 2 "
+          "replicas, DDS)")
+    launches = {"ring": serve_phase(dev, layers=SERVE_LAYERS["qwen3-4b"])}
 
-    phase("phase 5: paged serve with prefix cache (qwen3-4b full config, "
-        "bf16, 2 replicas, DDS)")
-    launches["paged"] = paged_serve_phase(dev)
+    phase("phase 5: paged serve with prefix cache (qwen3-4b full width, 18 "
+        "of 36 layers, bf16, 2 replicas, DDS)")
+    launches["paged"] = paged_serve_phase(dev,
+                                          layers=SERVE_LAYERS["qwen3-4b"])
 
-    phase("phase 6: serve mamba2-780m (full config: 48 layers, bf16, 2 "
+    phase("phase 6: serve mamba2-780m (full width, 12 of 48 layers, bf16, 2 "
         "replicas, DDS, capacity 2048)")
-    launches["mamba2"] = serve_phase(dev, "mamba2-780m", 2048,
-                                     key="serve_mamba2")
-    phase("phase 7: serve recurrentgemma-9b (full config: 38 layers, bf16, 2 "
-        "replicas, DDS, capacity 4096, one prompt past the 2048 window)")
+    launches["mamba2"] = serve_phase(
+        dev, "mamba2-780m", 2048, key="serve_mamba2",
+        layers=SERVE_LAYERS["mamba2-780m"])
+    phase("phase 7: serve recurrentgemma-9b (full width, 9 of 38 layers, "
+        "bf16, 2 replicas, DDS, capacity 4096, one prompt past the 2048 "
+        "window)")
     launches["recurrentgemma"] = serve_phase(
         dev, "recurrentgemma-9b", 4096, long_prompts=(2300,),
-        key="serve_recurrentgemma")
-    phase("phase 8: chaos (minicpm-2b full config: 40 layers, head_dim 64, "
-        "MHA, bf16; 2 replicas, DDS): crash, hang, slow(4x), partition")
+        key="serve_recurrentgemma", layers=SERVE_LAYERS["recurrentgemma-9b"])
+    phase("phase 8: chaos (minicpm-2b full width, 10 of 40 layers, head_dim "
+          "64, MHA, bf16; 2 replicas, DDS): crash, hang, slow(4x), partition")
     launches["chaos"] = chaos_phase(dev)
     for name in ("decode_attention", "flash_attention", "rmsnorm"):
         if not launches["chaos"][name]:
             raise AssertionError(f"{name}: no launch on the chaos path")
-    phase("phase 9: serve mixtral-8x22b (full width, 8 layers, bf16, 2 "
-        "replicas, DDS, capacity 8192, one prompt of 4600 tokens past the "
-        "4096 window)")
-    launches["mixtral"] = serve_phase(dev, "mixtral-8x22b", 8192,
-                                      long_prompts=(4600,),
-                                      key="serve_mixtral", layers=8)
+    phase("phase 9: serve mixtral-8x22b (full width, 4 of 56 layers, bf16, "
+        "2 replicas, DDS, capacity 8192, one prompt of 4600 tokens past "
+        "the 4096 window)")
+    launches["mixtral"] = serve_phase(
+        dev, "mixtral-8x22b", 8192, long_prompts=(4600,),
+        key="serve_mixtral", layers=SERVE_LAYERS["mixtral-8x22b"])
     phase("phase 10: paged serve with prefix cache, arctic-480b (full width, "
         "2 layers, bf16, 2 replicas, DDS)")
     launches["arctic"] = paged_serve_phase(dev, "arctic-480b",
                                            key="arctic_paged", layers=2)
-    phase("phase 11: serve musicgen-medium (full config: 48 layers, bf16, 2 "
-        "replicas, DDS, capacity 2048)")
-    launches["musicgen"] = serve_phase(dev, "musicgen-medium", 2048,
-                                       key="serve_musicgen")
+    phase("phase 11: serve musicgen-medium (full width, 12 of 48 layers, "
+        "bf16, 2 replicas, DDS, capacity 2048)")
+    launches["musicgen"] = serve_phase(
+        dev, "musicgen-medium", 2048, key="serve_musicgen",
+        layers=SERVE_LAYERS["musicgen-medium"])
     phase("phase 12: llama-3.2-vision-90b generation (full width, 20 layers: "
         "16 self + 4 cross; bf16; 8 lanes, prefill with enc, 32 steps)")
     launches["vision"] = vision_phase(dev)
     phase("phase 13: train qwen3-4b (full config: 36 layers, bf16, f32 "
           "masters, remat, AdamW, cosine; 6 steps of 2 x 1024 tokens)")
     launches["train"] = train_phase(dev)
-    phase("phase 14: serve qwen3-4b (full config, bf16) from a sharded "
+    phase("phase 14: serve qwen3-4b (full width, 9 of 36 layers, bf16) "
+          "from a sharded "
           "replica (1 x 4 mesh on one card) and an unsharded one, DDS, "
           "capacity 8192, prompts to 6000 tokens")
     launches["mesh"] = mesh_serve_phase(dev)
@@ -5730,6 +6079,9 @@ def main(argv=None) -> int:
           "AdamW, cosine; 4 steps of 2 x 1024 tokens): mamba2-780m at full "
           "config (48 layers), recurrentgemma-9b at 9 layers")
     launches.update(recurrent_train_phases(dev))
+    phase("phase 18: train mixtral-8x22b (full width, 1 of 56 layers, bf16, "
+          "f32 masters, remat, AdamW, cosine; 4 steps of 2 x 1024 tokens)")
+    launches.update(moe_train_phase(dev))
 
     phase("all phases passed")
     DETAILS["phase_s"] = phase_s
@@ -5785,7 +6137,8 @@ def main(argv=None) -> int:
                       "read_flush_ms", "warm_ms", "fixed_ms", "issue_us",
                       "staged_ms", "pair", "add", "gated", "train_lse",
                       "f32", "flops", "bytes", "split_ms", "one_tile_ms",
-                      "fwd_ckpt_ms", "fwd_ms",
+                      "fwd_ckpt_ms", "fwd_ms", "softcap_ms",
+                      "softcap_split_ms", "softcap_fwd_ms",
                       "cuda_core_bound_ms", "f32_route_flops"):
             if extra in r:
                 kernels[-1][extra] = r[extra]

@@ -6,8 +6,8 @@
 // flash_attention.cu, so its gradient needs this kernel, the half of the
 // kernel that jax.grad gives the reference for free.  Same masks as the
 // forward: key j is visible to query i when k_pos[b,j] >= 0, and
-// k_pos <= q_pos when causal, and k_pos > q_pos - window.  No softcap, D 64,
-// 128 and 256 (the wrapper refuses the rest).
+// k_pos <= q_pos when causal, and k_pos > q_pos - window.  D 64, 128 and 256
+// (the wrapper refuses the rest, and a ring of cached keys).
 //
 // FlashAttention-2's recompute from the forward's log-sum-exp, in float32
 // for bf16 and f32 inputs alike:
@@ -15,6 +15,13 @@
 //   P = exp(S * scale - lse),  dP = dO V^T,  dS = P * (dP - delta)
 //   dV = P^T dO,  dK = dS^T Q * scale                  (flash_bwd_dkdv_*)
 //   dQ = dS K * scale                                  (flash_bwd_dq_*)
+// With a softcap c (gemma-style tanh capping of the logits, as the forward
+// applies it) the logits are s = c * t, t = tanh(S * scale / c), the lse is
+// the capped logits' (the forward's), and dS takes the cap's derivative:
+//   P = exp(s - lse),  dS = P * (dP - delta) * (1 - t^2)
+// the rest unchanged.  Both kernels recompute t with tanhf, the forward's
+// function, and scale dS before it is split or stored; the cap is a
+// template flag (kCap), so a call without one runs the uncapped code.
 // Deterministic, no float atomics: a dK/dV block owns one key tile of one
 // KV head and walks every query tile of every query head of its GQA group
 // (at D 256 of one head group, whose partial sums a second kernel adds in
@@ -317,7 +324,7 @@ __device__ __forceinline__ void store_part(float* __restrict__ dst, size_t strid
 //   causal pair counts add up to the same for every tp), walks the heads
 //   of its group only, and writes f32 partials that flash_bwd_dkdv_reduce
 //   adds in group order.
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kKvThreads)
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -325,7 +332,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                   bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
                   int groups, int B, int S, int T_, int hq, int hkv, int causal, int window,
-                  float scale) {
+                  float scale, float softcap) {
   using L = KvLayout<D>;
   constexpr bool kSplit = D > 128;
   constexpr int BQ = L::BQ, LD = L::LD, CPR = D / 8, DC = L::DC, NH = D / DC;
@@ -350,7 +357,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, lane = tid % 32, g4 = lane / 4, tq = lane % 4;
   const int set = tid / kThreads, kw = (tid / 32) % kWarps;  // the warp's keys: kw * 16..
   const int ntq = (S + BQ - 1) / BQ;
-  const float c2 = scale * rt::kLog2e;
+  // logits enter exp2 in log2 units: S * c2, or under a cap s * c2
+  const float c2 = (kCap ? 1.f : scale) * rt::kLog2e, su = kCap ? scale / softcap : 0.f;
 
   for (int u = 0; u < units; ++u) {
     const int kt = u == 0 ? kt0 : nkt - 1 - kt0;
@@ -449,7 +457,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float sc[BQ / 8][4], dp[BQ / 8][4];
       scores16<D, BQ, LD>(sc, Ks + kw * 16 * LD, Qs);
       scores16<D, BQ, LD>(dp, Vs + kw * 16 * LD, Os);
-      // P^T and dS^T = P^T * (dP^T - delta) in place; query column c
+      // P^T and dS^T = P^T * (dP^T - delta) (times 1 - t^2 under a cap) in
+      // place; query column c
 #pragma unroll
       for (int nt = 0; nt < BQ / 8; ++nt) {
 #pragma unroll
@@ -457,14 +466,25 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int c = nt * 8 + 2 * tq + e;
           const int qq = qp[c];
           const float l2 = ls[c] * rt::kLog2e, d = dl[c];
+          float x0 = sc[nt][e], x1 = sc[nt][e + 2], t0 = 0.f, t1 = 0.f;
+          if constexpr (kCap) {
+            t0 = tanhf(x0 * su);
+            t1 = tanhf(x1 * su);
+            x0 = softcap * t0;
+            x1 = softcap * t1;
+          }
           const float p0 = visible(kp0, qq, causal, window)
-                               ? rt::exp2_approx(fmaf(sc[nt][e], c2, -l2)) : 0.f;
+                               ? rt::exp2_approx(fmaf(x0, c2, -l2)) : 0.f;
           const float p1 = visible(kp1, qq, causal, window)
-                               ? rt::exp2_approx(fmaf(sc[nt][e + 2], c2, -l2)) : 0.f;
+                               ? rt::exp2_approx(fmaf(x1, c2, -l2)) : 0.f;
           sc[nt][e] = p0;
           sc[nt][e + 2] = p1;
           dp[nt][e] = p0 * (dp[nt][e] - d);
           dp[nt][e + 2] = p1 * (dp[nt][e + 2] - d);
+          if constexpr (kCap) {
+            dp[nt][e] *= fmaf(-t0, t0, 1.f);
+            dp[nt][e + 2] *= fmaf(-t1, t1, 1.f);
+          }
         }
       }
       accumulate_split<DC, BQ, LD>(dva, sc, Os + c0);  // dV += P^T dO
@@ -539,14 +559,14 @@ flash_bwd_dkdv_reduce(const float* __restrict__ part, bf16* __restrict__ dk,
 // dQ of one 64-query tile of head h, batch row b.  Block index: (query
 // tile, batch row, head), the tile slowest and, when causal, last first:
 // the late queries see the most keys.
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                 bf16* __restrict__ dq, int B, int S, int T_, int hq, int hkv, int causal,
-                int window, float scale) {
+                int window, float scale, float softcap) {
   using L = QLayout<D>;
   constexpr int BK = L::BK, LD = L::LD, CPR = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -615,7 +635,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float dqa[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
-  const float c2 = scale * rt::kLog2e;
+  const float c2 = (kCap ? 1.f : scale) * rt::kLog2e, su = kCap ? scale / softcap : 0.f;
 
   int req = next_live(bits, 0, ntk);
   if (req < ntk) {
@@ -641,18 +661,30 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float sc[BK / 8][4], dp[BK / 8][4];
     scores16<D, BK, LD>(sc, Qs + warp * 16 * LD, Ks);
     scores16<D, BK, LD>(dp, Os + warp * 16 * LD, Vs);
-    // dS = P * (dP - delta) into dp; key column c
+    // dS = P * (dP - delta) (times 1 - t^2 under a cap) into dp; key
+    // column c
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int p = kp[nt * 8 + 2 * tq + e];
+        float x0 = sc[nt][e], x1 = sc[nt][e + 2], t0 = 0.f, t1 = 0.f;
+        if constexpr (kCap) {
+          t0 = tanhf(x0 * su);
+          t1 = tanhf(x1 * su);
+          x0 = softcap * t0;
+          x1 = softcap * t1;
+        }
         const float p0 = visible(p, qp0, causal, window)
-                             ? rt::exp2_approx(fmaf(sc[nt][e], c2, -l20)) : 0.f;
+                             ? rt::exp2_approx(fmaf(x0, c2, -l20)) : 0.f;
         const float p1 = visible(p, qp1, causal, window)
-                             ? rt::exp2_approx(fmaf(sc[nt][e + 2], c2, -l21)) : 0.f;
+                             ? rt::exp2_approx(fmaf(x1, c2, -l21)) : 0.f;
         dp[nt][e] = p0 * (dp[nt][e] - dl0);
         dp[nt][e + 2] = p1 * (dp[nt][e + 2] - dl1);
+        if constexpr (kCap) {
+          dp[nt][e] *= fmaf(-t0, t0, 1.f);
+          dp[nt][e + 2] *= fmaf(-t1, t1, 1.f);
+        }
       }
     }
     accumulate_split<D, BK, LD>(dqa, dp, Ks);  // dQ += dS K
@@ -756,10 +788,12 @@ __device__ __forceinline__ void scores(const float* sm, int tr, int tc,
   }
 }
 
-// P and dS of the tile into shared memory (P only where want_p).
-template <int D>
+// P and dS of the tile into shared memory (P only where want_p); under a
+// cap the logits are softcap * tanh(S * scale / softcap), as the forward's
+// rt::soft_cap, and dS takes 1 - t^2.
+template <int D, bool kCap>
 __device__ __forceinline__ void probs(float* sm, int q0, int k0, int S, int T, int causal,
-                                      int window, float scale, bool want_p) {
+                                      int window, float scale, float softcap, bool want_p) {
   using L = Layout<D>;
   constexpr int R = L::R, LDP = L::LDP;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
@@ -775,9 +809,15 @@ __device__ __forceinline__ void probs(float* sm, int q0, int k0, int S, int T, i
     for (int j = 0; j < R; ++j) {
       const int c = tc + 16 * j;
       const bool vis = q0 + r < S && k0 + c < T && visible(kps[c], qps[r], causal, window);
-      const float p = vis ? expf(fmaf(s[i][j], scale, -lse)) : 0.f;
+      float p, t = 0.f;
+      if constexpr (kCap) {
+        t = tanhf(s[i][j] * scale / softcap);
+        p = vis ? expf(softcap * t - lse) : 0.f;
+      } else {
+        p = vis ? expf(fmaf(s[i][j], scale, -lse)) : 0.f;
+      }
       if (want_p) sm[L::p + r * LDP + c] = p;
-      sm[L::ds + r * LDP + c] = p * (dp[i][j] - dl);
+      sm[L::ds + r * LDP + c] = p * (dp[i][j] - dl) * (kCap ? fmaf(-t, t, 1.f) : 1.f);
     }
   }
 }
@@ -804,14 +844,14 @@ __device__ __forceinline__ void load_queries(float* sm, const float* q, const fl
 }
 
 // dK, dV of one key tile of KV head kh, batch row b: block (key tile, kh, b).
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                    float* __restrict__ dk, float* __restrict__ dv, int S, int T_, int hq, int hkv,
-                   int causal, int window, float scale) {
+                   int causal, int window, float scale, float softcap) {
   using L = Layout<D>;
   constexpr int LD = L::LD, E = D / 16, R = L::R, BQ = L::BT, BKV = L::BT, LDP = L::LDP;
   extern __shared__ float sm[];
@@ -848,7 +888,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       load_queries<D>(sm, q, dout, lse, delta, q_pos, b, h, q0, S, hq);
       __syncthreads();
-      probs<D>(sm, q0, k0, S, T_, causal, window, scale, true);
+      probs<D, kCap>(sm, q0, k0, S, T_, causal, window, scale, softcap, true);
       __syncthreads();
 #pragma unroll 2
       for (int r = 0; r < BQ; ++r) {
@@ -888,14 +928,14 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // dQ of one query tile of head h, batch row b: block (query tile, h, b).
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                  float* __restrict__ dq, int S, int T_, int hq, int hkv, int causal, int window,
-                 float scale) {
+                 float scale, float softcap) {
   using L = Layout<D>;
   constexpr int LD = L::LD, E = D / 16, R = L::R, BQ = L::BT, BKV = L::BT, LDP = L::LDP;
   extern __shared__ float sm[];
@@ -929,7 +969,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<D>(sm + L::k, k + kbase, (size_t)hkv * D, nk, BKV);
     load_tile<D>(sm + L::v, v + kbase, (size_t)hkv * D, nk, BKV);
     __syncthreads();
-    probs<D>(sm, q0, k0, S, T_, causal, window, scale, false);
+    probs<D, kCap>(sm, q0, k0, S, T_, causal, window, scale, softcap, false);
     __syncthreads();
 #pragma unroll 2
     for (int c = 0; c < BKV; ++c) {
@@ -967,20 +1007,20 @@ void launch_delta(const T* out, const T* dout, float* delta, int B, int S, int h
   flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(out, dout, delta, B, S, hq, D);
 }
 
-template <int D>
+template <int D, bool kCap>
 cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
                       const bf16* dout, const float* lse, const int* qp, const int* kp,
                       float* delta, float* part, int groups, bf16* dq, bf16* dk, bf16* dv, int B,
                       int S, int T_, int hq, int hkv, int causal, int window, float scale,
-                      cudaStream_t st) {
+                      float softcap, cudaStream_t st) {
   using LK = KvLayout<D>;
   using LQ = QLayout<D>;
   constexpr bool kSplit = D > 128;
   if ((S + LK::BQ - 1) / LK::BQ > kMaxTiles || (T_ + LQ::BK - 1) / LQ::BK > kMaxTiles)
     return cudaErrorInvalidValue;
   if (kSplit && (part == nullptr || groups < 1 || groups > hq / hkv)) return cudaErrorInvalidValue;
-  static const cudaError_t a1 = allow_smem(flash_bwd_dkdv_tc<D>, LK::bytes);
-  static const cudaError_t a2 = allow_smem(flash_bwd_dq_tc<D>, LQ::bytes);
+  static const cudaError_t a1 = allow_smem(flash_bwd_dkdv_tc<D, kCap>, LK::bytes);
+  static const cudaError_t a2 = allow_smem(flash_bwd_dq_tc<D, kCap>, LQ::bytes);
   if (a1 != cudaSuccess) return a1;
   if (a2 != cudaSuccess) return a2;
   launch_delta<bf16>(out, dout, delta, B, S, hq, D, st);
@@ -992,41 +1032,85 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o
   const long long n4 = (long long)B * T_ * hkv * D / 4;
   if (kv_blocks > INT_MAX || q_blocks > INT_MAX || (n4 + 255) / 256 > INT_MAX)
     return cudaErrorInvalidValue;
-  flash_bwd_dkdv_tc<D><<<(unsigned)kv_blocks, kKvThreads, LK::bytes, st>>>(
+  flash_bwd_dkdv_tc<D, kCap><<<(unsigned)kv_blocks, kKvThreads, LK::bytes, st>>>(
       q, k, v, dout, lse, delta, qp, kp, dk, dv, part, groups, B, S, T_, hq, hkv, causal, window,
-      scale);
+      scale, softcap);
   if (kSplit)
     flash_bwd_dkdv_reduce<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(part, dk, dv, n4, groups,
                                                                          scale);
-  flash_bwd_dq_tc<D><<<(unsigned)q_blocks, kThreads, LQ::bytes, st>>>(
-      q, k, v, dout, lse, delta, qp, kp, dq, B, S, T_, hq, hkv, causal, window, scale);
+  flash_bwd_dq_tc<D, kCap><<<(unsigned)q_blocks, kThreads, LQ::bytes, st>>>(
+      q, k, v, dout, lse, delta, qp, kp, dq, B, S, T_, hq, hkv, causal, window, scale, softcap);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kCap>
 cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* out,
                        const float* dout, const float* lse, const int* qp, const int* kp,
                        float* delta, float* dq, float* dk, float* dv, int B, int S, int T_,
-                       int hq, int hkv, int causal, int window, float scale, cudaStream_t st) {
+                       int hq, int hkv, int causal, int window, float scale, float softcap,
+                       cudaStream_t st) {
   constexpr size_t bytes = Layout<D>::bytes;
   constexpr int BT = Layout<D>::BT;
-  static const cudaError_t a1 = allow_smem(flash_bwd_dkdv_f32<D>, bytes);
-  static const cudaError_t a2 = allow_smem(flash_bwd_dq_f32<D>, bytes);
+  static const cudaError_t a1 = allow_smem(flash_bwd_dkdv_f32<D, kCap>, bytes);
+  static const cudaError_t a2 = allow_smem(flash_bwd_dq_f32<D, kCap>, bytes);
   if (a1 != cudaSuccess) return a1;
   if (a2 != cudaSuccess) return a2;
   launch_delta<float>(out, dout, delta, B, S, hq, D, st);
-  flash_bwd_dkdv_f32<D><<<dim3((T_ + BT - 1) / BT, hkv, B), NT, bytes, st>>>(
-      q, k, v, dout, lse, delta, qp, kp, dk, dv, S, T_, hq, hkv, causal, window, scale);
-  flash_bwd_dq_f32<D><<<dim3((S + BT - 1) / BT, hq, B), NT, bytes, st>>>(
-      q, k, v, dout, lse, delta, qp, kp, dq, S, T_, hq, hkv, causal, window, scale);
+  flash_bwd_dkdv_f32<D, kCap><<<dim3((T_ + BT - 1) / BT, hkv, B), NT, bytes, st>>>(
+      q, k, v, dout, lse, delta, qp, kp, dk, dv, S, T_, hq, hkv, causal, window, scale, softcap);
+  flash_bwd_dq_f32<D, kCap><<<dim3((S + BT - 1) / BT, hq, B), NT, bytes, st>>>(
+      q, k, v, dout, lse, delta, qp, kp, dq, S, T_, hq, hkv, causal, window, scale, softcap);
   return cudaGetLastError();
+}
+
+// Every instantiation of one cap flag, by dtype and head_dim.
+template <bool kCap>
+cudaError_t launch_all(const void* q, const void* k, const void* v, const void* out,
+                       const void* dout, const float* l, const int* qp, const int* kp, float* dl,
+                       float* pt, void* dq, void* dk, void* dv, int B, int S, int T, int hq,
+                       int hkv, int d, int dtype, int causal, int window, int groups, float scale,
+                       float softcap, cudaStream_t st) {
+  if (dtype == rt::kFloat32) {
+    auto c = [](const void* p) { return static_cast<const float*>(p); };
+    auto m = [](void* p) { return static_cast<float*>(p); };
+    if (d == 64)
+      return launch_f32<64, kCap>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                                  m(dv), B, S, T, hq, hkv, causal, window, scale, softcap, st);
+    if (d == 128)
+      return launch_f32<128, kCap>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                                   m(dv), B, S, T, hq, hkv, causal, window, scale, softcap, st);
+    if (d == 256)
+      return launch_f32<256, kCap>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
+                                   m(dv), B, S, T, hq, hkv, causal, window, scale, softcap, st);
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == rt::kBFloat16) {
+    auto c = [](const void* p) { return static_cast<const bf16*>(p); };
+    auto m = [](void* p) { return static_cast<bf16*>(p); };
+    if (d == 64)
+      return launch_tc<64, kCap>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, 1, m(dq),
+                                 m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale, softcap,
+                                 st);
+    if (d == 128)
+      return launch_tc<128, kCap>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, 1, m(dq),
+                                  m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale, softcap,
+                                  st);
+    if (d == 256)
+      return launch_tc<256, kCap>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, groups,
+                                  m(dq), m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale,
+                                  softcap, st);
+    return cudaErrorInvalidValue;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, out, dout, dq (B,S,Hq,D); k, v, dk, dv (B,T,Hkv,D): contiguous, one
-// dtype, 16-byte aligned.  lse (B,Hq,S) f32 from the forward; q_pos (B,S),
-// k_pos (B,T) int32; delta: B * Hq * S floats of scratch.  D 64, 128 or 256.
+// dtype, 16-byte aligned.  lse (B,Hq,S) f32 from the forward (of the capped
+// logits under a softcap); q_pos (B,S), k_pos (B,T) int32; delta: B * Hq * S
+// floats of scratch.  D 64, 128 or 256.  softcap > 0 caps the logits as the
+// forward does, 0 (or less) leaves them uncapped.
 // bf16 at D 256: part holds 2 * groups * B * T * Hkv * D floats, groups in
 // 1..Hq/Hkv (the dK/dV grid's head groups); ignored otherwise.  Launches on
 // `stream`: delta, dK/dV, (bf16 D 256) the partials' sum, dQ.  Returns
@@ -1036,7 +1120,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                                           const void* q_pos, const void* k_pos, void* delta,
                                           void* part, void* dq, void* dk, void* dv, int B, int S,
                                           int T, int hq, int hkv, int d, int dtype, int causal,
-                                          int window, int groups, float scale, void* stream) {
+                                          int window, int groups, float scale, float softcap,
+                                          void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || hkv <= 0 || hq % hkv != 0 || hq > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
@@ -1045,33 +1130,9 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   float* dl = static_cast<float*>(delta);
   float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kFloat32) {
-    auto c = [](const void* p) { return static_cast<const float*>(p); };
-    auto m = [](void* p) { return static_cast<float*>(p); };
-    if (d == 64)
-      return launch_f32<64>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
-                            m(dv), B, S, T, hq, hkv, causal, window, scale, st);
-    if (d == 128)
-      return launch_f32<128>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
-                             m(dv), B, S, T, hq, hkv, causal, window, scale, st);
-    if (d == 256)
-      return launch_f32<256>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, m(dq), m(dk),
-                             m(dv), B, S, T, hq, hkv, causal, window, scale, st);
-    return cudaErrorInvalidValue;
-  }
-  if (dtype == rt::kBFloat16) {
-    auto c = [](const void* p) { return static_cast<const bf16*>(p); };
-    auto m = [](void* p) { return static_cast<bf16*>(p); };
-    if (d == 64)
-      return launch_tc<64>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, 1, m(dq),
-                           m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale, st);
-    if (d == 128)
-      return launch_tc<128>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, 1, m(dq),
-                            m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale, st);
-    if (d == 256)
-      return launch_tc<256>(c(q), c(k), c(v), c(out), c(dout), l, qp, kp, dl, pt, groups, m(dq),
-                            m(dk), m(dv), B, S, T, hq, hkv, causal, window, scale, st);
-    return cudaErrorInvalidValue;
-  }
-  return cudaErrorInvalidValue;
+  if (softcap > 0.f)
+    return launch_all<true>(q, k, v, out, dout, l, qp, kp, dl, pt, dq, dk, dv, B, S, T, hq, hkv,
+                            d, dtype, causal, window, groups, scale, softcap, st);
+  return launch_all<false>(q, k, v, out, dout, l, qp, kp, dl, pt, dq, dk, dv, B, S, T, hq, hkv, d,
+                           dtype, causal, window, groups, scale, 0.f, st);
 }

@@ -21,10 +21,11 @@ so its gradient is one too.  ``FlashAttentionFn`` is the
 ``torch.autograd.Function`` that ``ops.flash_attention`` routes a CUDA
 call through when an input needs a gradient: its forward launches the
 forward kernel with the log-sum-exp, its backward the backward kernel.
-The backward takes no ring, no softcap and D 64, 128 or 256 (at D 256 a
-dK/dV block owns half of the columns and one group of the GQA group's
-heads, ``bwd_kv_groups``, and a second launch adds the groups' f32
-partials in order); a call under grad outside that raises
+The backward takes D 64, 128 or 256 (at D 256 a dK/dV block owns half of
+the columns and one group of the GQA group's heads, ``bwd_kv_groups``,
+and a second launch adds the groups' f32 partials in order) and a softcap
+(the lse is the capped logits', and dS takes the cap's derivative ``1 -
+t^2``), but no ring; a call under grad outside that raises
 ``NotImplementedError`` before anything runs.
 
 It is bound by the bytes of q, K, V and out at the main path's shapes.  In
@@ -66,10 +67,10 @@ _count_lock = threading.Lock()
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _BWD_HEAD_DIMS = (64, 128, 256)
 BWD_KEY_TILE = 64            # keys of a dK/dV block's tile
-_BWD_TODO = "ROADMAP.md §3 (backward kernels: softcap, the ring)"
+_BWD_TODO = "ROADMAP.md §3 item 24 (the backward kernel: the ring)"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Launch geometry, as csrc/flash_attention.cu has it: a bf16 block owns
 # _BM packed rows; a split walks at most _MAX_TILES key tiles (its live-tile
@@ -242,14 +243,14 @@ def _logits(q, k, scale, softcap=0.0):
 
 
 # ------------------------------------------------------------- backward
-def _bwd_supported(q, k_cache, softcap) -> None:
+def _bwd_supported(q, k_cache) -> None:
     """Raise ``NotImplementedError`` for what the backward kernel does not
     take, before a forward under grad runs."""
-    if k_cache is not None or softcap or q.shape[-1] not in _BWD_HEAD_DIMS:
+    if k_cache is not None or q.shape[-1] not in _BWD_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash attention backward: head_dim {q.shape[-1]}, softcap "
-            f"{softcap}, ring {k_cache is not None}; the kernel takes D "
-            f"{_BWD_HEAD_DIMS}, no softcap and no ring ({_BWD_TODO})")
+            f"flash attention backward: head_dim {q.shape[-1]}, ring "
+            f"{k_cache is not None}; the kernel takes D {_BWD_HEAD_DIMS} "
+            f"and no ring ({_BWD_TODO})")
 
 
 def bwd_kv_groups(b: int, t: int, hq: int, hkv: int, sms: int) -> int:
@@ -267,12 +268,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, q_pos, k_pos,
                         causal=True, window=0, scale, softcap=0.0):
     """Launch the backward kernel: (dq, dk, dv) in the inputs' shapes and
     dtype.  ``out`` and ``lse`` are the forward's (``return_lse``), ``dout``
-    the gradient of ``out``.  CUDA tensors, D 64, 128 or 256, no
-    softcap."""
+    the gradient of ``out``.  CUDA tensors, D 64, 128 or 256; with
+    ``softcap`` the forward's lse is the capped logits'."""
     if q.device.type != "cuda":
         raise RuntimeError("flash_attention_bwd kernel needs CUDA tensors; "
                            "use flash_attention_bwd_plain on the CPU")
-    _bwd_supported(q, None, softcap)
+    _bwd_supported(q, None)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, dout = out.contiguous(), dout.contiguous()
     _check(q, k, v, None, None, None)
@@ -307,7 +308,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, q_pos, k_pos,
                  None if part is None else part.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), b, s, t, hq, hkv, d,
                  _DTYPES[q.dtype], int(bool(causal)), int(window), groups,
-                 float(scale), build.current_stream(q.device))
+                 float(scale), float(softcap), build.current_stream(q.device))
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{err}")
@@ -321,21 +322,24 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, q_pos, k_pos,
     rowsum(dout * out)``, ``P = exp(S * scale - lse)`` on the visible
     pairs, ``dV = P^T dout``, ``dS = P * (dout V^T - delta)``, ``dK = dS^T
     Q * scale``, ``dQ = dS K * scale``, the GQA groups summed into their KV
-    head.  A row with no visible key gets no gradient (the kernel's forward
-    writes zeros there).  Returns (dq, dk, dv) in the inputs' dtypes."""
-    if softcap:
-        raise NotImplementedError(f"flash attention backward: softcap "
-                                  f"({_BWD_TODO})")
+    head.  With ``softcap`` c the logits are ``c * t``, ``t = tanh(S *
+    scale / c)``, so ``P = exp(c * t - lse)`` (``lse`` the capped
+    logits') and dS takes ``1 - t^2``.  A row with no visible key gets no
+    gradient (the kernel's forward writes zeros there).  Returns (dq, dk,
+    dv) in the inputs' dtypes."""
     b, s, hq, _ = q.shape
     t, hkv = k.shape[1], k.shape[2]
     m = _mask(q_pos, k_pos, b, s, t, causal, window, q.device)[:, None]
     kx, vx = ref._gqa_expand(k, hq).float(), ref._gqa_expand(v, hq).float()
     qf, do = q.float(), dout.float()
-    p = torch.where(m, torch.exp(_logits(q, k, scale) - lse[..., None]), 0.0)
+    logits = _logits(q, k, scale, softcap)
+    p = torch.where(m, torch.exp(logits - lse[..., None]), 0.0)
     delta = (do * out.float()).sum(-1).transpose(1, 2)        # (B, Hq, S)
     dv = torch.einsum("bhst,bshd->bthd", p, do)
     dp = torch.einsum("bshd,bthd->bhst", do, vx)
     ds = p * (dp - delta[..., None])
+    if softcap:
+        ds = ds * (1.0 - torch.square(logits / softcap))
     dq = torch.einsum("bhst,bthd->bshd", ds, kx) * scale
     dk = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
     rep = hq // hkv
@@ -347,18 +351,18 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, q_pos, k_pos,
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention under autograd on the card: the forward kernel with
     its log-sum-exp, and the backward kernel.  Inputs (q, k, v, q_pos,
-    k_pos, causal, window, scale); no ring, no softcap, D 64, 128 or 256
+    k_pos, causal, window, scale, softcap); no ring, D 64, 128 or 256
     (``ops.flash_attention`` checks before it applies this)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, scale):
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, scale, softcap):
+        kw = dict(causal=causal, window=window, scale=scale, softcap=softcap)
         out, lse = flash_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                                   causal=causal, window=window, scale=scale,
-                                   splits=1, return_lse=True)
+                                   splits=1, return_lse=True, **kw)
         qp = torch.as_tensor(q_pos, device=q.device)
         kp = torch.as_tensor(k_pos, device=q.device)
         ctx.save_for_backward(q, k, v, out, lse, qp, kp)
-        ctx.kw = dict(causal=causal, window=window, scale=scale)
+        ctx.kw = kw
         return out
 
     @staticmethod
@@ -366,4 +370,4 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse, qp, kp = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, q_pos=qp,
                                          k_pos=kp, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None

@@ -13,8 +13,8 @@ requires a gradient, ``flash_attention``, the four norm entry points,
 ``RMSNormFn``, ``RMSNormPairFn``, ``AddRMSNormFn``, ``GatedRMSNormFn``,
 ``SSDFn``, ``RGLRUFn``); otherwise, as on every serving call, they launch
 directly.  The decode kernels have no backward and raise
-``NotImplementedError`` in that case, as flash does with a softcap or a
-ring: they never return an output cut from its inputs.
+``NotImplementedError`` in that case, as flash does with a ring: they
+never return an output cut from its inputs.
 """
 from __future__ import annotations
 
@@ -100,9 +100,9 @@ def flash_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, scale,
     if not _route(q):
         return _flash.flash_attention_plain(q, k, v, **kw, **ring)
     if _grad(q, k, v, k_cache, v_cache):
-        _flash._bwd_supported(q, k_cache, softcap)
+        _flash._bwd_supported(q, k_cache)
         return _flash.FlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal,
-                                             window, scale)
+                                             window, scale, softcap)
     return _flash.flash_attention(q, k, v, **kw, **ring)
 
 

@@ -68,33 +68,56 @@ def top_k(probs: torch.Tensor, k: int):
     return probs.gather(-1, idx), idx
 
 
+def _groups(x: torch.Tensor, cfg: ModelConfig, num_groups: int):
+    """(groups, tokens a group, expert capacity) of a call on x (B, S, D)."""
+    t = x.shape[0] * x.shape[1]
+    g = num_groups if t % num_groups == 0 else 1
+    tg = t // g
+    return g, tg, min(expert_capacity(tg, cfg), tg * cfg.num_experts_per_tok)
+
+
+def _route(p, x: torch.Tensor, cfg: ModelConfig, g: int, tg: int):
+    """The router's f32 probabilities (G, Tg, E), the renormalized top-k
+    weights (G, Tg, k), each (token, choice)'s expert (G, Tg*k) in that
+    order, its one-hot (G, Tg*k, E) int32 and its slot within its expert
+    (G, Tg*k), counted from 0 in (token, choice) order."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    logits = (x.reshape(g * tg, x.shape[-1]) @ p["router"]).float()
+    probs = torch.softmax(logits.reshape(g, tg, e), dim=-1)
+    top_w, top_e = top_k(probs, k)                                # (G,Tg,k)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    e_flat = top_e.reshape(g, tg * k)                             # (G,TK)
+    oh = torch.zeros((g, tg * k, e), dtype=torch.int32, device=x.device)
+    oh.scatter_(2, e_flat[..., None], 1)
+    pos = (oh.cumsum(1) - 1).gather(2, e_flat[..., None])[..., 0]  # (G,TK)
+    return probs, top_w, e_flat, oh, pos
+
+
+@torch.no_grad()
+def dropped_choices(p, x: torch.Tensor, cfg: ModelConfig,
+                    num_groups: int = 1) -> torch.Tensor:
+    """How many (token, choice) pairs ``moe_ffn(p, x, cfg, num_groups)``
+    drops past their expert's capacity: an int64 scalar on x's device."""
+    g, tg, c = _groups(x, cfg, num_groups)
+    return (_route(p, x, cfg, g, tg)[-1] >= c).sum()
+
+
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, num_groups: int = 1):
     """x: (B, S, D) -> (y (B, S, D), aux loss f32 scalar).  ``p`` holds
     ``router``, ``w_gate``, ``w_up``, ``w_down`` and, with
     ``moe_dense_ff``, the ``dense`` MLP.  ``num_groups`` must divide B*S
     (else one group)."""
     bsz, s, d = x.shape
-    t = bsz * s
-    g = num_groups if t % num_groups == 0 else 1
-    tg = t // g
+    g, tg, c = _groups(x, cfg, num_groups)
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    c = min(expert_capacity(tg, cfg), tg * k)
     dtype, dev = x.dtype, x.device
 
     xt = x.reshape(g, tg, d)
-    logits = (x.reshape(t, d) @ p["router"]).float().reshape(g, tg, e)
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = top_k(probs, k)                                # (G,Tg,k)
-    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
-
     # ---- slot of each (token, choice) within its expert, in that order
-    e_flat = top_e.reshape(g, tg * k)                             # (G,TK)
-    oh = torch.zeros((g, tg * k, e), dtype=torch.int32, device=dev)
-    oh.scatter_(2, e_flat[..., None], 1)
+    probs, top_w, e_flat, oh, pos = _route(p, x, cfg, g, tg)
     # aux (Switch): E * mean_e(fraction of choices * mean probability)
     ce = oh.reshape(g, tg, k, e).sum(2).float().mean(1)           # (G,E)
     aux = e * (probs.mean(1) * ce).sum(-1).mean()
-    pos = (oh.cumsum(1) - 1).gather(2, e_flat[..., None])[..., 0]  # (G,TK)
     pos_c = torch.where(pos < c, pos, c)     # dropped -> the spare column
 
     # ---- (E, C) gather table; sentinel tg points at a zero pad row

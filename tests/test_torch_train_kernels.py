@@ -8,7 +8,8 @@ card's route for CPU tensors and each Function's launchers are replaced by
 the plain forward (run inside the Function, so graph-less, as the
 kernel's output is) and the plain backward (``*_bwd_plain``).  Then:
 
-  * each Function's gradients (q, k, v, also at head_dim 256; x, y and
+  * each Function's gradients (q, k, v, also at head_dim 256 and with a
+    softcap; x, y and
     the gains, both outputs of the pair and the add; the gated norm's y, z
     and gain; ``ssd``'s x, dt, a_log, B, C and d_skip; ``rglru``'s x,
     log_a and gate) equal autograd through the plain forward, to 1e-5
@@ -17,12 +18,13 @@ kernel's output is) and the plain backward (``*_bwd_plain``).  Then:
     mode (the routing before the Functions), the attention branch and the
     residual stream are cut and ``wq`` gets no gradient; with the Functions
     every parameter gets a nonzero one;
-  * the kernels with no backward (the decode kernels; flash with a
-    softcap or a ring) raise ``NotImplementedError`` under grad instead of
-    returning a detached output, and ``ssd``, ``rglru`` and the gated norm
-    no longer do;
-  * a smoke-config train step of qwen3-4b, mamba2-780m and
-    recurrentgemma-9b launches each kernel as often as
+  * the kernels with no backward (the decode kernels; flash with a ring)
+    raise ``NotImplementedError`` under grad instead of returning a
+    detached output, and ``ssd``, ``rglru``, the gated norm and flash with
+    a softcap no longer do;
+  * a smoke-config train step of qwen3-4b, mamba2-780m,
+    recurrentgemma-9b and mixtral-8x22b (MoE: no kernel of its own, its
+    attention and norms through theirs) launches each kernel as often as
     ``chip_smoke.expected_train_launches`` holds the card to, with and
     without remat.
 """
@@ -94,7 +96,7 @@ def _grads_of(fn, inputs, weights):
 
 
 CASES = ["flash", "flash_gqa_window", "norm", "pair", "add", "flash_d256",
-         "gated", "ssd", "ssd_no_skip", "rglru"]
+         "gated", "ssd", "ssd_no_skip", "rglru", "flash_softcap"]
 
 
 def _case(name, rng):
@@ -105,9 +107,13 @@ def _case(name, rng):
         b, s, hkv, d = 2, 9, 2, 64
         if name == "flash_d256":          # recurrentgemma-9b: MQA at D 256
             rep, window, hkv, d = 4, 5, 1, 256
+        # a cap that bites at these logits (|q.k| * scale up to ~3)
+        cap = 1.5 if name == "flash_softcap" else 0.0
+        if cap:
+            rep, window = 2, 4
         pos = torch.arange(s, dtype=torch.int32)
         kw = dict(q_pos=pos, k_pos=pos, causal=True, window=window,
-                  scale=d ** -0.5)
+                  scale=d ** -0.5, softcap=cap)
         inputs = [_leaf(rng, (b, s, hkv * rep, d)), _leaf(rng, (b, s, hkv, d)),
                   _leaf(rng, (b, s, hkv, d))]
         weights = [torch.from_numpy(rng.standard_normal((b, s, hkv * rep, d))
@@ -217,10 +223,11 @@ def test_detach_fault_regression(monkeypatch):
 
 
 def test_kernels_without_backward_raise_under_grad(monkeypatch):
-    """The decode kernels, and flash with a softcap or a ring, raise under
-    grad on the card's route; ``ssd``, ``rglru``, the gated norm and flash
-    at head_dim 256 go through their Functions and return outputs that
-    carry a gradient."""
+    """The decode kernels, and flash with a ring, raise under grad on the
+    card's route; ``ssd``, ``rglru``, the gated norm, flash at head_dim 256
+    and flash with a softcap go through their Functions and return outputs
+    that carry a gradient (the softcap reaching both of flash's
+    launchers)."""
     calls = {}
     _fake_card(monkeypatch, calls)
     rng = np.random.default_rng(3)
@@ -243,11 +250,22 @@ def test_kernels_without_backward_raise_under_grad(monkeypatch):
         ops.paged_decode_attention(q, kc, kc, torch.zeros(2, 8), cl[:, None],
                                    cache_len=cl, scale=0.125)
     pos = torch.arange(1, dtype=torch.int32)
-    for kw in (dict(softcap=30.0), dict(k_cache=kc, v_cache=kc,
-                                        cache_pos=torch.zeros(2, 8))):
-        with pytest.raises(NotImplementedError, match="backward"):
-            ops.flash_attention(q, q, q, q_pos=pos, k_pos=pos, scale=0.125,
-                                **kw)
+    with pytest.raises(NotImplementedError, match="backward.*ring"):
+        ops.flash_attention(q, q, q, q_pos=pos, k_pos=pos, scale=0.125,
+                            k_cache=kc, v_cache=kc,
+                            cache_pos=torch.zeros(2, 8))
+    seen = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        def spy(*a, _name=name, _f=getattr(fk, name), **k):
+            seen[_name] = k.get("softcap")
+            return _f(*a, **k)
+        monkeypatch.setattr(fk, name, spy)
+    capped = ops.flash_attention(q, q, q, q_pos=pos, k_pos=pos, scale=0.125,
+                                 softcap=30.0)
+    assert capped.grad_fn is not None
+    capped.sum().backward()
+    assert seen == {"flash_attention": 30.0, "flash_attention_bwd": 30.0}
+    assert q.grad is not None and torch.isfinite(q.grad).all()
     q256 = _leaf(rng, (2, 1, 4, 256))
     assert ops.flash_attention(q256, q256, q256, q_pos=pos, k_pos=pos,
                                scale=0.0625).grad_fn is not None
@@ -282,6 +300,34 @@ def test_train_step_launches_match_expected(monkeypatch, remat):
     assert calls["flash_attention_bwd"] == want["flash_attention_bwd"]
     assert norm_fwd == want["rmsnorm"] and norm_bwd == want["rmsnorm_bwd"]
     assert want["flash_attention"] == cfg.num_layers * (2 if remat else 1)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_moe_train_step_launches_match_expected(monkeypatch, remat):
+    """mixtral-8x22b's smoke train step on the card's route (head_dim 64,
+    which the backward kernel takes): flash, the norm forms and their
+    backwards as often as ``chip_smoke.expected_train_launches`` says for a
+    stack of attention layers, the MoE FFN (batched products) launching
+    none of its own; the step's loss finite and its aux loss positive."""
+    torch.set_num_threads(2)
+    cfg = get_smoke_config("mixtral-8x22b").replace(
+        dtype=torch.float32, remat=remat, head_dim=64)
+    calls = {}
+    _fake_card(monkeypatch, calls)
+    state = tsteps.init_train_state(cfg, 0, "cpu")
+    _, metrics = tsteps.make_train_step(cfg, TrainConfig())(state,
+                                                            _batch(cfg))
+    want = chip_smoke.expected_train_launches(cfg, remat)
+    fwd = ("rmsnorm", "rmsnorm_pair", "add_rmsnorm")
+    got = {k: calls.get(k, 0) for k in ("flash_attention",
+                                        "flash_attention_bwd")}
+    got["rmsnorm"] = sum(calls.get(k, 0) for k in fwd)
+    got["rmsnorm_bwd"] = sum(calls.get(f"{k}_bwd", 0) for k in fwd)
+    assert got == {k: want[k] for k in got}
+    assert set(calls) <= {*fwd, *(f"{k}_bwd" for k in fwd),
+                          "flash_attention", "flash_attention_bwd"}
+    assert want["flash_attention"] == cfg.num_layers * (2 if remat else 1)
+    assert float(metrics["aux"]) > 0 and np.isfinite(float(metrics["loss"]))
 
 
 @pytest.mark.parametrize("remat", [True, False])

@@ -7,7 +7,10 @@ reference functions), the loss gradients and ``make_train_step`` (against
 granite-8b smoke configs in f32 (the loss gradients also at minicpm-2b's
 and musicgen-medium's, D 64 stacks that train on one card;
 ``test_torch_train_recurrent.py`` runs both at the recurrent stacks'),
-remat against no remat, and the synthetic batches.  The reference's ``train_loop`` builds a host mesh that fails on
+mixtral-8x22b's (MoE: the aux loss in the loss, the router's top-k and
+the capacity drops under grad; also at a capacity factor that drops
+choices) and qwen3-4b's with an attention softcap, remat against no
+remat, and the synthetic batches.  The reference's ``train_loop`` builds a host mesh that fails on
 its own tests, so the reference functions, not the loop, are the oracle.
 
 Inputs are made with numpy from a seed and the weights bridged with
@@ -23,7 +26,10 @@ Inputs are made with numpy from a seed and the weights bridged with
     in another order moves across, gets another quantum, and Adam turns
     that into an update up to lr the other way;
   * plain backward: f32 1e-5 + 1e-5 relative; bf16 one rounding of the
-    largest |gradient| (2^-7 relative, as the forward norm is held).
+    largest |gradient| (2^-7 relative, as the forward norm is held); flash
+    with a softcap against the reference's softcapped attention: f32
+    2e-5 of max(1, max|ref|), bf16 within one bf16 spacing of the f32
+    oracle (``_bf16_spacings``).
 """
 import jax
 import jax.numpy as jnp
@@ -261,6 +267,69 @@ def test_flash_bwd_plain_matches_jax_vjp(rep, d, causal, window):
         np.testing.assert_allclose(_np(g_), _np(w_), atol=1e-5, rtol=1e-5)
 
 
+def _bf16_spacings(got, want) -> float:
+    """Largest |got - want| in bf16 spacings at |want| (f32), floored at
+    the spacing of max|want| / 256: a gradient near zero beside large ones
+    is held to the tensor's scale (``chip_smoke.bwd_spacings``)."""
+    want = np.abs(want).astype(np.float64), want.astype(np.float64)
+    mag = np.maximum(want[0], want[0].max() / 256 + 1e-30)
+    spacing = np.exp2(np.floor(np.log2(mag)) - 7)
+    return float((np.abs(got.astype(np.float64) - want[1]) / spacing).max())
+
+
+SOFTCAP = 50.0
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 6),
+                                           (False, 0)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_plain_softcap_matches_jax_vjp(d, causal, window, dt):
+    """``flash_attention_bwd_plain`` with a softcap of 50, from the plain
+    forward's output and log-sum-exp (the capped logits'), against
+    ``jax.vjp`` of ``ref.mha_reference(softcap=50)`` (GQA 3 over 2 KV
+    heads).  q is drawn 16 times wider, so that the logits reach the cap's
+    range (|q.k| * scale to ~60, 1 - t^2 down to ~0.3) and a missing
+    ``1 - t^2`` shows; the f32 oracle runs on the bf16 inputs' values.
+    ``out`` is the f32 forward's on those values in both dtypes: rounded
+    to bf16 it moves ``delta`` by its rounding, which ``dS = P (dP -
+    delta)`` turns into up to ~130 spacings of dq where the capped softmax
+    is peaked (|dP - delta| << |delta|) -- the forward's rounding, not the
+    backward's arithmetic held here (phase 2t of ``chip_smoke.py`` holds
+    the kernel on its own bf16 out against this function on the same)."""
+    rng = np.random.default_rng(d + window + 7 * causal)
+    b, s, hkv, rep_ = 2, 19, 2, 3
+    hq = hkv * rep_
+    q = rng.standard_normal((b, s, hq, d)).astype(np.float32) * 16
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    T = [torch.from_numpy(a).to(tdt) for a in (q, k, v, do)]
+    q, k, v, do = (_np(t) for t in T)            # the values the port sees
+    scale = d ** -0.5
+    f = lambda q_, k_, v_: jref.mha_reference(
+        q_, k_, v_, causal=causal, window=window, scale=scale,
+        softcap=SOFTCAP)
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [_np(w) for w in vjp(jnp.asarray(do))]
+    pos = torch.arange(s, dtype=torch.int32)
+    kw = dict(q_pos=pos, k_pos=pos, causal=causal, window=window,
+              scale=scale, softcap=SOFTCAP)
+    out, lse = fk.flash_attention_plain(*(t.float() for t in T[:3]),
+                                        return_lse=True, **kw)
+    u = np.einsum("bshd,bthd->bhst", q, np.repeat(k, rep_, 2)) * scale
+    assert np.abs(u).max() > SOFTCAP          # the cap bites
+    got = fk.flash_attention_bwd_plain(*T[:3], out, lse, T[3], **kw)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g_.dtype == tdt and g_.shape == w_.shape, name
+        if dt == "f32":
+            np.testing.assert_allclose(_np(g_), w_, rtol=0, err_msg=name,
+                                       atol=2e-5 * max(1.0, np.abs(w_).max()))
+        else:
+            assert _bf16_spacings(_np(g_), w_) <= 1.0, name
+
+
 def _jax_norm(scale, x):
     return jlayers.rmsnorm({"scale": scale}, x, EPS)
 
@@ -312,11 +381,12 @@ def test_norm_bwd_plains_match_jax_vjp(form, dt):
 
 
 # -------------------------------------------- the train step against JAX
-def _states(arch: str, tc_kw: dict, seed: int = 0):
+def _states(arch: str, tc_kw: dict, seed: int = 0, **over):
     """The reference's f32 train state and the port's on the same
-    weights."""
-    jc = jsmoke(arch).replace(dtype=jnp.float32, param_dtype=jnp.float32)
-    tcfg = tsmoke(arch).replace(dtype=torch.float32)
+    weights (``over``: config fields set on both)."""
+    jc = jsmoke(arch).replace(dtype=jnp.float32, param_dtype=jnp.float32,
+                              **over)
+    tcfg = tsmoke(arch).replace(dtype=torch.float32, **over)
     js = jsteps.init_train_state(jax.random.PRNGKey(seed), jc)
     if tc_kw.get("grad_compression") == "int8_ef":
         js["ef"] = jopt.ef_init(js["params"])
@@ -343,30 +413,70 @@ def _as_port(tree, tcfg):
     return dict(m.named_parameters())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b", "minicpm-2b",
-                                  "musicgen-medium"])
-def test_loss_gradients_match_reference(arch):
-    """The loss and every parameter's gradient of one batch, against
-    ``jax.value_and_grad`` of the reference's loss; every gradient is
-    nonzero."""
+def _loss_gradients(arch: str, **over) -> dict:
+    """The loss, ce and aux and every parameter's gradient of one batch,
+    against ``jax.value_and_grad`` of the reference's loss; every gradient
+    is nonzero.  Returns the port's metrics."""
     torch.set_num_threads(2)
     tc_kw = dict(total_steps=10)
-    jc, tcfg, js, ts = _states(arch, tc_kw)
+    jc, tcfg, js, ts = _states(arch, tc_kw, **over)
     batch = _batch(np.random.default_rng(5), jc.vocab_size,
                    audio=jc.family == "audio")
     jl = jsteps.make_loss_fn(jc, JTC(**tc_kw))
-    (jloss, _), jg = jax.jit(jax.value_and_grad(jl, has_aux=True))(
+    (jloss, jm), jg = jax.jit(jax.value_and_grad(jl, has_aux=True))(
         js["params"], {k: jnp.asarray(v) for k, v in batch.items()})
     model = ts["model"]
-    loss, _ = tsteps.make_loss_fn(tcfg, TTC(**tc_kw))(
+    loss, tm = tsteps.make_loss_fn(tcfg, TTC(**tc_kw))(
         model, tsteps.to_device(batch, "cpu"))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    for k in ("ce", "aux"):
+        np.testing.assert_allclose(float(tm[k].detach()), float(jm[k]),
+                                   rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
     want = _as_port(jg, tcfg)
     for name, p in model.named_parameters():
         assert p.grad is not None and p.grad.abs().max() > 0, name
         np.testing.assert_allclose(_np(p.grad), _np(want[name]), atol=1e-5,
                                    rtol=1e-4, err_msg=name)
+    return tm
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b", "minicpm-2b",
+                                  "musicgen-medium", "mixtral-8x22b"])
+def test_loss_gradients_match_reference(arch):
+    """The loss and every parameter's gradient of one batch, against
+    ``jax.value_and_grad`` of the reference's loss; every gradient is
+    nonzero (mixtral-8x22b: the router's through the top-k weights and
+    the aux loss)."""
+    tm = _loss_gradients(arch)
+    if arch == "mixtral-8x22b":
+        assert float(tm["aux"].detach()) > 0
+
+
+@pytest.mark.parametrize("cap", [SOFTCAP, 0.5])
+def test_softcap_loss_gradients_match_reference(cap):
+    """qwen3-4b's smoke stack with an attention softcap (``logit_softcap``;
+    0.5 bites at the smoke widths' small logits, 50 barely does): the loss
+    and every gradient against the reference's, whose attention caps its
+    logits in jnp."""
+    _loss_gradients("qwen3-4b", logit_softcap=cap)
+
+
+def test_moe_drops_under_grad_match_reference(monkeypatch):
+    """mixtral-8x22b's smoke stack at capacity factor 0.5, where each
+    layer's experts hold half of the (token, choice) pairs
+    (``dropped_choices`` > 0 in every layer's call): the loss, ce, aux and
+    every gradient against the reference's, which drops the same pairs."""
+    from repro_torch.models import moe as tmoe
+    drops, ffn = [], tmoe.moe_ffn
+
+    def counted(p, x, cfg, num_groups=1):
+        drops.append(int(tmoe.dropped_choices(p, x, cfg, num_groups)))
+        return ffn(p, x, cfg, num_groups)
+    monkeypatch.setattr(tmoe, "moe_ffn", counted)
+    _loss_gradients("mixtral-8x22b", moe_capacity_factor=0.5)
+    assert drops and min(drops) > 0, drops
 
 
 def test_eval_step_matches_reference():
@@ -387,7 +497,8 @@ def test_eval_step_matches_reference():
 
 STEP_CASES = [("qwen3-4b", 1, "none"), ("qwen3-4b", 2, "none"),
               ("granite-8b", 1, "none"), ("granite-8b", 2, "none"),
-              ("qwen3-4b", 1, "int8_ef"), ("granite-8b", 2, "int8_ef")]
+              ("qwen3-4b", 1, "int8_ef"), ("granite-8b", 2, "int8_ef"),
+              ("mixtral-8x22b", 1, "none"), ("mixtral-8x22b", 2, "none")]
 
 
 @pytest.mark.parametrize("arch,micro,comp", STEP_CASES)
